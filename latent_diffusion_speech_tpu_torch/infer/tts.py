@@ -57,7 +57,7 @@ class TTSPipeline:
     # -- text -> semantic ----------------------------------------------------
 
     def text_to_phones(self, text: str, language: str = "ZH") -> Tuple[np.ndarray, np.ndarray]:
-        from latent_diffusion_speech_tpu.text import text_to_sequence
+        from latent_diffusion_speech_tpu_torch.text import text_to_sequence
 
         (phones, tones, _lang), _ = text_to_sequence(text, language)
         return np.asarray(phones, np.int32), np.asarray(tones, np.int32)

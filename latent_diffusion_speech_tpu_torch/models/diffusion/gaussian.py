@@ -13,7 +13,7 @@ channel concat [x_t ++ cond] -> (B, T, M + H).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,16 +27,24 @@ __all__ = ["GaussianDiffusion"]
 class GaussianDiffusion:
     def __init__(
         self,
-        denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+        denoise_fn: Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor],
         out_dims: int = 128,
         timesteps: int = 1000,
         k_step: int = 1000,
         max_beta: float = 0.02,
         acoustic_scale: float = 1.0,
         pad_multiple: int = 8,
+        prepare_sample_params: Optional[Callable[[], Any]] = None,
     ):
-        """denoise_fn: ([x_t ++ cond] (B, T, M+H), t (B,)) -> eps (B, T, M)."""
+        """denoise_fn: (params, [x_t ++ cond] (B, T, M+H), t (B,)) -> eps
+        (B, T, M), where params is what `prepare_sample_params` returned for
+        this `sample` call (None without the hook).
+
+        prepare_sample_params: optional once-per-sample hook, run before the
+        sampler loop (e.g. packing the weights into a kernel's layout), so
+        its cost is paid once per call rather than per denoiser step."""
         self.denoise_fn = denoise_fn
+        self.prepare_sample_params = prepare_sample_params
         self.out_dims = out_dims
         self.k_step = k_step
         self.acoustic_scale = acoustic_scale
@@ -82,9 +90,10 @@ class GaussianDiffusion:
             x = torch.randn((B, T, self.out_dims), generator=generator, device=cond.device,
                             dtype=torch.float32).to(cond.dtype)
         x, cond_p, orig_T = self._pad(x, cond)
+        params = self.prepare_sample_params() if self.prepare_sample_params is not None else None
 
         def eps_fn(x_t, t):
-            return self.denoise_fn(torch.cat([x_t, cond_p.to(x_t.dtype)], dim=-1), t)
+            return self.denoise_fn(params, torch.cat([x_t, cond_p.to(x_t.dtype)], dim=-1), t)
 
         ns = NoiseSchedule(self.schedule.betas[:t_max])
         x = dpmpp_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)

@@ -6,6 +6,9 @@ condition = unit_embed(units) [+ volume_embed(volume)] [+ spk_embed(spk_id-1)]
             [+ aug_shift_embed(aug_shift / 5)]
 
 Only the flagship denoiser (`UNet1D`) is ported; `denoiser='general'` raises.
+`Unit2MelSystem(unet_impl=...)` picks how the sampler runs the denoiser, as
+in the JAX package: 'xla' (and 'auto') the eager module, 'pallas' the fused
+whole-UNet kernel (`ops/kernels/unet_fused.py`) for B=1.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from torch import nn
 
 from latent_diffusion_speech_tpu_torch.models.diffusion.gaussian import GaussianDiffusion
 from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import UNet1D, UNet1DConfig
-from latent_diffusion_speech_tpu_torch.ops.layers import Dense, cast_compute_dtype, seeded
+from latent_diffusion_speech_tpu_torch.ops.kernels.unet_fused import pack_unet_params, unet_fwd
+from latent_diffusion_speech_tpu_torch.ops.layers import Dense, cast_compute_dtype, resolve_device, seeded
 
 __all__ = ["Unit2MelConfig", "Unit2Mel", "Unit2MelSystem"]
 
@@ -104,24 +108,55 @@ class Unit2MelSystem:
         cfg: Unit2MelConfig,
         state_dict: Optional[dict] = None,
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device=None,
         seed: int = 0,
+        unet_impl: str = "auto",
     ):
+        """device: None means `cuda` (raises without a card).
+
+        unet_impl: how sampling runs the denoiser, with the JAX package's
+        values.  'xla' runs the eager `UNet1D` module (on the card, its
+        self-attention is the K4 kernel).  'pallas' packs the weights once
+        per `infer` call and sends every B=1 denoiser forward through the
+        fused whole-UNet kernel (`ops/kernels/unet_fused.py::unet_fwd`: one
+        launch per forward on the card, its plain version on the CPU); B>1
+        stays on the eager module, as in the JAX package.  'auto' resolves
+        to 'xla', as it does there."""
+        if unet_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unet_impl must be 'auto', 'xla' or 'pallas', got {unet_impl!r}")
+        if cfg.denoiser == "general" and unet_impl == "pallas":
+            raise ValueError("the fused UNet kernel targets the flagship layout; use denoiser='flagship' with it")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.unet_impl = unet_impl
+        self.device = resolve_device(device)
         module = seeded(lambda: Unit2Mel(cfg), seed)
         if state_dict is not None:
             module.load_state_dict(state_dict)
         self.module = cast_compute_dtype(module, dtype).to(self.device).eval()
         self.diffusion = GaussianDiffusion(
-            denoise_fn=self.module.denoise,
+            denoise_fn=self._denoise,
             out_dims=cfg.out_dims,
             timesteps=cfg.timesteps,
             k_step=cfg.k_step,
             max_beta=cfg.max_beta,
             acoustic_scale=cfg.acoustic_scale,
             pad_multiple=2 ** (len(cfg.block_out_channels) - 1),
+            prepare_sample_params=self._prepare_sample_params,
         )
+
+    def _pallas_unet_active(self) -> bool:
+        return self.unet_impl == "pallas"
+
+    def _prepare_sample_params(self):
+        """Once per `infer` call: the fused kernel's weight layout, or None."""
+        if self._pallas_unet_active():
+            return pack_unet_params(self.module.unet, self.cfg.unet_config())
+        return None
+
+    def _denoise(self, packed, x, t):
+        if packed is not None and x.shape[0] == 1:
+            return unet_fwd(packed, x, t, self.cfg.unet_config())
+        return self.module.denoise(x, t)
 
     @torch.no_grad()
     def condition(self, units, volume=None, spk_id=None, aug_shift=None) -> torch.Tensor:

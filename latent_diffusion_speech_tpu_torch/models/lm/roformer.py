@@ -21,10 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from latent_diffusion_speech_tpu.text.symbols import num_tones, symbols
+from latent_diffusion_speech_tpu_torch.text.symbols import num_tones, symbols
 from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig
 from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention
-from latent_diffusion_speech_tpu_torch.ops.layers import Dense, LayerNorm, cast_compute_dtype, seeded
+from latent_diffusion_speech_tpu_torch.ops.layers import Dense, LayerNorm, cast_compute_dtype, resolve_device, seeded
 
 __all__ = ["StackConfig", "RoformerConfig", "Roformer", "RoformerSystem", "rotary_sin_cos"]
 
@@ -310,11 +310,12 @@ class RoformerSystem:
         cfg: RoformerConfig,
         state_dict: Optional[dict] = None,
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device=None,
         seed: int = 0,
     ):
+        """device: None means `cuda` (raises without a card)."""
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         module = seeded(lambda: Roformer(cfg), seed)
         if state_dict is not None:
             module.load_state_dict(state_dict)

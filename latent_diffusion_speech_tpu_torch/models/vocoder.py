@@ -13,7 +13,7 @@ import torch
 
 from latent_diffusion_speech_tpu_torch.models.vaegan.config import VAEGANConfig
 from latent_diffusion_speech_tpu_torch.models.vaegan.models import Generator
-from latent_diffusion_speech_tpu_torch.ops.layers import cast_compute_dtype, seeded
+from latent_diffusion_speech_tpu_torch.ops.layers import cast_compute_dtype, resolve_device, seeded
 
 __all__ = ["Vocoder"]
 
@@ -25,16 +25,17 @@ class Vocoder:
         cfg: Optional[VAEGANConfig] = None,
         state_dict: Optional[dict] = None,
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device=None,
         seed: int = 0,
     ):
         """state_dict: the generator's weights (`convert.generator_from_jax`);
-        None builds seeded random weights."""
+        None builds seeded random weights.  device: None means `cuda`
+        (raises without a card)."""
         if vocoder_type != "hifi-vaegan":
             raise ValueError(f"[x] Unknown vocoder: {vocoder_type}")
         self.vocoder_type = vocoder_type
         self.cfg = cfg if cfg is not None else VAEGANConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         gen = seeded(lambda: Generator(self.cfg), seed)
         if state_dict is not None:
             gen.load_state_dict(state_dict)

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-All `csrc/*.cu` sources compile in one `nvcc` call into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds).
+Each `csrc/*.cu` source compiles in its own `nvcc -c` process, all started
+together, and one more `nvcc` links the objects into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds).
 The library lands in a build directory keyed by a hash of the sources and
 the flags, so an edited source rebuilds and an unchanged one loads the
 library already there.  The build runs at the first kernel launch, never at
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import threading
@@ -29,7 +31,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -73,23 +75,31 @@ def load_library() -> ctypes.CDLL:
         log_path = out_dir / "nvcc.log"
         if not so_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-            # build to a temporary name, then rename: a concurrent process
-            # never loads a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
             t0 = time.perf_counter()
+            tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+            # one compile per source, all at once, then one link; the library
+            # is built under a temporary name and renamed, so a concurrent
+            # process never loads a half-written one
+            jobs = []
+            for src in sorted(CSRC_DIR.glob("*.cu")):
+                cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src),
+                       "-o", str(tmp_dir / (src.stem + ".o"))]
+                jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                   text=True)))
+            # wait for every compile before reporting a failure: no process outlives the call
+            log = [proc.communicate()[1] for _, proc in jobs]
+            for (cmd, proc), err in zip(jobs, log):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
+            tmp = tmp_dir / so_path.name
+            cmd = [_nvcc(), "-shared", "-o", str(tmp), *sorted(str(p) for p in tmp_dir.glob("*.o"))]
             proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
             if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-                )
-            log_path.write_text(proc.stderr)
+                raise RuntimeError(f"nvcc link failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+            log_path.write_text("".join(log) + proc.stderr)
             os.replace(tmp, so_path)
-            _info.update(built=True, seconds=seconds)
+            shutil.rmtree(tmp_dir)
+            _info.update(built=True, seconds=time.perf_counter() - t0)
         else:
             _info.update(built=False, seconds=0.0)
         _info.update(path=str(so_path), log=log_path.read_text() if log_path.exists() else "")

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "LayerNorm", "GroupNorm", "cast_compute_dtype", "seeded"]
+__all__ = ["Dense", "LayerNorm", "GroupNorm", "cast_compute_dtype", "seeded", "resolve_device"]
 
 
 class Dense(nn.Linear):
@@ -59,3 +59,17 @@ def seeded(factory, seed: int):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         return factory()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `None` means the card (`cuda`).
+
+    Asking for `cuda` without a CUDA device raises; the CPU is used only when
+    the caller asks for it (`device="cpu"`)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested (the default) but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device

@@ -11,14 +11,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from latent_diffusion_speech_tpu_torch.ops.layers import resolve_device
+
 __all__ = ["EuclideanCodebook"]
 
 
 class EuclideanCodebook:
     """Nearest-centroid quantizer around a (K, D) codebook."""
 
-    def __init__(self, codebook, device="cpu"):
-        self.codebook = torch.as_tensor(np.asarray(codebook, np.float32), device=device)
+    def __init__(self, codebook, device=None):
+        """device: None means `cuda` (raises without a card)."""
+        self.codebook = torch.as_tensor(np.asarray(codebook, np.float32), device=resolve_device(device))
 
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
         """(..., D) -> ids (...,): argmax of 2 x.e - |e|^2."""

@@ -31,7 +31,7 @@ SMALL = dict(input_channel=12, n_spk=4, out_dims=6, n_hidden=10, block_out_chann
 def _pair(gelu="auto"):
     jsys = JUnit2MelSystem(JUnit2MelConfig(gelu=gelu, **SMALL), seed=0)
     state = unit2mel_from_jax(jax.tree_util.tree_map(np.asarray, jsys.params))
-    return jsys, Unit2MelSystem(Unit2MelConfig(gelu=gelu, **SMALL), state_dict=state)
+    return jsys, Unit2MelSystem(Unit2MelConfig(gelu=gelu, **SMALL), state_dict=state, device="cpu")
 
 
 @pytest.fixture(scope="module")

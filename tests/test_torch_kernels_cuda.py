@@ -8,16 +8,25 @@ machine without it:
 
 Parity runs in full f32 (TF32 off); bf16 is held to the f32 plain version at
 atol/rtol 3e-2, the tolerance tests/test_pallas.py holds the TPU kernel's
-bf16 output to.
+bf16 output to.  The fused UNet (K2/K3) is held to its plain version at
+1e-3 of the output's scale in f32, and in bf16 to the K2/K3 contract
+(tests/test_pallas_unet.py): corr > 0.999, max error <= max(4 x the plain
+version's own bf16-vs-f32 error, 2% of scale).
 """
 
 import pytest
 import torch
 
+import copy
+
+from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import UNet1D, UNet1DConfig
+from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerConfig, RoformerSystem, StackConfig
 from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig, process_logits
 from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
 from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+from latent_diffusion_speech_tpu_torch.ops.kernels import unet_fused as k23
+from latent_diffusion_speech_tpu_torch.ops.layers import cast_compute_dtype, seeded
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +116,50 @@ def test_k1_sampled_tokens_in_support_bf16(dev):
         assert bool(torch.isfinite(chosen[live]).all())
         assert bool((cur[~live] == lm.cfg.semantic_pad).all())
         rep[torch.arange(B, device=dev), cur] = True
+
+
+# small UNet with head dims the kernel takes (32 and 48)
+UNET = UNet1DConfig(in_channels=48, out_channels=16, block_out_channels=(64, 96), layers_per_block=1,
+                    n_heads=2, norm_num_groups=8)
+
+
+@pytest.mark.parametrize("T", [32, 72])
+def test_unet_fwd_kernel_matches_plain(dev, T):
+    m32 = seeded(lambda: UNet1D(UNET), 0).to(dev).eval()
+    m16 = cast_compute_dtype(copy.deepcopy(m32), torch.bfloat16)
+    m32r = cast_compute_dtype(copy.deepcopy(m16), torch.float32)  # the bf16 weights in f32
+    p32, p16, p32r = (k23.pack_unet_params(m, UNET) for m in (m32, m16, m32r))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, T, UNET.in_channels), generator=gen, device=dev)
+    t = torch.tensor([437.0], device=dev)
+    with torch.no_grad():
+        before = k23.launches
+        got = k23.unet_fwd(p32, x, t, UNET)
+        assert k23.launches == before + 1
+        ref = k23.unet_fwd_plain(p32, x, t, UNET)
+        scale = ref.abs().max().item()
+        torch.testing.assert_close(got, ref, atol=1e-3 * scale, rtol=0)
+        xb = x.bfloat16()
+        gotb = k23.unet_fwd(p16, xb, t, UNET).float()
+        plainb = k23.unet_fwd_plain(p16, xb, t, UNET).float()
+        ref32 = k23.unet_fwd_plain(p32r, xb.float(), t, UNET)
+    bound = max(4 * (plainb - ref32).abs().max().item(), 0.02 * ref32.abs().max().item())
+    assert (gotb - ref32).abs().max().item() <= bound
+    assert torch.corrcoef(torch.stack([gotb.flatten(), ref32.flatten()]))[0, 1].item() > 0.999
+
+
+def test_unit2mel_pallas_routes_b1_through_the_kernel(dev):
+    cfg = Unit2MelConfig(input_channel=16, n_spk=4, out_dims=16, n_hidden=32, block_out_channels=(64, 96),
+                         n_layers=1, n_heads=2, timesteps=50, k_step=50)
+    sys_ = Unit2MelSystem(cfg, dtype=torch.bfloat16, device=dev, seed=0, unet_impl="pallas")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    spk = torch.ones((1, 1), dtype=torch.long, device=dev)
+    before = k23.launches
+    out = sys_.infer(torch.randn((1, 16, 16), generator=gen, device=dev), spk_id=spk, infer_speedup=10)
+    assert k23.launches == before + 5  # one launch per denoiser evaluation
+    assert torch.isfinite(out.float()).all()
+    before = k23.launches
+    out = sys_.infer(torch.randn((2, 16, 16), generator=gen, device=dev), spk_id=spk.expand(2, 1),
+                     infer_speedup=10)
+    assert k23.launches == before  # B > 1: the eager module
+    assert out.shape == (2, 16, 16)

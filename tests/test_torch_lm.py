@@ -46,7 +46,7 @@ def lms():
         semantic_kmeans_num=300, n_spk=4,
     )
     state = roformer_from_jax(jax.tree_util.tree_map(np.asarray, jlm.params))
-    return jlm, RoformerSystem(cfg, state_dict=state)
+    return jlm, RoformerSystem(cfg, state_dict=state, device="cpu")
 
 
 def _inputs(rng, B, L):

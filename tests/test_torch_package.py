@@ -1,7 +1,10 @@
 """Package hygiene of the PyTorch port.
 
-* importing every module of `latent_diffusion_speech_tpu_torch` loads no JAX;
-* no module of the port names jax, flax or optax in an import;
+* importing every module of `latent_diffusion_speech_tpu_torch` and running
+  its text frontend loads no JAX, nothing of the JAX package and no yaml;
+* no module of the port, and not chip_smoke.py, names jax, flax, optax or
+  the JAX package in an import;
+* the entry points run on the card unless asked for the CPU;
 * each config dataclass the port declares again has the same fields and
   defaults as its JAX counterpart, so the two cannot drift.
 """
@@ -36,7 +39,11 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, sys\n"
         f"for name in {MODULES!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
+        "from latent_diffusion_speech_tpu_torch.infer.tts import TTSPipeline\n"
+        "phones, tones = TTSPipeline.text_to_phones(None, 'Hello world, this is a test.', 'EN')\n"
+        "assert len(phones) == len(tones) > 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'latent_diffusion_speech_tpu', 'yaml'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -48,12 +55,47 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_no_jax_imports_in_the_source():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b", re.M)
+    # `latent_diffusion_speech_tpu` followed by a word boundary that is not
+    # `_`: the JAX package, not the port (`latent_diffusion_speech_tpu_torch`)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|latent_diffusion_speech_tpu(?![\w]))", re.M
+    )
     # `_build/` holds kernel build outputs (gitignored), not the port's source
     sources = [p for p in PORT_DIR.rglob("*.py") if "_build" not in p.relative_to(PORT_DIR).parts]
+    sources.append(PORT_DIR.parent / "chip_smoke.py")
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert len(sources) >= 15
     assert not offenders
+    assert pattern.search("from latent_diffusion_speech_tpu.text import symbols\n")
+    assert not pattern.search("from latent_diffusion_speech_tpu_torch.text import symbols\n")
+
+
+def _default_systems():
+    from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
+    from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
+
+    return {
+        "RoformerSystem": lambda: roformer.RoformerSystem(roformer.RoformerConfig()),
+        "Unit2MelSystem": lambda: unit2mel.Unit2MelSystem(unit2mel.Unit2MelConfig()),
+        "Vocoder": lambda: Vocoder("hifi-vaegan"),
+        "EuclideanCodebook": lambda: EuclideanCodebook([[0.0, 1.0]]),
+    }
+
+
+@pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "EuclideanCodebook"])
+def test_entry_points_default_to_the_card(name):
+    """A default-constructed entry point asks for `cuda`: without a card it
+    raises (never a silent CPU run); with one it lands there."""
+    import torch
+
+    make = _default_systems()[name]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    else:
+        obj = make()
+        device = obj.codebook.device if name == "EuclideanCodebook" else obj.device
+        assert device.type == "cuda"
 
 
 def _fields(cls):

@@ -55,11 +55,12 @@ def pipes():
     jpipe = JTTSPipeline(jdiff, jvoc, lm=jlm, codebook=codebook)
 
     pipe = TTSPipeline(
-        Unit2MelSystem(Unit2MelConfig(**U2M), state_dict=convert.unit2mel_from_jax(_np(jdiff.params))),
+        Unit2MelSystem(Unit2MelConfig(**U2M), state_dict=convert.unit2mel_from_jax(_np(jdiff.params)),
+                       device="cpu"),
         Vocoder("hifi-vaegan", VAEGANConfig(**VAEGAN),
-                state_dict=convert.generator_from_jax(_np(jvoc.vocoder.generator_params))),
+                state_dict=convert.generator_from_jax(_np(jvoc.vocoder.generator_params)), device="cpu"),
         lm=RoformerSystem(RoformerConfig(encoder=StackConfig(**STACK), decoder=StackConfig(**STACK), **LM),
-                          state_dict=convert.roformer_from_jax(_np(jlm.params))),
+                          state_dict=convert.roformer_from_jax(_np(jlm.params)), device="cpu"),
         codebook=codebook,
     )
     return jpipe, pipe

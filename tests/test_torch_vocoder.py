@@ -34,7 +34,8 @@ def test_generator_matches(rng, name):
     geo = GEOMETRIES[name]
     codec = HifiVAEGAN.random_init(JVAEGANConfig(**geo))
     voc = Vocoder("hifi-vaegan", VAEGANConfig(**geo),
-                  state_dict=generator_from_jax(jax.tree_util.tree_map(np.asarray, codec.generator_params)))
+                  state_dict=generator_from_jax(jax.tree_util.tree_map(np.asarray, codec.generator_params)),
+                  device="cpu")
     z = rng.standard_normal((2, 10, geo["inter_channels"])).astype(np.float32)
     ref = np.asarray(codec.decode(jnp.asarray(z)))
     got = voc.infer(torch.from_numpy(z)).numpy()
@@ -45,7 +46,7 @@ def test_generator_matches(rng, name):
 
 
 def test_vocoder_facade():
-    voc = Vocoder("hifi-vaegan")
+    voc = Vocoder("hifi-vaegan", device="cpu")
     assert (voc.vocoder_sample_rate, voc.vocoder_hop_size, voc.dimension) == (44100, 512, 256)
     with pytest.raises(ValueError, match="Unknown vocoder"):
-        Vocoder("nsf-hifigan")
+        Vocoder("nsf-hifigan", device="cpu")
