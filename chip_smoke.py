@@ -299,6 +299,7 @@ def check_unet(dev) -> dict:
                 raise AssertionError(f"unet_fwd bf16 T={T}: max err {err} (limit {limit}), corr {corr}")
             worst = max(worst, err)
             ms = cuda_time_ms(lambda: k23.unet_fwd(p16, xb, t, cfg), iters=10, warmup=2)
+            ms32 = cuda_time_ms(lambda: k23.unet_fwd(p32, x, t, cfg), iters=10, warmup=2)
             plain_ms = cuda_time_ms(lambda: k23.unet_fwd_plain(p16, xb, t, cfg), iters=3, warmup=1)
             eager_ms = cuda_time_ms(lambda: m16(xb, t), iters=5, warmup=2)
             # inputs read once (packed weights and f32 params, the scale/shift
@@ -308,7 +309,8 @@ def check_unet(dev) -> dict:
             bound_ms, bound_by = bound(moved, k23.unet_flops(p16, T))
             rows[T] = dict(ms=ms, plain_ms=plain_ms, eager_ms=eager_ms, bound_ms=bound_ms, bound_by=bound_by)
             print(f"unet_fwd T={T}: f32 err {e32:.2e} (scale {scale:.3f}); bf16 vs f32 plain max err {err:.3e} "
-                  f"(limit {limit:.3e}), corr {corr:.6f}; kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+                  f"(limit {limit:.3e}), corr {corr:.6f}; kernel {ms * 1e3:.1f} us (f32 kernel {ms32 * 1e3:.1f} us), "
+                  f"plain {plain_ms * 1e3:.1f} us, "
                   f"eager UNet1D.forward {eager_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({bound_by}, "
                   f"{moved / 1e6:.1f} MB, {k23.unet_flops(p16, T) / 1e9:.2f} GFLOP); grid {k23.launch_info}")
             if T == 448:

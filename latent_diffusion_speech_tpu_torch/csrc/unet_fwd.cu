@@ -12,8 +12,9 @@
 // 35.4 / 90.1 GFLOP at T = 64 / 448 / 1024 (~91 us on the bf16 tensor cores
 // at T = 1024).  The TPU kernels lost to ~67 us per `pallas_call` and a slow
 // DMA queue; here the cost to beat is PyTorch's ~1300 launches per eager
-// forward.  This first version is far from the bound (PERF.md): its GEMM
-// phases are latency-bound SIMT loops.
+// forward.  This version is still far from the bound (PERF.md): its phases
+// are latency-bound (few items a block, two barriers a k step, 8 warps an
+// SM), not bound by bytes or by the tensor cores.
 //
 // Design: a persistent cooperative kernel (grid = SMs x co-resident blocks,
 // at most 2 per SM, launched with cudaLaunchCooperativeKernel) walks an
@@ -33,18 +34,24 @@
 //   ATTN  self-attention over q|k|v, through the K4 tile routine
 //         (attention_fwd.cuh), one item per (head, 32 query rows).
 // Records marked SYNC end a phase with a grid barrier (cooperative_groups
-// grid sync); within a phase the records' items are dealt
-// round-robin over the blocks.  A GEMM item is a 64 x 64 output tile, or one
-// of its K splits: a record with fewer tiles than blocks splits K so that the
-// items fill the grid, the splits add f32 partial sums atomically, and the
-// block that brings the last split runs the epilogue.  K runs in steps of 32
-// through shared memory; 128 threads each hold 8 x 4 f32 accumulators (SIMT
-// FMAs; tensor cores are a later step).  Values round to the storage dtype
-// where the TPU kernel rounds: after every product, every norm and every
-// elementwise step.  Activations, skips, statistics and split-K sums live in
-// scratch the wrapper allocates; the kernel allocates nothing.
+// grid sync); within a phase the records' items are dealt round-robin over
+// the blocks.  A GEMM item is a 64 x 64 output tile, or one of its K splits:
+// a record with fewer tiles than blocks splits K so that the items fill the
+// grid, each split stores its f32 partial tile, and the block that brings
+// the last split sums them in order (deterministic) and runs the epilogue.
+// K runs in steps of 32 channels through shared memory; a thread loads 8
+// consecutive channels of a row (or a weight row) as one vector, so every
+// channel count must be a multiple of 8.  bf16 multiplies on the tensor
+// cores (mma.sync m16n8k16, f32 accumulators; B fragments by
+// ldmatrix.trans), f32 with SIMT FMAs, 8 x 4 accumulators a thread.  Values
+// round to the storage dtype where the TPU kernel rounds: after every
+// product, every norm and every elementwise step.  Activations, skips,
+// statistics and split-K partials live in scratch the wrapper allocates;
+// the kernel allocates nothing.
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "attention_fwd.cuh"
 
@@ -77,8 +84,12 @@ constexpr int MAX_GROUPS = 32;
 static_assert((BM / TM) * (BN / TN) == NT, "one thread per 8 x 4 sub-tile");
 
 struct GemmSmem {
-  float a[BK][BM + 4];  // A tile, k-major
-  float b[BK][BN + 4];  // W tile
+  float a[BK][BM + 4];  // f32: A tile, k-major
+  float b[BK][BN + 4];  // f32: W tile
+  __nv_bfloat16 a16[BM][BK + 8];  // bf16: A tile, row-major (mma A fragments)
+  __nv_bfloat16 b16[BK][BN + 8];  // bf16: W tile, row-major (ldmatrix.trans -> B fragments)
+  // prologue coefficients of the k step's BK channels
+  float c_mean[BK], c_rstd[BK], c_gamma[BK], c_beta[BK], c_scale[BK], c_shift[BK];
   float ln_mean[BM];         // LayerNorm: row statistics of the tile
   float ln_rstd[BM];
   float g_mean[MAX_GROUPS];  // GroupNorm: group statistics
@@ -104,7 +115,7 @@ struct Args {
   T* y;             // output (buffer 2)
   float* stats;     // per-channel sums and sums of squares (GroupNorm inputs)
   int stats_elems;
-  float* acc;       // split-K partial sums: 2 regions of acc_elems (f32)
+  float* acc;       // split-K partial tiles: 2 regions of acc_elems >= grid * BM * BN (f32)
   int* cnt;         // split-K arrival counters: 2 regions of cnt_elems
   int acc_elems, cnt_elems;
   unsigned long long* clock;  // optional: ns timestamp after every barrier
@@ -151,7 +162,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float silu_f(float v) { return v / (1.f + expf(-v)); }
+__device__ __forceinline__ float silu_f(float v) { return __fdividef(v, 1.f + __expf(-v)); }
 __device__ __forceinline__ float gelu_f(float v) { return 0.5f * v * (1.f + erff(v * 0.70710678118654752f)); }
 
 // ---- one GEMM item: a 64 x 64 output tile, or one K split of it
@@ -168,15 +179,62 @@ __device__ __forceinline__ int gemm_splits(const int* op) {
   return s < 1 ? 1 : (s > ks ? ks : s);
 }
 
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+// c += a b for one m16n8k16 tile: bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 8 consecutive values of the storage dtype, as loaded (converted later, so
+// the load stays in flight across the coefficient staging and the barrier)
+template <typename T> struct Raw8;
+template <> struct Raw8<float> { float4 lo, hi; };
+template <> struct Raw8<__nv_bfloat16> { uint4 q; };
+
+__device__ __forceinline__ void ld8(Raw8<float>& r, const float* p) {
+  r.lo = *reinterpret_cast<const float4*>(p);
+  r.hi = *reinterpret_cast<const float4*>(p + 4);
+}
+__device__ __forceinline__ void ld8(Raw8<__nv_bfloat16>& r, const __nv_bfloat16* p) {
+  r.q = *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void ldg8(Raw8<float>& r, const float* p) {
+  r.lo = __ldg(reinterpret_cast<const float4*>(p));
+  r.hi = __ldg(reinterpret_cast<const float4*>(p + 4));
+}
+__device__ __forceinline__ void ldg8(Raw8<__nv_bfloat16>& r, const __nv_bfloat16* p) {
+  r.q = __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ void zero8(Raw8<float>& r) { r.lo = r.hi = make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ void zero8(Raw8<__nv_bfloat16>& r) { r.q = make_uint4(0u, 0u, 0u, 0u); }
+__device__ __forceinline__ void unpack8(const Raw8<float>& r, float (&f)[8]) {
+  f[0] = r.lo.x; f[1] = r.lo.y; f[2] = r.lo.z; f[3] = r.lo.w;
+  f[4] = r.hi.x; f[5] = r.hi.y; f[6] = r.hi.z; f[7] = r.hi.w;
+}
+__device__ __forceinline__ void unpack8(const Raw8<__nv_bfloat16>& r, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.q);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+// two B fragments (k 0-7 and 8-15 of a 16 x 8 tile) from a row-major
+// [k][n] bf16 tile: lane l < 16 gives the address of row l
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&b)[2], const __nv_bfloat16* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(addr));
 }
 
 template <typename T>
@@ -195,10 +253,21 @@ __device__ void gemm_tile(const Args<T>& A, const int* op, int item, GemmSmem& s
   const float* gamma = A.p + op[F_GAMMA_OFF];
   const float* beta = A.p + op[F_BETA_OFF];
   const T* __restrict__ w = A.w + op[F_W_OFF];
-  const bool vec_w = (n % 4) == 0;  // weight offsets are multiples of 8 elements
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
   const int cg = pro == PRO_GN ? cin / op[F_GROUPS] : 1;
+  // bf16 runs the products on the tensor cores (mma.sync m16n8k16): warp w
+  // owns the 32 x 32 quarter (wm, wn) of the tile, accumulator (i, j) is
+  // element j of the C fragment of m tile i / 4 and n tile i % 4; f32 runs
+  // SIMT FMAs, thread (ty, tx) owning rows ty * 8 + i, columns tx * 4 + j
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  const int wm = warp >> 1, wn = warp & 1;
+  auto row_of = [&](int i, int j) {
+    return kMma ? wm * 32 + (i >> 2) * 16 + (lane >> 2) + 8 * (j >> 1) : ty * TM + i;
+  };
+  auto col_of = [&](int i, int j) {
+    return kMma ? wn * 32 + (i & 3) * 8 + 2 * (lane & 3) + (j & 1) : tx * TN + j;
+  };
   const float eps = __int_as_float(op[F_EPS]);
 
   if (pro == PRO_GN) {
@@ -246,34 +315,21 @@ __device__ void gemm_tile(const Args<T>& A, const int* op, int item, GemmSmem& s
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  // this thread's A elements: channel kk = lane of every k step, rows
-  // m = warp + 4 q (q < A_ROWS)
-  constexpr int A_ROWS = BM * BK / NT;
-  const int kk = lane;
+  // A tile: unit u = tid + NT q (q < 2) is row u / 4, channels 8 (u % 4) ..
+  // + 8 of the step; W tile: unit u is k row u / 8, columns 8 (u % 8) .. + 8.
+  // Every channel count is a multiple of 8 (the wrapper checks), so a unit
+  // lies in one source and its 8 values are one aligned vector.
+  constexpr int UNITS = BM * BK / 8 / NT;
+  static_assert(UNITS == BK * BN / 8 / NT, "as many A as W units a thread");
+  const int g8 = (tid & 3) * 8;
   for (int ks = ks0; ks < ks1; ++ks) {
-    const int tap = ks / csteps, c = (ks % csteps) * BK + kk;
-    const bool c_ok = c < cin;
-    // channel coefficients (one channel per thread)
-    float mu = 0.f, rsd = 1.f, ga = 1.f, be = 0.f, scl = 1.f, sft = 0.f;
-    if (c_ok && (pro == PRO_GN || pro == PRO_LN)) {
-      ga = gamma[c];
-      be = beta[c];
-      if (pro == PRO_GN) {
-        mu = s.g_mean[c / cg];
-        rsd = s.g_rstd[c / cg];
-        if (ss_off >= 0) {
-          scl = rnd<T>(1.f + to_f(A.ss[ss_off + c]));
-          sft = to_f(A.ss[ss_off + cin + c]);
-        }
-      }
-    }
-    // issue every load of the A tile first, then run the prologue; rows
-    // outside the input are the convolution's zero padding
-    float raw[A_ROWS], gate[A_ROWS];
-    bool ok[A_ROWS];
+    const int tap = ks / csteps, c0 = (ks % csteps) * BK;
+    // issue the loads first
+    Raw8<T> ra[UNITS], rg[UNITS], rw[UNITS];
+    bool ok[UNITS];
 #pragma unroll
-    for (int q = 0; q < A_ROWS; ++q) {
-      const int t = t0 + warp + 4 * q;
+    for (int q = 0; q < UNITS; ++q) {
+      const int m = (tid + NT * q) >> 2, t = t0 + m, c = c0 + g8;
       int r;
       if (mode == MODE_DOWN) {
         r = 2 * t + tap - 1;
@@ -283,87 +339,132 @@ __device__ void gemm_tile(const Args<T>& A, const int* op, int item, GemmSmem& s
       } else {
         r = t + tap - (taps >> 1);
       }
-      ok[q] = c_ok && t < t_out && r >= 0 && r < t_in;
-      raw[q] = 0.f;
-      gate[q] = 0.f;
+      ok[q] = c < cin && t < t_out && r >= 0 && r < t_in;
+      zero8(ra[q]);
+      zero8(rg[q]);
       if (ok[q]) {
-        if (pro == PRO_GEGLU) {
+        if (c < ca) {
           const T* row = src.a + (long long)r * src.lda;
-          raw[q] = to_f(row[c]);
-          gate[q] = to_f(row[c + ca]);
+          ld8(ra[q], row + c);
+          if (pro == PRO_GEGLU) ld8(rg[q], row + c + ca);
         } else {
-          raw[q] = src.at(r, c);
+          ld8(ra[q], src.b + (long long)r * src.ldb + (c - ca));
         }
       }
+      const int u = tid + NT * q, wk = u >> 3, wc = c0 + wk, col = n0 + (u & 7) * 8;
+      zero8(rw[q]);
+      if (wc < cin && col < n) ldg8(rw[q], w + (long long)(tap * cin + wc) * n + col);
     }
-#pragma unroll
-    for (int q = 0; q < A_ROWS; ++q) {
-      const int m = warp + 4 * q;
-      float v = raw[q];
-      if (ok[q]) {
-        if (pro == PRO_GEGLU) {
-          v = rnd<T>(v * rnd<T>(gelu_f(gate[q])));
-        } else if (pro == PRO_GN) {
-          v = rnd<T>((v - mu) * rsd * ga + be);
-          if (ss_off >= 0) v = rnd<T>(rnd<T>(v * scl) + sft);
-        } else if (pro == PRO_LN) {
-          v = rnd<T>((v - s.ln_mean[m]) * s.ln_rstd[m] * ga + be);
-        }
-        if (silu) v = rnd<T>(silu_f(v));
-      }
-      s.a[kk][m] = v;
-    }
-    // W tile: rows tap * cin + c of the (taps * cin, n) weight, 4 columns a thread
-    const int c0 = (ks % csteps) * BK;
-#pragma unroll
-    for (int q = 0; q < BK * BN / 4 / NT; ++q) {
-      const int e = tid + q * NT;
-      const int wk = e / (BN / 4), j = (e % (BN / 4)) * 4;
-      const int wc = c0 + wk, col = n0 + j;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (wc < cin) {
-        const T* wr = w + (long long)(tap * cin + wc) * n + col;
-        if (vec_w && col + 3 < n) {
-          load4(wr, v);
-        } else {
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            if (col + u < n) v[u] = to_f(wr[u]);
+    // per-channel prologue coefficients of this step
+    if (tid < BK && c0 + tid < cin && (pro == PRO_GN || pro == PRO_LN)) {
+      const int c = c0 + tid;
+      s.c_gamma[tid] = gamma[c];
+      s.c_beta[tid] = beta[c];
+      if (pro == PRO_GN) {
+        s.c_mean[tid] = s.g_mean[c / cg];
+        s.c_rstd[tid] = s.g_rstd[c / cg];
+        if (ss_off >= 0) {
+          s.c_scale[tid] = rnd<T>(1.f + to_f(A.ss[ss_off + c]));
+          s.c_shift[tid] = to_f(A.ss[ss_off + cin + c]);
         }
       }
-      *reinterpret_cast<float4*>(&s.b[wk][j]) = make_float4(v[0], v[1], v[2], v[3]);
     }
     __syncthreads();
+    // the prologue; rows outside the input stay 0 (the convolution's zero padding)
+#pragma unroll
+    for (int q = 0; q < UNITS; ++q) {
+      const int m = (tid + NT * q) >> 2;
+      float v[8];
+      unpack8(ra[q], v);
+      if (ok[q] && (pro != PRO_NONE || silu)) {
+        float gv[8];
+        unpack8(rg[q], gv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int kk = g8 + e;
+          float x = v[e];
+          if (pro == PRO_GEGLU) {
+            x = rnd<T>(x * rnd<T>(gelu_f(gv[e])));
+          } else if (pro == PRO_GN) {
+            x = rnd<T>((x - s.c_mean[kk]) * s.c_rstd[kk] * s.c_gamma[kk] + s.c_beta[kk]);
+            if (ss_off >= 0) x = rnd<T>(rnd<T>(x * s.c_scale[kk]) + s.c_shift[kk]);
+          } else if (pro == PRO_LN) {
+            x = rnd<T>((x - s.ln_mean[m]) * s.ln_rstd[m] * s.c_gamma[kk] + s.c_beta[kk]);
+          }
+          if (silu) x = rnd<T>(silu_f(x));
+          v[e] = x;
+        }
+      }
+      if constexpr (kMma) {
+        uint4 packed;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+        *reinterpret_cast<uint4*>(&s.a16[m][g8]) = packed;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s.a[g8 + e][m] = v[e];
+      }
+      const int u = tid + NT * q, wk = u >> 3, j = (u & 7) * 8;
+      if constexpr (kMma) {
+        *reinterpret_cast<uint4*>(&s.b16[wk][j]) = rw[q].q;
+      } else {
+        float wv[8];
+        unpack8(rw[q], wv);
+        *reinterpret_cast<float4*>(&s.b[wk][j]) = make_float4(wv[0], wv[1], wv[2], wv[3]);
+        *reinterpret_cast<float4*>(&s.b[wk][j + 4]) = make_float4(wv[4], wv[5], wv[6], wv[7]);
+      }
+    }
+    __syncthreads();
+    if constexpr (kMma) {
+#pragma unroll
+      for (int k16 = 0; k16 < BK; k16 += 16) {
+        const int kc = k16 + 2 * (lane & 3);
+        uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r = wm * 32 + mi * 16 + (lane >> 2);
+          af[mi][0] = ld_pair(&s.a16[r][kc]);
+          af[mi][1] = ld_pair(&s.a16[r + 8][kc]);
+          af[mi][2] = ld_pair(&s.a16[r][kc + 8]);
+          af[mi][3] = ld_pair(&s.a16[r + 8][kc + 8]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) ldmatrix_x2_trans(bfr[ni], &s.b16[k16 + (lane & 15)][wn * 32 + ni * 8]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi * 4 + ni], af[mi], bfr[ni]);
+      }
+    } else {
 #pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&s.a[k][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&s.a[k][ty * TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&s.b[k][tx * TN]);
-      const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[TN] = {b0.x, b0.y, b0.z, b0.w};
+      for (int k = 0; k < BK; ++k) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&s.a[k][ty * TM]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&s.a[k][ty * TM + 4]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&s.b[k][tx * TN]);
+        const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[TN] = {b0.x, b0.y, b0.z, b0.w};
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+        for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
     }
     __syncthreads();
   }
 
-  // split-K: add the partial sums into the record's f32 region; the block
-  // that brings the last split of the tile reads the sums back (and clears
-  // them for the next record) and runs the epilogue
+  // split-K: every split stores its partial tile (thread-major, so the
+  // stores and loads coalesce) in the record's region; the block that
+  // brings the tile's last split sums the splits in order and runs the
+  // epilogue
   if (splits > 1) {
-    float* accg = A.acc + (long long)op[F_ACC] * A.acc_elems;
+    float* part = A.acc + (long long)op[F_ACC] * A.acc_elems;
+    float* mine = part + (long long)item * (BM * BN);
     int* cnt = A.cnt + op[F_ACC] * A.cnt_elems + tile;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int t = t0 + ty * TM + i;
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = n0 + tx * TN + j;
-        if (t < t_out && col < n) atomicAdd(&accg[(long long)t * n + col], acc[i][j]);
-      }
-    }
+      for (int j = 0; j < TN; ++j) __stcg(mine + (i * TN + j) * NT + tid, acc[i][j]);
     __threadfence();
     __syncthreads();
     if (tid == 0) s.last = atomicAdd(cnt, 1) == splits - 1;
@@ -371,17 +472,15 @@ __device__ void gemm_tile(const Args<T>& A, const int* op, int item, GemmSmem& s
     if (!s.last) return;
     __threadfence();
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int t = t0 + ty * TM + i;
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = n0 + tx * TN + j;
-        if (t < t_out && col < n) {
-          float* a = &accg[(long long)t * n + col];
-          acc[i][j] = __ldcg(a);
-          __stcg(a, 0.f);
-        }
-      }
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* pp = part + (long long)(tile * splits + sp) * (BM * BN);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] += __ldcg(pp + (i * TN + j) * NT + tid);
     }
     if (tid == 0) *cnt = 0;
   }
@@ -392,53 +491,66 @@ __device__ void gemm_tile(const Args<T>& A, const int* op, int item, GemmSmem& s
   const T* res = op[F_RES_OFF] >= 0 ? bufp(A, op[F_RES_BUF], op[F_RES_OFF]) : nullptr;
   const int res_ld = op[F_RES_LD], out_ld = op[F_OUT_LD];
   T* out = bufp(A, op[F_OUT_BUF], op[F_OUT_OFF]);
-  float csum[TN] = {0.f, 0.f, 0.f, 0.f}, csq[TN] = {0.f, 0.f, 0.f, 0.f};
-  float rsum[TM], rsq[TM];
+  // this thread's values fall in 8 rows x 4 columns (SIMT) or 4 rows x 8
+  // columns (mma); slot r / c below is its row / column index in that set
+  constexpr int NR = kMma ? 4 : TM, NC = kMma ? 8 : TN;
+  auto rslot = [&](int i, int j) { return kMma ? (i >> 2) * 2 + (j >> 1) : i; };
+  auto cslot = [&](int i, int j) { return kMma ? (i & 3) * 2 + (j & 1) : j; };
+  float csum[NC], csq[NC], rsum[NR], rsq[NR];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) csum[c] = csq[c] = 0.f;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) rsum[r] = rsq[r] = 0.f;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    rsum[i] = 0.f;
-    rsq[i] = 0.f;
-    const int t = t0 + ty * TM + i;
-    if (t >= t_out) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx * TN + j;
-      if (col >= n) continue;
+      const int t = t0 + row_of(i, j), col = n0 + col_of(i, j);
+      if (t >= t_out || col >= n) continue;
       float v = rnd<T>(bias != nullptr ? acc[i][j] + bias[col] : acc[i][j]);
       if (res != nullptr) v = rnd<T>(v + to_f(res[(long long)t * res_ld + col]));
       from_f(out[(long long)t * out_ld + col], v);
-      csum[j] += v;
-      csq[j] += v * v;
-      rsum[i] += v;
-      rsq[i] += v * v;
+      csum[cslot(i, j)] += v;
+      csq[cslot(i, j)] += v * v;
+      rsum[rslot(i, j)] += v;
+      rsq[rslot(i, j)] += v * v;
     }
   }
   if (op[F_RST_OUT] >= 0) {
-    // per-row sums for a LayerNorm that reads them: reduce over the 16
-    // threads of a row group (one half warp), then one atomic per row
+    // per-row sums for a LayerNorm that reads them: reduce over the lanes
+    // that share the rows, then one atomic per row and lane group
     float* rs = A.stats + op[F_RST_OUT];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
+    for (int r = 0; r < NR; ++r) {
 #pragma unroll
-      for (int o = BN / TN / 2; o > 0; o >>= 1) {
-        rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], o);
-        rsq[i] += __shfl_xor_sync(0xffffffffu, rsq[i], o);
+      for (int o = kMma ? 2 : BN / TN / 2; o > 0; o >>= 1) {
+        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], o);
+        rsq[r] += __shfl_xor_sync(0xffffffffu, rsq[r], o);
       }
-      const int t = t0 + ty * TM + i;
-      if (tx == 0 && t < t_out) {
-        atomicAdd(rs + t, rsum[i]);
-        atomicAdd(rs + t_out + t, rsq[i]);
+      const int t = t0 + (kMma ? row_of((r >> 1) * 4, (r & 1) * 2) : row_of(r, 0));
+      if ((kMma ? (lane & 3) : tx) == 0 && t < t_out) {
+        atomicAdd(rs + t, rsum[r]);
+        atomicAdd(rs + t_out + t, rsq[r]);
       }
     }
   }
   if (op[F_CST_OUT] >= 0) {
+    // per-channel sums for a GroupNorm that reads them (mma: reduce over
+    // the 8 lanes that share a column first)
     float* cs = A.stats + op[F_CST_OUT];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx * TN + j;
-      if (col < n) {
-        atomicAdd(cs + col, csum[j]);
-        atomicAdd(cs + n + col, csq[j]);
+    for (int c = 0; c < NC; ++c) {
+      if constexpr (kMma) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          csum[c] += __shfl_xor_sync(0xffffffffu, csum[c], o);
+          csq[c] += __shfl_xor_sync(0xffffffffu, csq[c], o);
+        }
+      }
+      const int col = n0 + (kMma ? col_of((c >> 1), c & 1) : col_of(0, c));
+      if ((!kMma || lane < 4) && col < n) {
+        atomicAdd(cs + col, csum[c]);
+        atomicAdd(cs + n + col, csq[c]);
       }
     }
   }
@@ -485,10 +597,9 @@ __global__ void __launch_bounds__(NT) unet_fwd_kernel(Args<T> A) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int G = gridDim.x;
-  // the split-K regions and the channel sums start at zero (each tile's
-  // last block clears its split-K sums again)
+  // the split-K counters and the channel / row sums start at zero (each
+  // tile's last block resets its counter again)
   const long long tid = blockIdx.x * (long long)NT + threadIdx.x, stride = (long long)G * NT;
-  for (long long i = tid; i < 2LL * A.acc_elems; i += stride) A.acc[i] = 0.f;
   for (long long i = tid; i < 2LL * A.cnt_elems; i += stride) A.cnt[i] = 0;
   for (long long i = tid; i < A.stats_elems; i += stride) A.stats[i] = 0.f;
   int phase = 0;
@@ -535,6 +646,8 @@ int launch(const int* ops, int n_ops, const void* w, const float* p, const void*
   if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = sms * (per_sm < MAX_BLOCKS_PER_SM ? per_sm : MAX_BLOCKS_PER_SM);
+  // a GEMM record has at most one item a block, each item one partial tile
+  if ((long long)acc_elems < (long long)grid * BM * BN) return static_cast<int>(cudaErrorInvalidValue);
   if (info != nullptr) {
     info[0] = grid;
     info[1] = per_sm;

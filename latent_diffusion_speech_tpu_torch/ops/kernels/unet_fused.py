@@ -452,7 +452,6 @@ class _Table:
     ws_elems: int                  # activation workspace, compute dtype
     stats_elems: int               # per-channel sums of GroupNorm inputs, f32
     phases: int                    # grid barriers
-    acc_elems: int                 # one split-K region (f32): the largest GEMM output
     cnt_elems: int                 # one split-K counter region: the most GEMM tiles
     flops: int                     # matrix products + attention, this T
 
@@ -463,12 +462,13 @@ def _f32_bits(x: float) -> int:
 
 def _build_table(packed: PackedUNet, T: int) -> _Table:
     """Phase table of one forward at frame count T: every res block is
-    GroupNorm statistics -> conv1 (+ the 1x1 shortcut in the same phase) ->
-    statistics -> conv2 with the residual; every transformer block is
-    statistics -> proj_in -> (q/k/v -> attention -> out + residual) x 2 ->
-    GEGLU in -> GEGLU out + residual -> proj_out + residual."""
+    conv1 (+ the 1x1 shortcut in the same phase) -> conv2 with the residual;
+    every transformer block is proj_in -> (q/k/v -> attention -> out +
+    residual) x 2 -> GEGLU in -> GEGLU out + residual -> proj_out +
+    residual.  A GroupNorm or LayerNorm reads the sums its input's producer
+    accumulated (`alloc(normed=...)`), so it needs no phase of its own."""
     recs: List[List[int]] = []
-    acc = {"elems": 1, "tiles": 1, "in_phase": 0}
+    acc = {"tiles": 1, "in_phase": 0}
     ws = [0]
     stats = [0]
     flops = [0]
@@ -536,7 +536,6 @@ def _build_table(packed: PackedUNet, T: int) -> _Table:
             groups=groups, eps=_f32_bits(eps), cst_out=out.cst, rst_out=out.rst,
             out_buf=out.buf, out_off=out.off, out_ld=out.ld, **rf, **src_fields(src))
         flops[0] += 2 * t_out * n * taps * cin
-        acc["elems"] = max(acc["elems"], t_out * n)
         acc["tiles"] = max(acc["tiles"], -(-t_out // 64) * -(-n // 64))
 
     h = [_View(BUF_X, 0, packed.cfg.in_channels, packed.cfg.in_channels)]
@@ -602,7 +601,7 @@ def _build_table(packed: PackedUNet, T: int) -> _Table:
     records = torch.tensor(recs, dtype=torch.int32).to(packed.device)
     return _Table(records=records, ws_elems=max(ws[0], 1), stats_elems=max(stats[0], 1),
                   phases=sum(r[_F["SYNC"]] for r in recs),
-                  acc_elems=acc["elems"], cnt_elems=acc["tiles"], flops=flops[0])
+                  cnt_elems=acc["tiles"], flops=flops[0])
 
 
 def _table(packed: PackedUNet, T: int) -> _Table:
@@ -629,6 +628,8 @@ def _check(packed: PackedUNet, x: torch.Tensor) -> None:
         raise ValueError(f"unet_fwd takes x (1, T, {cfg.in_channels}), got {tuple(x.shape)}")
     if x.shape[1] % cfg.downsample_factor != 0:
         raise ValueError(f"T={x.shape[1]} is not a multiple of {cfg.downsample_factor}")
+    if any(c % 8 for c in (cfg.in_channels, cfg.out_channels, *cfg.block_out_channels)):
+        raise ValueError("the kernel loads 8 channels at a time: every channel count must be a multiple of 8")
     if packed.dtype not in _DTYPES:
         raise TypeError(f"unet_fwd takes bf16 or f32 weights, got {packed.dtype}")
     if x.device != packed.device:
@@ -663,7 +664,10 @@ def unet_fwd(packed: PackedUNet, x: torch.Tensor, t: torch.Tensor, cfg=None,
     ws = torch.empty(table.ws_elems, dtype=packed.dtype, device=dev)
     stats = torch.empty(table.stats_elems, dtype=torch.float32, device=dev)
     y = torch.empty((1, T, packed.cfg.out_channels), dtype=packed.dtype, device=dev)
-    acc = torch.empty(2 * table.acc_elems, dtype=torch.float32, device=dev)
+    # split-K partial tiles: at most one 64 x 64 f32 tile per block of the
+    # grid (SMs x at most 2 blocks, MAX_BLOCKS_PER_SM in csrc/unet_fwd.cu)
+    acc_elems = torch.cuda.get_device_properties(dev).multi_processor_count * 2 * 64 * 64
+    acc = torch.empty(2 * acc_elems, dtype=torch.float32, device=dev)
     cnt = torch.empty(2 * table.cnt_elems, dtype=torch.int32, device=dev)
     if phase_ns is not None and (phase_ns.dtype != torch.int64 or phase_ns.numel() < table.phases + 1
                                  or phase_ns.device != dev):
@@ -677,7 +681,7 @@ def unet_fwd(packed: PackedUNet, x: torch.Tensor, t: torch.Tensor, cfg=None,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(table.records.data_ptr(), table.records.shape[0], packed.weights.data_ptr(),
                  packed.params.data_ptr(), ss.data_ptr(), ws.data_ptr(), xin.data_ptr(), y.data_ptr(),
-                 stats.data_ptr(), table.stats_elems, acc.data_ptr(), table.acc_elems, cnt.data_ptr(),
+                 stats.data_ptr(), table.stats_elems, acc.data_ptr(), acc_elems, cnt.data_ptr(),
                  table.cnt_elems, phase_ns.data_ptr() if phase_ns is not None else None, stream,
                  ctypes.cast(info, ctypes.c_void_p))
     if err != 0:

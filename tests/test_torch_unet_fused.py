@@ -360,6 +360,23 @@ def test_unet_fwd_has_no_path_for_other_devices():
         uf.unet_fwd(packed, torch.empty((1, 16, cfg.in_channels), device="meta"), torch.zeros(1))
 
 
+def test_kernel_wrapper_rejects_shapes_it_does_not_take():
+    """The checks `unet_fwd` runs before a launch: 8-channel vectors, the
+    head dims of the attention routine, B=1, the downsample grid."""
+    cfg, m = _module("tiny", torch.float32)
+    packed = uf.pack_unet_params(m, cfg)
+    with pytest.raises(ValueError, match="head dim 4"):
+        uf._check(packed, _x(cfg, 16))
+    with pytest.raises(ValueError, match=r"\(1, T, 24\)"):
+        uf._check(packed, torch.zeros((2, 16, 24)))
+    with pytest.raises(ValueError, match="multiple of 2"):
+        uf._check(packed, torch.zeros((1, 15, 24)))
+    odd = UNet1DConfig(in_channels=12, out_channels=8, block_out_channels=(64, 96), layers_per_block=1, n_heads=2)
+    packed = uf.pack_unet_params(seeded(lambda: UNet1D(odd), 0), odd)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        uf._check(packed, torch.zeros((1, 16, 12)))
+
+
 @pytest.mark.slow
 def test_port_matches_jax_fused_kernel_flagship():
     """Flagship width (256, 384, 512, 512) at T=64; chip_smoke.py holds the
