@@ -56,7 +56,7 @@ BATCH_TEXTS = [
 K4_SHAPES = [(448, 32), (224, 48), (112, 64), (56, 64), (1024, 64)]
 # fused UNet buckets: the smallest, the 430-token one, max_length=1024
 UNET_T = (64, 448, 1024)
-# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, bf16 tensor FLOP/s
+# H100 SXM peaks (NVIDIA datasheet, dense): HBM bytes/s, bf16 tensor FLOP/s
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
 
 
