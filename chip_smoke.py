@@ -23,7 +23,19 @@ with nvcc (sm_90a), then:
    ones;
 4. checks the 20-step diffusion + vocoder against the same run with the
    plain attention, in f32, on a short input, and the fused configuration's
-   diffusion trajectory against the eager one (bf16 and f32, same x_init).
+   diffusion trajectory against the eager one (bf16 and f32, same x_init);
+5. holds the training kernels against their plain versions at the shapes
+   the diffusion trainer gives them (K4 attention_bwd at B=48, H=8 and the
+   four UNet resolutions of a 1 s crop, f32 and bf16; K6 kmeans_argmin at
+   the contract shapes and at N=4128, K=4096, D=1280), timed beside their
+   plain versions, bounds and PyTorch yardsticks;
+6. trains the flagship Unit2Mel in f32 at B=48 through the port's training
+   entry point (`cli/train_diffusion.py::build` + `DiffusionTrainer.train`,
+   `configs/config.yaml` with the k-means unit snap) on a seeded synthetic
+   data layout: one step's loss and gradients against the same step with
+   the plain attention and argmin, 3 steps, a save, a resume and 12 more
+   steps, with the launch counts per step (32 K4 forward, 32 K4 backward,
+   1 K6), the step time, samples/s and the kernels' share of a step.
 
 Any failure raises (exit code != 0).  The second-to-last line is a JSON
 object with one entry per kernel; the last line is
@@ -56,13 +68,22 @@ BATCH_TEXTS = [
 K4_SHAPES = [(448, 32), (224, 48), (112, 64), (56, 64), (1024, 64)]
 # fused UNet buckets: the smallest, the 430-token one, max_length=1024
 UNET_T = (64, 448, 1024)
-# H100 SXM peaks (NVIDIA datasheet, dense): HBM bytes/s, bf16 tensor FLOP/s
-HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
+# K4 shapes on the training path: (T, D) at H=8, B=48 for the four UNet
+# resolutions of a 1 s crop (86 frames padded to 88), and the number of
+# self-attention calls at each per forward
+K4_TRAIN = [(88, 32, 10), (44, 48, 10), (22, 64, 10), (11, 64, 2)]
+TRAIN_B, TRAIN_STEPS = 48, (3, 12)  # batch; steps before and after the resume
+PROFILED_STEPS = 5  # training steps under torch.profiler (CUDA activity only)
+# K6 on the training path: 48 crops x 86 frames against the 4096 x 1280 codebook
+K6_TRAIN = (TRAIN_B * 86, 4096, 1280)
+# H100 SXM peaks (NVIDIA datasheet, dense): HBM bytes/s, bf16 tensor FLOP/s,
+# f32 FLOP/s outside the tensor cores
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 
-def bound(bytes_moved: float, flops: float) -> tuple:
+def bound(bytes_moved: float, flops: float, flops_per_s: float = BF16_FLOPS) -> tuple:
     """(least ms the card could take, 'bytes' or 'operations')."""
-    t_b, t_f = bytes_moved / HBM_BPS, flops / BF16_FLOPS
+    t_b, t_f = bytes_moved / HBM_BPS, flops / flops_per_s
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
@@ -423,7 +444,7 @@ def serve(dev, card: str) -> dict:
     generated.clear()
 
     k1.launches = 0
-    k4.launches = 0
+    k4.launches = k4.bwd_launches = 0
     t0 = time.perf_counter()
     wav, sr = pipe.tts(TEXT, language="EN", max_length=N_TOKENS)
     t_tts = time.perf_counter() - t0
@@ -440,8 +461,9 @@ def serve(dev, card: str) -> dict:
     n_inf = stages["diffusion_20step_calls"]
     if k1_after_tts != 1 or launches["ar_decode"] != n_gen or n_gen != 2:
         raise AssertionError(f"K1 launches {k1_after_tts} / {launches['ar_decode']} for {n_gen} generate calls")
-    if k4_after_tts != 640 or launches["attention_fwd"] != 640 * n_inf:
-        raise AssertionError(f"K4 launches {k4_after_tts} / {launches['attention_fwd']} for {n_inf} infer calls")
+    if k4_after_tts != 640 or launches["attention_fwd"] != 640 * n_inf or k4.bwd_launches != 0:
+        raise AssertionError(f"K4 launches {k4_after_tts} / {launches['attention_fwd']} for {n_inf} infer calls, "
+                             f"K4 backward {k4.bwd_launches} (want 0: serving runs under no_grad)")
 
     def n_tokens(toks, lens, b):
         t = toks[b, : lens[b]]
@@ -567,6 +589,354 @@ def check_slice_against_plain(dev):
     print(f"slice f32 (50 tokens, 20 steps + vocoder) with K4 vs plain attention: max wav err {err:.2e}")
 
 
+def check_k4_bwd(dev) -> dict:
+    """K4 at the training shapes, B=48, H=8: the f32 forward kernel's out
+    and lse against the plain forward (atol 2e-5 / 1e-4, as check_k4); the
+    f32 backward kernel, fed the forward kernel's out and lse as the trainer
+    feeds it, against the plain backward fed the plain forward's, at atol
+    3e-5 / rtol 1e-4 (the JAX contract, tests/test_pallas.py); bf16 kernel against the f32 plain backward of the
+    same bf16-rounded inputs within 2^-5 of each gradient's scale (p, ds, out
+    and the outputs are each rounded to bf16 once, 2^-9 relative, and the
+    sums over T add those roundings with random signs, so the error stays a
+    few roundings of the scale).  Times the f32 kernel (the trainer's
+    dtype), its plain version and the backward of F.scaled_dot_product_attention
+    (autograd forward + backward minus the forward; the port never calls it)."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, worst = [], 0.0
+    for T, D, calls in K4_TRAIN:
+        q, k, v, dout = (torch.randn((TRAIN_B, T, 8, D), generator=gen, device=dev) for _ in range(4))
+        out, lse = k4.fused_attention_with_lse(q, k, v)
+        out_p, lse_p = k4.fused_attention_plain(q, k, v)
+        got = k4.attention_bwd(q, k, v, out, dout, lse)
+        ref = k4.fused_attention_bwd_plain(q, k, v, out_p, dout, lse_p)
+        torch.cuda.synchronize()
+        e_out, e_lse = (out - out_p).abs().max().item(), (lse - lse_p).abs().max().item()
+        if e_out > 2e-5 or e_lse > 1e-4:
+            raise AssertionError(f"K4 fwd f32 B={TRAIN_B} T={T} D={D}: out err {e_out}, lse err {e_lse} "
+                                 "(atol 2e-5 / 1e-4)")
+        e32 = 0.0
+        for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+            if not bool(((g - r).abs() <= 3e-5 + 1e-4 * r.abs()).all()):
+                raise AssertionError(f"K4 bwd f32 T={T} D={D} {name}: max err {(g - r).abs().max().item()} "
+                                     "over atol 3e-5 / rtol 1e-4")
+            e32 = max(e32, (g - r).abs().max().item())
+        qb, kb, vb, db = (x.bfloat16() for x in (q, k, v, dout))
+        outb, lseb = k4.fused_attention_with_lse(qb, kb, vb)
+        out32, lse32 = k4.fused_attention_plain(qb.float(), kb.float(), vb.float())
+        ref32 = k4.fused_attention_bwd_plain(qb.float(), kb.float(), vb.float(), out32, db.float(), lse32)
+        gotb = k4.attention_bwd(qb, kb, vb, outb, db, lseb)
+        torch.cuda.synchronize()
+        eb = []
+        for g, r, name in zip(gotb, ref32, ("dq", "dk", "dv")):
+            err, scale = (g.float() - r).abs().max().item(), r.abs().max().item()
+            if err > 2**-5 * scale:
+                raise AssertionError(f"K4 bwd bf16 T={T} D={D} {name}: max err {err} over 2^-5 of scale {scale}")
+            eb.append(err / scale)
+        worst = max(worst, e32)
+        ms = cuda_time_ms(lambda: k4.attention_bwd(q, k, v, out, dout, lse), iters=50)
+        plain_ms = cuda_time_ms(lambda: k4.fused_attention_bwd_plain(q, k, v, out, dout, lse), iters=20)
+        qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        dos = dout.transpose(1, 2).contiguous()
+        t_fwd = cuda_time_ms(lambda: sdpa(qs, ks, vs), iters=50)
+        t_both = cuda_time_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs), (qs, ks, vs), dos), iters=50)
+        n = TRAIN_B * T * 8 * D
+        bound_ms, bound_by = bound(8 * n * 4 + TRAIN_B * 8 * T * 4, 5 * 2 * T * T * D * TRAIN_B * 8, F32_FLOPS)
+        rows.append(dict(T=T, D=D, calls=calls, ms=ms, plain_ms=plain_ms, library_ms=t_both - t_fwd,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"K4 attention_bwd B={TRAIN_B} T={T} H=8 D={D}: forward f32 out err {e_out:.2e} lse err "
+              f"{e_lse:.2e}; backward f32 max err {e32:.2e}; bf16 vs f32 plain max err "
+              f"{max(eb):.2e} of scale (limit 2^-5); kernel {ms * 1e3:.1f} us/call, plain {plain_ms * 1e3:.1f} us, "
+              f"SDPA backward {(t_both - t_fwd) * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}); "
+              f"{calls} calls per forward")
+    step_ms = sum(r["ms"] * r["calls"] for r in rows)
+    print(f"K4 attention_bwd per training step (32 calls): {step_ms * 1e3:.1f} us of kernel time "
+          f"(plain {sum(r['plain_ms'] * r['calls'] for r in rows) * 1e3:.1f} us)")
+    return dict(max_abs_err=worst, rows=rows, step_ms=step_ms, **{k: rows[0][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+
+
+def check_k6(dev) -> dict:
+    """K6 against its plain version: exactly equal ids at the contract
+    shapes (tests/test_pallas.py:119-131); at the trainer's size with a
+    seeded random codebook, ids equal, except that a row may differ when its
+    two squared distances, recomputed in f64, are within 1e-6 relative (f32
+    sums in another order can only flip a tie that close).  Times the
+    kernel, its plain version and the cuBLAS f32 product x @ codebook.T
+    alone (the yardstick; TF32 off)."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for n, k, d in [(300, 700, 32), (256, 512, 64)]:
+        x, cb = torch.randn((n, d), generator=gen, device=dev), torch.randn((k, d), generator=gen, device=dev)
+        if not torch.equal(k6.kmeans_argmin(x, cb), k6.kmeans_argmin_plain(x, cb)):
+            raise AssertionError(f"K6 at ({n}, {k}, {d}): ids differ from the plain version")
+    N, K, D = K6_TRAIN
+    x, cb = torch.randn((N, D), generator=gen, device=dev), torch.randn((K, D), generator=gen, device=dev)
+    got, ref = k6.kmeans_argmin(x, cb), k6.kmeans_argmin_plain(x, cb)
+    differ = (got != ref).nonzero()[:, 0]
+    dist_err = 0.0  # largest f64 squared-distance gap between the two choices of a differing row
+    if len(differ):
+        x64, cb64 = x[differ].double(), cb.double()
+        d_got = ((x64 - cb64[got[differ].long()]) ** 2).sum(-1)
+        d_ref = ((x64 - cb64[ref[differ].long()]) ** 2).sum(-1)
+        if not bool(((d_got - d_ref).abs() <= 1e-6 * torch.maximum(d_got, d_ref)).all()):
+            raise AssertionError(f"K6 at ({N}, {K}, {D}): {len(differ)} rows differ, not all f64 ties")
+        dist_err = (d_got - d_ref).abs().max().item()
+    ms = cuda_time_ms(lambda: k6.kmeans_argmin(x, cb), iters=20)
+    # the code-range split against one block per row tile (no merge kernel)
+    splits = k6.split_codes(N, K, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
+    chosen, k6.split_codes = k6.split_codes, lambda n, k, sms: (1, -(-k // k6.BLOCK_CODES) * k6.BLOCK_CODES)
+    try:
+        if not torch.equal(k6.kmeans_argmin(x, cb), got):
+            raise AssertionError(f"K6 at ({N}, {K}, {D}): ids with one split differ from {splits} splits")
+        ms_1 = cuda_time_ms(lambda: k6.kmeans_argmin(x, cb), iters=20)
+    finally:
+        k6.split_codes = chosen
+    plain_ms = cuda_time_ms(lambda: k6.kmeans_argmin_plain(x, cb), iters=10)
+    library_ms = cuda_time_ms(lambda: x @ cb.T, iters=20)
+    bound_ms, bound_by = bound((N * D + K * D) * 4 + N * 4, 2 * N * K * D, F32_FLOPS)
+    print(f"K6 kmeans_argmin contract shapes: ids identical; N={N} K={K} D={D}: {len(differ)} rows differ "
+          f"(each an f64 tie within 1e-6; largest distance gap {dist_err:.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cuBLAS x @ codebook.T "
+          f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: {2 * N * K * D / 1e9:.1f} GFLOP f32); "
+          f"{splits} code splits {ms:.3f} ms vs 1 split {ms_1:.3f} ms")
+    return dict(max_abs_err=dist_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def write_train_layout(root: str, codebook: np.ndarray, seed: int = 0) -> None:
+    """A data/train layout: 4 speakers x 96 files (8 batches of 48 an epoch,
+    so most steps find their batch prefetched as on a real corpus, and not
+    every other one waits for an epoch's first batch); mel stats (T, 256) with
+    T in [120, 160) latent frames (86.13 a second); units (T_u, 1280) at the
+    encoder's 50 a second, each near a codebook row as k-means units are."""
+    rng = np.random.default_rng(seed)
+    for spk in range(1, 5):
+        for n in range(96):
+            T = int(rng.integers(120, 160))
+            T_u = int(round(T * 50 / (44100 / 512)))
+            ids = rng.integers(0, len(codebook), T_u)
+            units = codebook[ids] + 0.3 * rng.standard_normal((T_u, codebook.shape[1])).astype(np.float32)
+            stats = np.concatenate([rng.standard_normal((T, 128)), rng.uniform(-4, -1, (T, 128))], axis=1)
+            for kind, arr in (("mel", stats), ("units", units)):
+                os.makedirs(os.path.join(root, kind, str(spk)), exist_ok=True)
+                np.save(os.path.join(root, kind, str(spk), f"{n}.wav.npy"), arr.astype(np.float32))
+            os.makedirs(os.path.join(root, "audio", str(spk)), exist_ok=True)
+            open(os.path.join(root, "audio", str(spk), f"{n}.wav"), "wb").close()
+
+
+class StepLog:
+    """Trainer logger (interval_log = 1): each step's loss, and the wall time
+    between consecutive steps (the loss read synchronises the card)."""
+
+    def __init__(self):
+        self.losses, self.times = [], []
+
+    def log(self, step: int, metrics: dict) -> None:
+        self.losses.append(metrics["train/loss"])
+        self.times.append(time.perf_counter())
+
+
+def compare_train_step(trainer, loader, dev):
+    """One step's loss and gradients with K4 (forward and backward) and K6
+    against the same step with the plain attention and plain argmin, f32,
+    same batch and generator: loss within 1e-5 relative, every parameter's
+    gradient within 1e-3 of its norm and all of them within 1e-4 of the
+    global norm (L2; f32 sums in another order through the whole network)."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.models.diffusion import unet1d
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+    from latent_diffusion_speech_tpu_torch.quantize import codebook
+    from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import step_generator
+
+    loader.set_epoch(0)
+    batch = trainer.device_put_batch(next(iter(loader)))
+    results = []
+    for plain in (False, True):
+        if plain:
+            unet1d.fused_attention = lambda q, k, v: k4.fused_attention_plain(q, k, v)[0]
+            codebook.kmeans_argmin = k6.kmeans_argmin_plain
+        try:
+            trainer.optimizer.zero_grad(set_to_none=True)
+            ids = trainer.quantizer.quantize(batch["units"])
+            loss = trainer.loss(batch, step_generator(0, 0, dev))
+            loss.backward()
+        finally:
+            unet1d.fused_attention = k4.fused_attention
+            codebook.kmeans_argmin = k6.kmeans_argmin
+        results.append((ids, loss.item(), {n: p.grad.clone() for n, p in trainer.system.module.named_parameters()
+                                           if p.grad is not None}))
+    trainer.optimizer.zero_grad(set_to_none=True)
+    (ids, loss, grads), (ids_p, loss_p, grads_p) = results
+    if not torch.equal(ids, ids_p):
+        raise AssertionError(f"train step: K6 ids differ from the plain argmin in {(ids != ids_p).sum().item()} frames")
+    if grads.keys() != grads_p.keys() or abs(loss - loss_p) > 1e-5 * abs(loss_p):
+        raise AssertionError(f"train step: loss {loss} vs plain {loss_p}")
+    worst, worst_name = 0.0, ""
+    for n, g in grads.items():
+        rel = ((g - grads_p[n]).norm() / grads_p[n].norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, n
+    total = (sum(((g - grads_p[n]) ** 2).sum() for n, g in grads.items()).sqrt()
+             / sum((g ** 2).sum() for g in grads_p.values()).sqrt()).item()
+    if worst > 1e-3 or total > 1e-4:
+        raise AssertionError(f"train step gradients vs plain: worst {worst} ({worst_name}), global {total}")
+    print(f"train step with K4 fwd/bwd + K6 vs plain attention + plain argmin (f32, B={TRAIN_B}): loss {loss:.6f} "
+          f"vs {loss_p:.6f}; K6 ids identical ({ids.numel()} frames); gradients of {len(grads)} tensors: worst "
+          f"relative L2 error {worst:.2e} ({worst_name}; limit 1e-3), global {total:.2e} (limit 1e-4)")
+
+
+def step_breakdown(trainer, loader, dev) -> dict:
+    """Where a training step's time goes: the loader alone (host ms a batch
+    over one epoch, nothing else running), train_step on one batch already
+    on the card (ms a step, no data path), and the device time per step by
+    kernel (torch.profiler, CUDA activity only, over PROFILED_STEPS steps):
+    K4 forward, K4 backward, K6 and all kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import step_generator
+
+    loader.set_epoch(0)
+    t0, n = time.perf_counter(), 0
+    for batch in loader:
+        n += 1
+    loader_ms = (time.perf_counter() - t0) / n * 1e3
+    batch = trainer.device_put_batch(batch)
+    trainer.train_step(batch, step_generator(0, trainer.step, dev))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2 * PROFILED_STEPS):
+        trainer.train_step(batch, step_generator(0, trainer.step, dev))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (2 * PROFILED_STEPS) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            trainer.train_step(batch, step_generator(0, trainer.step, dev))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / PROFILED_STEPS
+    sums = {"attention_fwd": 0.0, "attention_bwd": 0.0, "kmeans_argmin": 0.0, "all": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = us if us is not None else e.self_cuda_time_total
+        sums["all"] += us
+        for name, patterns in (("attention_fwd", ("attention_fwd_kernel",)),
+                               ("attention_bwd", ("attention_bwd_kernel",)),
+                               ("kmeans_argmin", ("kmeans_argmin_kernel", "kmeans_merge_kernel"))):
+            if any(pattern in e.key for pattern in patterns):
+                sums[name] += us
+    return dict(wall_ms=wall * 1e3, loader_ms=loader_ms, step_ms=step_ms,
+                **{k: v / 1e3 / PROFILED_STEPS for k, v in sums.items()})
+
+
+def train_slice(dev, card: str, k4_bwd: dict, k6_res: dict) -> dict:
+    """The diffusion training slice at flagship width: `configs/config.yaml`
+    through the port's entry point, f32, B=48, the k-means snap on."""
+    import tempfile
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli.train_diffusion import build
+    from latent_diffusion_speech_tpu_torch.config import load_config
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        cb = np.random.default_rng(1).standard_normal((4096, 1280)).astype(np.float32)
+        write_train_layout(os.path.join(tmp, "train"), cb)
+        np.savez(os.path.join(tmp, "codebook.npz"), cluster_centers_=cb)
+        cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+        cfg.data.train_path = os.path.join(tmp, "train")
+        cfg.text2semantic.model.codebook_path = os.path.join(tmp, "codebook.npz")
+        cfg.diffusion.train.expdir = os.path.join(tmp, "exp")
+        cfg.diffusion.train.interval_log = 1
+        tcfg = cfg.diffusion.train
+        if (tcfg.batch_size, cfg.data.duration, tcfg.gradient_accumulation_steps) != (TRAIN_B, 1.0, 1):
+            raise AssertionError("configs/config.yaml no longer trains at B=48 on 1 s crops")
+
+        # the entry point itself must turn TF32 off: f32 training
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        trainer, loader = build(cfg, device=dev)
+        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+            raise AssertionError("the training entry point left TF32 on")
+        compare_train_step(trainer, loader, dev)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        k4.launches = k4.bwd_launches = k6.launches = 0
+        logs = []
+        t0 = time.perf_counter()
+        for steps in (TRAIN_STEPS[0], sum(TRAIN_STEPS)):
+            if logs:  # the second leg resumes from the first leg's checkpoint
+                trainer, loader = build(cfg, device=dev)
+                if trainer.step != TRAIN_STEPS[0]:
+                    raise AssertionError(f"resume: step {trainer.step}, want {TRAIN_STEPS[0]}")
+            logs.append(StepLog())
+            start = time.perf_counter()
+            trainer.train(loader, max_steps=steps, logger=logs[-1])
+            logs[-1].times.insert(0, start)
+        wall = time.perf_counter() - t0
+        n = sum(TRAIN_STEPS)
+        launches = {"attention_fwd": k4.launches, "attention_bwd": k4.bwd_launches, "kmeans_argmin": k6.launches}
+        if launches != {"attention_fwd": 32 * n, "attention_bwd": 32 * n, "kmeans_argmin": n}:
+            raise AssertionError(f"training launches {launches} over {n} steps, want 32 / 32 / 1 per step")
+        losses = [x for log in logs for x in log.losses]
+        if len(losses) != n or not all(np.isfinite(losses)):
+            raise AssertionError(f"training losses {losses}")
+        saved = sorted(os.listdir(tcfg.expdir))
+        if f"model_{TRAIN_STEPS[0]}.ckpt" not in saved or f"model_{n}.ckpt" not in saved:
+            raise AssertionError(f"checkpoints {saved}")
+        # step times: the first step of each leg includes its start-up
+        step_s = [b - a for log in logs for a, b in zip(log.times, log.times[1:])]
+        steady = [s for i, s in enumerate(step_s) if i not in (0, TRAIN_STEPS[0])]
+        median = float(np.median(steady))
+        q1, q3 = (float(v) for v in np.percentile(steady, [25, 75]))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        shares = step_breakdown(trainer, loader, dev)
+
+    kern = k4_bwd["rows"]
+    est = {
+        "attention_bwd": k4_bwd["step_ms"],
+        "kmeans_argmin": k6_res["ms"],
+    }
+    print(f"training slice [{card}]: {n} steps at B={TRAIN_B} f32 ({TRAIN_STEPS[0]}, save, resume, "
+          f"{TRAIN_STEPS[1]} more) in {wall:.3f} s; losses {[round(x, 5) for x in losses]}")
+    print(f"training step [{card}]: median {median * 1e3:.2f} ms over {len(steady)} steps after the first "
+          f"step of each leg (quartiles {q1 * 1e3:.2f} / {q3 * 1e3:.2f} ms; all: "
+          f"{[round(s * 1e3, 2) for s in step_s]} ms); {TRAIN_B / median:.1f} samples/s; "
+          f"peak allocated {peak:.2f} GiB")
+    print(f"training launches over {n} steps: {launches} (per step: 32 / 32 / 1)")
+    if shares["all"] > 0:
+        # idle shares against unprofiled steps: the profiler's own host
+        # cost lengthens the profiled ones
+        print(f"training step parts [{card}]: loader alone {shares['loader_ms']:.2f} ms a batch; train_step on "
+              f"a batch already on the card {shares['step_ms']:.2f} ms; {PROFILED_STEPS} profiled steps "
+              f"{shares['wall_ms']:.2f} ms wall each, device busy {shares['all']:.2f} ms a step: "
+              f"{1 - shares['all'] / shares['step_ms']:.1%} idle of the train_step alone, "
+              f"{1 - shares['all'] / (median * 1e3):.1%} of the median step through train(); K4 forward "
+              f"{shares['attention_fwd']:.3f} ms ({shares['attention_fwd'] / shares['all']:.1%} of busy), "
+              f"K4 backward {shares['attention_bwd']:.3f} ms ({shares['attention_bwd'] / shares['all']:.1%}), "
+              f"K6 {shares['kmeans_argmin']:.3f} ms ({shares['kmeans_argmin'] / shares['all']:.1%})")
+    else:
+        print("profiled training steps: the profiler reported no device time (shares not measured)")
+    print(f"from the standalone kernel times [{card}]: K4 backward {est['attention_bwd']:.3f} ms and K6 "
+          f"{est['kmeans_argmin']:.3f} ms per step = {(est['attention_bwd'] + est['kmeans_argmin']) / (median * 1e3):.1%} "
+          f"of the median step (K4 backward rows: "
+          f"{[(r['T'], r['D'], round(r['ms'] * 1e3, 1)) for r in kern]} us)")
+    return dict(launches=launches, median_ms=median * 1e3, shares=shares)
+
+
 def main() -> int:
     import torch
 
@@ -594,6 +964,8 @@ def main() -> int:
             print("  ptxas: " + line.strip())
 
     k4 = check_k4(dev)
+    k4_bwd = check_k4_bwd(dev)
+    k6 = check_k6(dev)
     k1 = check_k1(dev)
     k23 = check_unet(dev)
     eager = serve(dev, card)
@@ -602,6 +974,10 @@ def main() -> int:
     del eager
     check_slice_against_plain(dev)
     check_trajectory(dev)
+    train = train_slice(dev, card, k4_bwd, k6)
+    print(f"attention_fwd launches: {launches['attention_fwd']} serving + "
+          f"{train['launches']['attention_fwd']} training")
+    launches["attention_fwd"] += train["launches"]["attention_fwd"]
 
     src = "latent_diffusion_speech_tpu_torch/csrc/"
     kernels = [
@@ -621,6 +997,16 @@ def main() -> int:
              launches=launches["unet_fwd"], max_abs_err=k23["max_abs_err"],
              ms=k23["ms"], plain_ms=k23["plain_ms"], bound_ms=k23["bound_ms"], bound_by=k23["bound_by"],
              library_ms=None),
+        dict(name="attention_bwd", route="cuda", source=src + "attention_bwd.cu",
+             replaces="latent_diffusion_speech_tpu/ops/pallas/fused_attention.py:149",
+             launches=train["launches"]["attention_bwd"], max_abs_err=k4_bwd["max_abs_err"],
+             ms=k4_bwd["ms"], plain_ms=k4_bwd["plain_ms"], bound_ms=k4_bwd["bound_ms"],
+             bound_by=k4_bwd["bound_by"], library_ms=k4_bwd["library_ms"]),
+        dict(name="kmeans_argmin", route="cuda", source=src + "kmeans_argmin.cu",
+             replaces="latent_diffusion_speech_tpu/ops/pallas/kmeans.py:54",
+             launches=train["launches"]["kmeans_argmin"], max_abs_err=k6["max_abs_err"],
+             ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"], bound_by=k6["bound_by"],
+             library_ms=k6["library_ms"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

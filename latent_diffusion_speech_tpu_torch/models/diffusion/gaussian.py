@@ -1,11 +1,11 @@
-"""Gaussian diffusion sampling.
+"""Gaussian diffusion: the training loss and sampling.
 
-Counterpart of `latent_diffusion_speech_tpu/models/diffusion/gaussian.py`
-(inference part): spec normalisation by the scalar `acoustic_scale`, the
-frame axis padded to the UNet's downsample grid and cropped back, and
-`sample` from pure noise (or a given `x_init`) with DPM-Solver++.  Training
-losses, shallow diffusion from a ground-truth spec and the other samplers
-are not ported yet (ROADMAP.md).
+Counterpart of `latent_diffusion_speech_tpu/models/diffusion/gaussian.py`:
+spec normalisation by the scalar `acoustic_scale`, the frame axis padded to
+the UNet's downsample grid and cropped back, the eps-prediction loss
+`p_losses` (L2 or L1, t uniform in [0, k_step)), and `sample` from pure
+noise (or a given `x_init`) with DPM-Solver++.  Shallow diffusion from a
+ground-truth spec and the other samplers are not ported yet (ROADMAP.md).
 
 Layout: condition (B, T, H), spec (B, T, M); the denoiser input is the
 channel concat [x_t ++ cond] -> (B, T, M + H).
@@ -38,7 +38,7 @@ class GaussianDiffusion:
     ):
         """denoise_fn: (params, [x_t ++ cond] (B, T, M+H), t (B,)) -> eps
         (B, T, M), where params is what `prepare_sample_params` returned for
-        this `sample` call (None without the hook).
+        this `sample` call (None without the hook, and in `p_losses`).
 
         prepare_sample_params: optional once-per-sample hook, run before the
         sampler loop (e.g. packing the weights into a kernel's layout), so
@@ -56,6 +56,39 @@ class GaussianDiffusion:
 
     def denorm_spec(self, x):
         return x / self.acoustic_scale
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """x_t = sqrt(alpha_bar_t) x_0 + sqrt(1 - alpha_bar_t) noise, t (B,)."""
+        s = self.schedule
+        a = torch.as_tensor(s.sqrt_alphas_cumprod, device=x_start.device)[t][:, None, None]
+        b = torch.as_tensor(s.sqrt_one_minus_alphas_cumprod, device=x_start.device)[t][:, None, None]
+        return a * x_start + b * noise
+
+    def p_losses(
+        self,
+        gt_spec: torch.Tensor,
+        cond: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        k_step: Optional[int] = None,
+        loss_type: str = "l2",
+    ) -> torch.Tensor:
+        """Training loss, differentiable in the denoiser's parameters.
+        gt_spec (B, T, M), cond (B, T, H); t and the noise are drawn from
+        `generator` (on the tensors' device)."""
+        if loss_type not in ("l1", "l2"):
+            raise NotImplementedError(loss_type)
+        B = gt_spec.shape[0]
+        t_max = k_step or self.k_step
+        t = torch.randint(0, t_max, (B,), generator=generator, device=gt_spec.device)
+        x_start = self.norm_spec(gt_spec)
+        noise = torch.randn(x_start.shape, generator=generator, device=x_start.device, dtype=x_start.dtype)
+        x_noisy = self.q_sample(x_start, t, noise)
+
+        x_noisy, cond, orig_T = self._pad(x_noisy, cond)
+        eps_hat = self.denoise_fn(None, torch.cat([x_noisy, cond.to(x_noisy.dtype)], dim=-1), t)[:, :orig_T]
+        if loss_type == "l1":
+            return (noise - eps_hat).abs().mean()
+        return ((noise - eps_hat) ** 2).mean()
 
     def _pad(self, x, cond):
         """Pad the frame axis to the UNet downsample grid."""

@@ -8,8 +8,10 @@ between) -> GroupNorm -> SiLU -> conv_out k3.  Public functions take and
 return (B, T, C); convolutions run channels-first inside `Conv1dSame`.
 
 The self-attention of every transformer block goes through the K4 wrapper
-(`ops/kernels/fused_attention.py`): the CUDA kernel on the card, its plain
-version on the CPU.  The lowering knobs `conv_impl`, `qkv` and `attn_impl`
+(`ops/kernels/fused_attention.py`): the CUDA kernels on the card, their
+plain versions on the CPU; when a gradient is needed it runs K4's forward
+and backward through `FusedAttention`, under `torch.no_grad()` the forward
+alone.  The lowering knobs `conv_impl`, `qkv` and `attn_impl`
 are kept for field parity with the JAX config and do not change the
 numbers; `gelu='auto'` (tanh GELU iff B >= 128) does, and is kept exactly.
 Submodule names follow the flax tree (`down_0_res_0.conv1`, ...), so

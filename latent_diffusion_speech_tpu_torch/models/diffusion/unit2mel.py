@@ -8,7 +8,9 @@ condition = unit_embed(units) [+ volume_embed(volume)] [+ spk_embed(spk_id-1)]
 Only the flagship denoiser (`UNet1D`) is ported; `denoiser='general'` raises.
 `Unit2MelSystem(unet_impl=...)` picks how the sampler runs the denoiser, as
 in the JAX package: 'xla' (and 'auto') the eager module, 'pallas' the fused
-whole-UNet kernel (`ops/kernels/unet_fused.py`) for B=1.
+whole-UNet kernel (`ops/kernels/unet_fused.py`) for B=1.  `Unit2MelSystem.loss`
+is the training loss; the diffusion trainer (`train/diffusion_trainer.py`)
+trains `Unit2MelSystem.module` in place.
 """
 
 from __future__ import annotations
@@ -161,6 +163,14 @@ class Unit2MelSystem:
     @torch.no_grad()
     def condition(self, units, volume=None, spk_id=None, aug_shift=None) -> torch.Tensor:
         return self.module.condition(units, volume, spk_id, aug_shift)
+
+    def loss(self, units, gt_spec, generator=None, volume=None, spk_id=None, aug_shift=None,
+             k_step=None) -> torch.Tensor:
+        """Training loss, differentiable in `self.module`'s parameters: the
+        condition, then `GaussianDiffusion.p_losses` (t and noise drawn from
+        `generator`)."""
+        cond = self.module.condition(units, volume, spk_id, aug_shift)
+        return self.diffusion.p_losses(gt_spec, cond, generator, k_step=k_step)
 
     @torch.no_grad()
     def infer(

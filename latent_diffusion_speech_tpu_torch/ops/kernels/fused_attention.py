@@ -1,10 +1,17 @@
-"""K4 forward: self-attention for the UNet's transformer blocks.
+"""K4: self-attention for the UNet's transformer blocks, forward and backward.
 
-Counterpart of `latent_diffusion_speech_tpu/ops/pallas/fused_attention.py`
-(forward).  `fused_attention` launches the CUDA kernel in
-`csrc/attention_fwd.cu` for CUDA tensors and runs `fused_attention_plain`
-for CPU tensors; there is no other path.  Unlike the TPU kernel it takes any
-T (K/V stream through shared memory), so no length cap and no fallback.
+Counterpart of `latent_diffusion_speech_tpu/ops/pallas/fused_attention.py`.
+`fused_attention_with_lse` launches the forward kernel in
+`csrc/attention_fwd.cu` and `attention_bwd` the backward kernel in
+`csrc/attention_bwd.cu` for CUDA tensors; for CPU tensors they run
+`fused_attention_plain` and `fused_attention_bwd_plain`.  There is no other
+path.  Unlike the TPU kernels they take any T (tiles stream through shared
+memory), so no length cap and no fallback.
+
+`fused_attention` is what the UNet calls: when a gradient is needed it goes
+through `FusedAttention`, the counterpart of the JAX `custom_vjp`, which
+saves (q, k, v, out, lse) and runs the backward kernel; otherwise (serving,
+`torch.no_grad()`) it launches the forward kernel alone, saving nothing.
 """
 
 from __future__ import annotations
@@ -18,14 +25,19 @@ __all__ = [
     "fused_attention",
     "fused_attention_with_lse",
     "fused_attention_plain",
+    "attention_bwd",
+    "fused_attention_bwd_plain",
+    "FusedAttention",
     "SUPPORTED_HEAD_DIMS",
 ]
 
 SUPPORTED_HEAD_DIMS = (32, 48, 64)
 _DTYPES = {torch.bfloat16: "attention_fwd_bf16", torch.float32: "attention_fwd_f32"}
+_BWD = {torch.bfloat16: "attention_bwd_bf16", torch.float32: "attention_bwd_f32"}
 
-# kernel launches since the last reset (chip_smoke.py resets and reads it)
+# kernel launches since the last reset (chip_smoke.py resets and reads them)
 launches = 0
+bwd_launches = 0
 
 
 def fused_attention_plain(
@@ -95,9 +107,99 @@ def fused_attention_with_lse(
     return out, lse
 
 
+def fused_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of self-attention from the forward's (out, lse (B*H, T)).
+
+    The TPU backward's numerics: p = exp(s - lse) in f32, rounded to the
+    input dtype before p^T do; ds = p * (do v^T - rowsum(do * out)) * scale
+    rounded to the input dtype before ds k and ds^T q; f32 accumulation."""
+    B, T, H, D = q.shape
+    scale = scale if scale is not None else D**-0.5
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, out, dout))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.reshape(B, H, T, 1))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof).to(q.dtype)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * of).sum(-1).transpose(1, 2)[..., None]  # (B, H, T, 1)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).to(q.dtype)
+    return dq, dk, dv
+
+
+def attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 backward: the kernel for CUDA tensors, the plain version for CPU
+    tensors.  Returns contiguous (dq, dk, dv) in the input dtype."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return fused_attention_bwd_plain(q, k, v, out, dout, lse, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"attention_bwd: no kernel for device {q.device}")
+    _check(q, k, v)
+    B, T, H, D = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"out {out.shape} {out.dtype} and dout {dout.shape} {dout.dtype} must match q")
+    if lse.shape != (B * H, T) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous f32 (B*H, T) = {(B * H, T)}, got {lse.shape} {lse.dtype}")
+    # autograd may hand over a view with a strided head dim (e.g. an expand)
+    out, dout = (x if x.stride(-1) == 1 else x.contiguous() for x in (out, dout))
+    for x in (out, dout, lse):
+        if x.device != q.device:
+            raise ValueError("attention_bwd inputs on different devices")
+    from latent_diffusion_speech_tpu_torch.ops.kernels.build import load_library
+
+    scale = scale if scale is not None else D**-0.5
+    dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((B * H, T, D), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*(x.stride(i) for x in (q, k, v, out, dout) for i in range(3)))
+    fn = getattr(load_library(), _BWD[q.dtype])
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+            B, T, H, D, ctypes.addressof(strides), float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention_bwd launch failed: cudaError {err}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FusedAttention(torch.autograd.Function):
+    """K4 with its backward: saves (q, k, v, out, lse) in the forward and
+    runs `attention_bwd` (the kernel on CUDA, the plain version on CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = fused_attention_with_lse(q, k, v, scale)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, dout, lse, ctx.scale)
+        return dq, dk, dv, None
+
+
 def fused_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
 ) -> torch.Tensor:
     """Self-attention over (B, T, H, D): the kernel on CUDA, the plain
-    version on CPU."""
+    version on CPU; differentiable through `FusedAttention` when a
+    gradient is needed, the forward alone otherwise."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FusedAttention.apply(q, k, v, scale)
     return fused_attention_with_lse(q, k, v, scale)[0]

@@ -2,8 +2,9 @@
 
 Counterpart of `latent_diffusion_speech_tpu/quantize/codebook.py::EuclideanCodebook`.
 `dequantize` is on the serve path (semantic token -> unit embedding);
-`quantize` is the plain version of the K6 argmin kernel, which is still to be
-ported.
+`quantize` is the diffusion trainer's k-means snap, through the K6 wrapper
+(`ops/kernels/kmeans.py`): the CUDA kernel for a codebook on the card, its
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from latent_diffusion_speech_tpu_torch.ops.kernels.kmeans import kmeans_argmin
 from latent_diffusion_speech_tpu_torch.ops.layers import resolve_device
 
 __all__ = ["EuclideanCodebook"]
@@ -24,11 +26,16 @@ class EuclideanCodebook:
         self.codebook = torch.as_tensor(np.asarray(codebook, np.float32), device=resolve_device(device))
 
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
-        """(..., D) -> ids (...,): argmax of 2 x.e - |e|^2."""
+        """(..., D) -> int32 ids (...,): the nearest centroid, i.e. the
+        argmax of 2 x.e - |e|^2 (argmin of |e|^2 - 2 x.e), ties to the
+        lowest id."""
         flat = x.reshape(-1, x.shape[-1]).float()
-        e = self.codebook
-        scores = 2.0 * flat @ e.T - (e * e).sum(dim=-1)[None, :]
-        return scores.argmax(dim=-1).reshape(x.shape[:-1])
+        return kmeans_argmin(flat, self.codebook).reshape(x.shape[:-1])
 
     def dequantize(self, ids: torch.Tensor) -> torch.Tensor:
         return self.codebook[torch.as_tensor(ids, device=self.codebook.device).long()]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """Snap x to its nearest centroids (a lookup: no gradient path)."""
+        with torch.no_grad():
+            return self.dequantize(self.quantize(x))

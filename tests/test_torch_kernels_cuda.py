@@ -11,7 +11,13 @@ atol/rtol 3e-2, the tolerance tests/test_pallas.py holds the TPU kernel's
 bf16 output to.  The fused UNet (K2/K3) is held to its plain version at
 1e-3 of the output's scale in f32, and in bf16 to the K2/K3 contract
 (tests/test_pallas_unet.py): corr > 0.999, max error <= max(4 x the plain
-version's own bf16-vs-f32 error, 2% of scale).
+version's own bf16-vs-f32 error, 2% of scale).  The K4 backward is held to
+its plain version at atol 3e-5 / rtol 1e-4 in f32 (the JAX contract), and
+in bf16 to the f32 plain backward of the same bf16 inputs within 2^-5 of
+each gradient's scale (see `test_k4_bwd_kernel_matches_plain`).  K6 must
+give exactly the plain version's ids.  Gradients through a small UNet on
+the card are held to the CPU plain path's at rtol 1e-3 / atol 1e-4 of each
+gradient's scale (f32 sums in another order through the whole network).
 """
 
 import pytest
@@ -19,14 +25,17 @@ import torch
 
 import copy
 
+from latent_diffusion_speech_tpu_torch.config import Config
 from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import UNet1D, UNet1DConfig
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerConfig, RoformerSystem, StackConfig
 from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig, process_logits
 from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
 from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
 from latent_diffusion_speech_tpu_torch.ops.kernels import unet_fused as k23
 from latent_diffusion_speech_tpu_torch.ops.layers import cast_compute_dtype, seeded
+from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer, step_generator
 
 pytestmark = pytest.mark.cuda
 
@@ -163,3 +172,94 @@ def test_unit2mel_pallas_routes_b1_through_the_kernel(dev):
                      infer_speedup=10)
     assert k23.launches == before  # B > 1: the eager module
     assert out.shape == (2, 16, 16)
+
+
+# the diffusion trainer's K4 shapes (T, D) at H=8, and ragged multi-tile T
+K4_BWD_SHAPES = [(88, 32), (44, 48), (22, 64), (11, 64), (13, 32), (130, 48)]
+
+
+@pytest.mark.parametrize("T,D", K4_BWD_SHAPES)
+def test_k4_bwd_kernel_matches_plain(dev, T, D):
+    """f32 at atol 3e-5 / rtol 1e-4 with strided q/k/v views and a
+    non-contiguous dout; bf16 against the f32 plain backward of the same
+    bf16 inputs within 2^-5 of each gradient's scale: p, ds, out and the
+    outputs are each rounded to bf16 once (2^-9 relative), and the sums
+    over T add those roundings with random signs, so the error stays a few
+    roundings of the scale; 2^-5 leaves a wide margin."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn((4, T, 3 * 8 * D), generator=gen, device=dev)
+    q, k, v = (x.reshape(4, T, 8, D) for x in qkv.chunk(3, dim=-1))
+    dout = torch.randn((4, 8, T, D), generator=gen, device=dev).transpose(1, 2)  # strided rows
+    out, lse = k4.fused_attention_with_lse(q, k, v)
+    before = k4.bwd_launches
+    got = k4.attention_bwd(q, k, v, out, dout, lse)
+    assert k4.bwd_launches == before + 1
+    ref = k4.fused_attention_bwd_plain(q, k, v, out, dout, lse)
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g, r, atol=3e-5, rtol=1e-4, msg=name)
+    qb, kb, vb, db = (x.bfloat16() for x in (q, k, v, dout))
+    outb, lseb = k4.fused_attention_with_lse(qb, kb, vb)
+    out32, lse32 = k4.fused_attention_plain(qb.float(), kb.float(), vb.float())
+    ref32 = k4.fused_attention_bwd_plain(qb.float(), kb.float(), vb.float(), out32, db.float(), lse32)
+    for g, r, name in zip(k4.attention_bwd(qb, kb, vb, outb, db, lseb), ref32, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16
+        assert (g.float() - r).abs().max().item() <= 2**-5 * r.abs().max().item(), name
+
+
+@pytest.mark.parametrize("n,k,d", [(300, 700, 32), (256, 512, 64), (1000, 777, 50), (4128, 4096, 1280)])
+def test_k6_kernel_matches_plain(dev, n, k, d):
+    """Ids equal to the plain version's; at the trainer's size (units near
+    their centroids, as k-means units are) and at the contract shapes."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cb = torch.randn((k, d), generator=gen, device=dev)
+    if n == 4128:
+        x = cb[torch.randint(0, k, (n,), generator=gen, device=dev)] + 0.3 * torch.randn(
+            (n, d), generator=gen, device=dev)
+    else:
+        x = torch.randn((n, d), generator=gen, device=dev)
+    before = k6.launches
+    got = k6.kmeans_argmin(x, cb)
+    assert k6.launches == before + 1 and got.dtype == torch.int32
+    assert torch.equal(got, k6.kmeans_argmin_plain(x, cb))
+
+
+def test_unet_gradients_flow_through_k4_on_the_card(dev):
+    """loss.backward() through a small UNet1D on the card reaches every
+    to_q / to_k / to_v weight through K4's backward, and every gradient
+    matches the CPU plain path's."""
+    m_cpu = seeded(lambda: UNet1D(UNET), 0)
+    m_dev = copy.deepcopy(m_cpu).to(dev)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 24, UNET.in_channels), generator=gen)
+    t = torch.tensor([3.0, 400.0, 999.0])
+    target = torch.randn((3, 24, UNET.out_channels), generator=gen)
+    fwd, bwd = k4.launches, k4.bwd_launches
+    ((m_dev(x.to(dev), t.to(dev)) - target.to(dev)) ** 2).mean().backward()
+    n_attn = sum(1 for name, _ in m_dev.named_modules() if name.endswith(("attn1", "attn2")))
+    assert (k4.launches - fwd, k4.bwd_launches - bwd) == (n_attn, n_attn)
+    ((m_cpu(x, t) - target) ** 2).mean().backward()
+    cpu = dict(m_cpu.named_parameters())
+    for name, p in m_dev.named_parameters():
+        if name.endswith(("to_q.weight", "to_k.weight", "to_v.weight")):
+            assert p.grad is not None and p.grad.abs().max().item() > 0, name
+        ref = cpu[name].grad
+        torch.testing.assert_close(p.grad.cpu(), ref, rtol=1e-3, atol=1e-4 * ref.abs().max().item(), msg=name)
+
+
+def test_trainer_trains_in_f32_on_the_card(dev):
+    """Making the trainer on the card turns TF32 off for matmuls and cuDNN
+    convolutions, whatever the process had set, and a step runs through
+    K4 forward and backward."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    cfg = Config()
+    cfg.data.encoder = "hubert_soft"
+    model = Unit2MelConfig(input_channel=256, n_spk=1, out_dims=16, n_hidden=32, block_out_channels=(64, 96),
+                           n_layers=1, n_heads=2, timesteps=50, k_step=50)
+    trainer = DiffusionTrainer(cfg, model_cfg=model, device=dev)
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {"units": torch.randn((2, 24, 256), generator=gen, device=dev),
+             "mel": torch.randn((2, 24, 16), generator=gen, device=dev)}
+    fwd, bwd = k4.launches, k4.bwd_launches
+    loss = trainer.train_step(batch, step_generator(0, 0, dev))["loss"]
+    assert bool(torch.isfinite(loss)) and k4.launches > fwd and k4.bwd_launches - bwd == k4.launches - fwd

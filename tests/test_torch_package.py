@@ -6,7 +6,8 @@
   the JAX package in an import;
 * the entry points run on the card unless asked for the CPU;
 * each config dataclass the port declares again has the same fields and
-  defaults as its JAX counterpart, so the two cannot drift.
+  defaults as its JAX counterpart, so the two cannot drift, and both
+  `load_config`s read `configs/config.yaml` to the same values.
 """
 
 import dataclasses
@@ -19,11 +20,13 @@ from pathlib import Path
 import pytest
 
 import latent_diffusion_speech_tpu_torch as port
+from latent_diffusion_speech_tpu import config as j_config
 from latent_diffusion_speech_tpu.models.diffusion import unet1d as j_unet1d
 from latent_diffusion_speech_tpu.models.diffusion import unit2mel as j_unit2mel
 from latent_diffusion_speech_tpu.models.lm import roformer as j_roformer
 from latent_diffusion_speech_tpu.models.lm import sampling as j_sampling
 from latent_diffusion_speech_tpu.models.vaegan import config as j_vaegan_config
+from latent_diffusion_speech_tpu_torch import config
 from latent_diffusion_speech_tpu_torch.models.diffusion import unet1d, unit2mel
 from latent_diffusion_speech_tpu_torch.models.lm import roformer, sampling
 from latent_diffusion_speech_tpu_torch.models.vaegan import config as vaegan_config
@@ -73,16 +76,21 @@ def test_no_jax_imports_in_the_source():
 def _default_systems():
     from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
     from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
+    from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer
 
+    tiny = unit2mel.Unit2MelConfig(input_channel=8, n_spk=4, out_dims=4, n_hidden=8, block_out_channels=(8, 8),
+                                   n_heads=2, timesteps=20, k_step=20)
     return {
         "RoformerSystem": lambda: roformer.RoformerSystem(roformer.RoformerConfig()),
         "Unit2MelSystem": lambda: unit2mel.Unit2MelSystem(unit2mel.Unit2MelConfig()),
         "Vocoder": lambda: Vocoder("hifi-vaegan"),
         "EuclideanCodebook": lambda: EuclideanCodebook([[0.0, 1.0]]),
+        "DiffusionTrainer": lambda: DiffusionTrainer(config.Config(), model_cfg=tiny),
     }
 
 
-@pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "EuclideanCodebook"])
+@pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "EuclideanCodebook",
+                                  "DiffusionTrainer"])
 def test_entry_points_default_to_the_card(name):
     """A default-constructed entry point asks for `cuda`: without a card it
     raises (never a silent CPU run); with one it lands there."""
@@ -118,6 +126,10 @@ PAIRS = {
     "UNet1DConfig": (unet1d.UNet1DConfig, j_unet1d.UNet1DConfig),
     "Unit2MelConfig": (unit2mel.Unit2MelConfig, j_unit2mel.Unit2MelConfig),
     "VAEGANConfig": (vaegan_config.VAEGANConfig, j_vaegan_config.VAEGANConfig),
+    **{name: (getattr(config, name), getattr(j_config, name)) for name in (
+        "Config", "DataConfig", "VocoderConfig", "InferConfig", "CommonConfig", "DiffusionModelConfig",
+        "TrainConfig", "DiffusionConfig", "TransformerConfig", "LMModelConfig", "LMTrainConfig", "LMConfig",
+        "ParallelConfig", "DebugConfig")},
 }
 
 
@@ -126,3 +138,8 @@ def test_config_matches_jax_counterpart(name):
     mine, theirs = PAIRS[name]
     assert _fields(mine) == _fields(theirs)
     assert mine.__dataclass_params__.frozen == theirs.__dataclass_params__.frozen
+
+
+def test_load_config_matches_jax():
+    path = PORT_DIR.parent / "configs" / "config.yaml"
+    assert config.config_to_dict(config.load_config(path)) == j_config.config_to_dict(j_config.load_config(path))
