@@ -7,9 +7,11 @@ with nvcc (sm_90a), then:
 
 1. holds each kernel against its plain PyTorch version on the card at the
    shapes the serve path gives it (K4 attention_fwd at the four UNet
-   resolutions and T=1024; K1 ar_decode at the flagship decoder width,
-   B in {1, 4}, N=430; the fused UNet forward unet_fwd (K2/K3) at the
-   flagship width, T in {64, 448, 1024}, f32 and bf16), and times each
+   resolutions and T=1024; K5 flash_attention at the four UNet resolutions
+   at B=1 and B=4 and T=1024, and at the JAX kernel's contract shapes,
+   causal with Tq != Tkv included; K1 ar_decode at the flagship decoder
+   width, B in {1, 4}, N=430; the fused UNet forward unet_fwd (K2/K3) at
+   the flagship width, T in {64, 448, 1024}, f32 and bf16), and times each
    beside its plain version, its bound and, where one exists, the one
    PyTorch call that computes the same function;
 2. drives the port's serve path once at flagship width with seeded random
@@ -21,15 +23,22 @@ with nvcc (sm_90a), then:
    (20 unet_fwd launches, no K4) and one `tts_batch` of 4 (B>1 stays on the
    eager module: K4, no unet_fwd), with its stage times beside the eager
    ones;
-4. checks the 20-step diffusion + vocoder against the same run with the
-   plain attention, in f32, on a short input, and the fused configuration's
+4. drives the path through K5: the general (reference-layout) denoiser,
+   `Unit2MelConfig(denoiser="general", attn_impl="pallas")`, at full width,
+   one `tts` and one `tts_batch` of 4, and the flagship with
+   attn_impl="pallas", one `tts`: 640 K5 launches per 20-step diffusion
+   call, no K4, no unet_fwd, no call routed to the plain attention, with
+   per-stage wall times;
+5. checks the 20-step diffusion + vocoder against the same run with the
+   plain attention, in f32, on a short input, for the flagship with K4 and
+   for the general denoiser with K5, and the fused configuration's
    diffusion trajectory against the eager one (bf16 and f32, same x_init);
-5. holds the training kernels against their plain versions at the shapes
+6. holds the training kernels against their plain versions at the shapes
    the diffusion trainer gives them (K4 attention_bwd at B=48, H=8 and the
    four UNet resolutions of a 1 s crop, f32 and bf16; K6 kmeans_argmin at
    the contract shapes and at N=4128, K=4096, D=1280), timed beside their
    plain versions, bounds and PyTorch yardsticks;
-6. trains the flagship Unit2Mel in f32 at B=48 through the port's training
+7. trains the flagship Unit2Mel in f32 at B=48 through the port's training
    entry point (`cli/train_diffusion.py::build` + `DiffusionTrainer.train`,
    `configs/config.yaml` with the k-means unit snap) on a seeded synthetic
    data layout: one step's loss and gradients against the same step with
@@ -66,6 +75,13 @@ BATCH_TEXTS = [
 # K4 shapes on the serve path: (T, D) at H=8 for the four UNet resolutions
 # of a 448-frame bucket, plus the T=1024 bucket of max_length=1024
 K4_SHAPES = [(448, 32), (224, 48), (112, 64), (56, 64), (1024, 64)]
+# K5 shapes: (B, Tq, Tkv, D, causal) at H=8.  The serve path's: the four
+# UNet resolutions of a 448-frame bucket at B=1 (tts) and B=4 (tts_batch),
+# and the 1024-frame bucket; the JAX kernel's contract shapes
+# (tests/test_pallas.py): Tq=100 against Tkv=260, causal T=96; and causal
+# attention with Tq != Tkv (top-left aligned) both ways
+K5_SHAPES = [(b, t, t, d, False) for b in (1, 4) for t, d in ((448, 32), (224, 48), (112, 64), (56, 64), (1024, 32))]
+K5_SHAPES += [(1, 100, 260, 64, False), (1, 96, 96, 32, True), (2, 70, 200, 64, True), (2, 200, 70, 48, True)]
 # fused UNet buckets: the smallest, the 430-token one, max_length=1024
 UNET_T = (64, 448, 1024)
 # K4 shapes on the training path: (T, D) at H=8, B=48 for the four UNet
@@ -155,6 +171,62 @@ def check_k4(dev) -> dict:
           f"F.scaled_dot_product_attention {library_ms * 1e3:.1f} us")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, rows=rows, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+def k5_pairs(Tq: int, Tkv: int, causal: bool) -> int:
+    """(query, key) pairs K5 scores: all of them, or under the top-left
+    causal mask those with key <= query row."""
+    return sum(min(r + 1, Tkv) for r in range(Tq)) if causal else Tq * Tkv
+
+
+def check_k5(dev) -> dict:
+    """K5 against its plain version at every K5_SHAPES entry, q/k/v strided
+    views as the UNet hands them over: f32 at atol 2e-5 (the JAX contract,
+    tests/test_pallas.py); bf16 against the plain version on the same bf16
+    inputs (the same f32 arithmetic, rounded once at the end) within 1e-2 of
+    max|out|.  Times the bf16 kernel (the serve dtype), its plain version and
+    F.scaled_dot_product_attention (its is_causal is top-left aligned too;
+    the port never calls it), beside the bound: q, k, v read and out written
+    once, 2 * 2 * D operations per scored (query, key) pair and head."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.ops.kernels import flash_attention as k5
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, worst = [], 0.0
+    for B, Tq, Tkv, D, causal in K5_SHAPES:
+        q = torch.randn((B, Tq, 3 * 8 * D), generator=gen, device=dev)[..., : 8 * D].reshape(B, Tq, 8, D)
+        kv = torch.randn((B, Tkv, 2 * 8 * D), generator=gen, device=dev)
+        k, v = (x.reshape(B, Tkv, 8, D) for x in kv.chunk(2, dim=-1))
+        out = k5.flash_attention(q, k, v, is_causal=causal)
+        ref = k5.flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        e32 = (out - ref).abs().max().item()
+        if not bool(torch.isfinite(out).all()) or e32 > 2e-5:
+            raise AssertionError(f"K5 f32 B={B} Tq={Tq} Tkv={Tkv} D={D} causal={causal}: max err {e32} (atol 2e-5)")
+        qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+        outb = k5.flash_attention(qb, kb, vb, is_causal=causal)
+        refb = k5.flash_attention_plain(qb, kb, vb, causal)
+        torch.cuda.synchronize()
+        eb, scale = (outb.float() - refb.float()).abs().max().item(), refb.float().abs().max().item()
+        if outb.dtype != torch.bfloat16 or eb > 1e-2 * scale:
+            raise AssertionError(f"K5 bf16 B={B} Tq={Tq} Tkv={Tkv} D={D} causal={causal}: max err {eb} "
+                                 f"over 1e-2 of scale {scale}")
+        worst = max(worst, eb)
+        ms = cuda_time_ms(lambda: k5.flash_attention(qb, kb, vb, is_causal=causal), iters=50)
+        plain_ms = cuda_time_ms(lambda: k5.flash_attention_plain(qb, kb, vb, causal), iters=20)
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (qb, kb, vb))
+        library_ms = cuda_time_ms(lambda: sdpa(qs, ks, vs, is_causal=causal), iters=50)
+        bound_ms, bound_by = bound(2 * 8 * D * (2 * B * Tq + 2 * B * Tkv), 4 * B * 8 * D * k5_pairs(Tq, Tkv, causal))
+        rows.append(dict(B=B, Tq=Tq, Tkv=Tkv, D=D, causal=causal, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"K5 flash_attention B={B} Tq={Tq} Tkv={Tkv} H=8 D={D} causal={causal}: f32 err {e32:.2e}; bf16 err "
+              f"{eb:.2e} (scale {scale:.3f}); kernel {ms * 1e3:.1f} us/call, plain {plain_ms * 1e3:.1f} us, "
+              f"F.scaled_dot_product_attention {library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    main = rows[0]  # B=1, T=448, D=32: the tts path's largest call
+    return dict(max_abs_err=worst, rows=rows, **{k: main[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
 
 def check_k1(dev) -> dict:
@@ -530,6 +602,127 @@ def serve_fused(dev, card: str, eager: dict) -> int:
           f"+{k4.launches} over {n_batch_inf} infer calls); diffusion stage over both calls "
           f"{stages['diffusion_20step']:.4f} s vs eager {e['diffusion_20step']:.4f} s [{card}]")
     return k23.launches
+
+
+def serve_k5(dev, card: str, eager: dict, what: str, cfg, batch: bool) -> tuple:
+    """The serve path with a Unit2Mel whose attention is K5 (`cfg`: the
+    general denoiser, or the flagship with attn_impl="pallas"), the eager
+    pipeline's LM, codebook and vocoder, seeded random weights, bf16: one
+    `tts` (and, if `batch`, one `tts_batch` of 4), each of its 20-step
+    diffusion calls 640 K5 launches (20 denoiser evaluations x 32
+    attentions), no K4 and no unet_fwd launch, no call routed to the plain
+    attention; per-stage wall times.  Returns the K5 launches and the
+    Unit2MelSystem."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelSystem
+    from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+    from latent_diffusion_speech_tpu_torch.ops.kernels import flash_attention as k5
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import unet_fused as k23
+
+    pipe = copy.copy(eager["pipe"])
+    pipe.lm, pipe.vocoder = copy.copy(pipe.lm), copy.copy(pipe.vocoder)  # to time them on their own
+    pipe.diffusion = Unit2MelSystem(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    hop = pipe.vocoder.vocoder_hop_size
+    stages: dict = {}
+    # the eager run wrapped the shared objects' methods: time the class's own
+    pipe.lm.generate = timed(stages, "lm_decode", type(pipe.lm).generate.__get__(pipe.lm))
+    pipe.diffusion.infer = timed(stages, "diffusion_20step", pipe.diffusion.infer)
+    pipe.vocoder.infer = timed(stages, "vocoder", type(pipe.vocoder).infer.__get__(pipe.vocoder))
+    pipe.tts(TEXT, language="EN", max_length=N_TOKENS)  # warm-up
+    stages.clear()
+
+    k1.launches = k4.launches = k4.bwd_launches = k23.launches = k5.launches = k5.plain_routes = 0
+    t0 = time.perf_counter()
+    wav, sr = pipe.tts(TEXT, language="EN", max_length=N_TOKENS)
+    t_tts = time.perf_counter() - t0
+    diff_tts = stages["diffusion_20step"]
+    tts_launches = {"ar_decode": k1.launches, "flash_attention": k5.launches, "attention_fwd": k4.launches,
+                    "unet_fwd": k23.launches, "plain_routes": k5.plain_routes}
+    if tts_launches != {"ar_decode": 1, "flash_attention": 640, "attention_fwd": 0, "unet_fwd": 0, "plain_routes": 0}:
+        raise AssertionError(f"{what} tts: launches {tts_launches}, want 1 ar_decode, 640 flash_attention, "
+                             "0 attention_fwd, 0 unet_fwd, 0 plain routes")
+    n = len(wav) // hop
+    if sr != 44100 or wav.ndim != 1 or n == 0 or len(wav) != n * hop or not np.isfinite(wav).all():
+        raise AssertionError(f"{what} tts: bad output: sr {sr}, shape {wav.shape}")
+    line = (f"{what} serve tts: {len(wav) / sr:.3f} s of audio in {t_tts:.3f} s (eager flagship with K4 "
+            f"{eager['t_tts']:.3f} s); 20-step diffusion {diff_tts:.4f} s (eager flagship with K4 "
+            f"{eager['diff_tts']:.4f} s); launches {tts_launches} [{card}]")
+    print(line)
+    if batch:
+        t0 = time.perf_counter()
+        outs = pipe.tts_batch(BATCH_TEXTS, language="EN", spk_ids=[1, 2, 3, 4], max_length=N_TOKENS)
+        t_batch = time.perf_counter() - t0
+        n_inf = stages["diffusion_20step_calls"]
+        if (k5.launches, k4.launches, k23.launches, k5.plain_routes) != (640 * n_inf, 0, 0, 0):
+            raise AssertionError(f"{what} tts + tts_batch: flash_attention {k5.launches} (want {640 * n_inf}), "
+                                 f"attention_fwd {k4.launches}, unet_fwd {k23.launches}, plain routes "
+                                 f"{k5.plain_routes} (want 0)")
+        for w, s in outs:
+            if s != 44100 or w.ndim != 1 or len(w) == 0 or not np.isfinite(w).all():
+                raise AssertionError(f"{what} tts_batch: bad output: sr {s}, shape {w.shape}")
+        print(f"{what} serve tts_batch x4: {[round(len(w) / s, 3) for w, s in outs]} s in {t_batch:.3f} s; "
+              f"flash_attention launches over tts + tts_batch {k5.launches} ({n_inf} diffusion calls) [{card}]")
+        for name in ("lm_decode", "diffusion_20step", "vocoder"):
+            print(f"{what} stage {name}: {stages[name]:.4f} s over {stages[name + '_calls']} calls "
+                  f"(tts + tts_batch) [{card}]")
+    return k5.launches, pipe.diffusion
+
+
+def compare_flagship_k4_k5(dev, card: str, k4_system, k5_system) -> None:
+    """The flagship's 20-step diffusion (B=1, T=448, bf16, the same seeded
+    weights, units and x_init) with its attention through K4 and through
+    K5, in turns K4, K5, K5, K4 within this call: host-bound runs move
+    between calls, so only a same-call comparison says which is faster."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    units = torch.randn((1, 448, 1280), generator=gen, device=dev)
+    x_init = torch.randn((1, 448, 128), generator=gen, device=dev)
+    spk = torch.full((1, 1), 2, dtype=torch.long, device=dev)
+    times = {"K4": [], "K5": []}
+    for name in ("K4", "K5", "K5", "K4"):
+        system = k4_system if name == "K4" else k5_system
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.infer(units, spk_id=spk, method="dpm-solver", infer_speedup=50, x_init=x_init)  # 20 steps
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    print(f"flagship 20-step diffusion, same call, turns K4, K5, K5, K4: K4 "
+          f"{[round(t, 4) for t in times['K4']]} s, K5 {[round(t, 4) for t in times['K5']]} s [{card}]")
+
+
+def check_general_against_plain(dev):
+    """The general denoiser's 20-step diffusion + vocoder with K5 against
+    the same run with K5's plain version, f32, same units and x_init
+    (sampler tolerance atol/rtol 2e-3, tests/test_diffusion.py)."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
+    from latent_diffusion_speech_tpu_torch.ops import attention
+    from latent_diffusion_speech_tpu_torch.ops.kernels import flash_attention as k5
+
+    pipe = build_pipeline(dev, torch.float32)
+    pipe.diffusion = Unit2MelSystem(Unit2MelConfig(denoiser="general", attn_impl="pallas"), dtype=torch.float32,
+                                    device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    units = pipe.semantic_to_units(np.arange(50) * 7 % 4096)
+    x_init = torch.randn((1, 64, 128), generator=gen, device=dev)
+    before = k5.launches
+    got = pipe.infer(units, spk_id=2, x_init=x_init)
+    if k5.launches - before != 640:
+        raise AssertionError(f"general f32 infer: {k5.launches - before} K5 launches, want 640")
+    attention.flash_attention = lambda q, k, v, bias=None, mask=None, is_causal=False, scale=None: (
+        k5.flash_attention_plain(q, k, v, is_causal, scale))
+    try:
+        ref = pipe.infer(units, spk_id=2, x_init=x_init)
+    finally:
+        attention.flash_attention = k5.flash_attention
+    err = (got - ref).abs().max().item()
+    if not bool(torch.isfinite(got).all()) or not bool(((got - ref).abs() <= 2e-3 + 2e-3 * ref.abs()).all()):
+        raise AssertionError(f"general f32 wav K5 vs plain attention: max err {err}")
+    print(f"general denoiser f32 (50 tokens, 20 steps + vocoder) with K5 vs plain attention: max wav err {err:.2e}")
 
 
 def check_trajectory(dev):
@@ -944,6 +1137,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig
     from latent_diffusion_speech_tpu_torch.ops.kernels.build import build_info, load_library
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -964,6 +1158,7 @@ def main() -> int:
             print("  ptxas: " + line.strip())
 
     k4 = check_k4(dev)
+    k5 = check_k5(dev)
     k4_bwd = check_k4_bwd(dev)
     k6 = check_k6(dev)
     k1 = check_k1(dev)
@@ -971,8 +1166,15 @@ def main() -> int:
     eager = serve(dev, card)
     launches = eager["launches"]
     launches["unet_fwd"] = serve_fused(dev, card, eager)
-    del eager
+    launches["flash_attention"], _ = serve_k5(
+        dev, card, eager, "general denoiser (K5)", Unit2MelConfig(denoiser="general", attn_impl="pallas"), True)
+    n, flagship_k5 = serve_k5(
+        dev, card, eager, "flagship attn_impl=pallas (K5)", Unit2MelConfig(attn_impl="pallas"), False)
+    launches["flash_attention"] += n
+    compare_flagship_k4_k5(dev, card, eager["pipe"].diffusion, flagship_k5)
+    del eager, flagship_k5
     check_slice_against_plain(dev)
+    check_general_against_plain(dev)
     check_trajectory(dev)
     train = train_slice(dev, card, k4_bwd, k6)
     print(f"attention_fwd launches: {launches['attention_fwd']} serving + "
@@ -1002,6 +1204,11 @@ def main() -> int:
              launches=train["launches"]["attention_bwd"], max_abs_err=k4_bwd["max_abs_err"],
              ms=k4_bwd["ms"], plain_ms=k4_bwd["plain_ms"], bound_ms=k4_bwd["bound_ms"],
              bound_by=k4_bwd["bound_by"], library_ms=k4_bwd["library_ms"]),
+        dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
+             replaces="latent_diffusion_speech_tpu/ops/pallas/flash_attention.py:89",
+             launches=launches["flash_attention"], max_abs_err=k5["max_abs_err"],
+             ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
+             library_ms=k5["library_ms"]),
         dict(name="kmeans_argmin", route="cuda", source=src + "kmeans_argmin.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/kmeans.py:54",
              launches=train["launches"]["kmeans_argmin"], max_abs_err=k6["max_abs_err"],

@@ -59,8 +59,13 @@ def roformer_from_jax(params: Mapping) -> dict:
 
 
 def unit2mel_from_jax(params: Mapping) -> dict:
-    """flax `Unit2Mel` params (flagship denoiser) -> state dict of the
-    port's `Unit2Mel`."""
+    """flax `Unit2Mel` params -> state dict of the port's `Unit2Mel`, for
+    either denoiser: the flagship's `unet.down_0_res_0...` tree, or the
+    general denoiser's `unet.down_blocks_0.resnets_0...` /
+    `unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1.to_q` /
+    `unet.down_blocks_0.downsamplers_0.conv` tree (`UNet1DCondition` with
+    the block types of `Unit2MelConfig.general_unet_config`).  The port's
+    `Unit2Mel` must be built with the same `denoiser`."""
     return _convert(params)
 
 

@@ -8,7 +8,8 @@ them), with the same signatures except that `rng` keys become
 `torch.Generator`s.  `tts_batch` keeps the phone, length and batch buckets
 and the per-item crops, so the server's batching loop can drive it.  It runs
 eagerly; the LM decode is one K1 kernel launch on the card and every UNet
-self-attention one K4 launch.  `tts_long_text` and `infer_from_long_audio`
+attention one K4 launch, or one K5 launch with `attn_impl="pallas"` (the
+flagship or the general denoiser: it takes any `Unit2MelSystem`).  `tts_long_text` and `infer_from_long_audio`
 are not ported yet (ROADMAP.md).
 """
 

@@ -7,13 +7,19 @@ blocks (concat skip + ResBlock (+ Transformer), nearest x2 upsample + conv
 between) -> GroupNorm -> SiLU -> conv_out k3.  Public functions take and
 return (B, T, C); convolutions run channels-first inside `Conv1dSame`.
 
-The self-attention of every transformer block goes through the K4 wrapper
+`attn_impl` picks the self-attention of every transformer block, as in the
+JAX package: 'pallas' sends it through `dot_product_attention(impl=
+"pallas")`, the K5 wrapper (`ops/kernels/flash_attention.py`: f32
+probabilities, no backward); 'xla' and 'fused' through the K4 wrapper
 (`ops/kernels/fused_attention.py`): the CUDA kernels on the card, their
 plain versions on the CPU; when a gradient is needed it runs K4's forward
 and backward through `FusedAttention`, under `torch.no_grad()` the forward
-alone.  The lowering knobs `conv_impl`, `qkv` and `attn_impl`
-are kept for field parity with the JAX config and do not change the
-numbers; `gelu='auto'` (tanh GELU iff B >= 128) does, and is kept exactly.
+alone.  K4 rounds the probabilities to the input dtype, as the JAX 'xla'
+and 'fused' paths do, so in f32 all three agree and in bf16 'pallas'
+differs from the other two as it does in the JAX package.  The lowering
+knobs `conv_impl` and `qkv` are kept for field parity with the JAX config
+and do not change the numbers; `gelu='auto'` (tanh GELU iff B >= 128) does,
+and is kept exactly.
 Submodule names follow the flax tree (`down_0_res_0.conv1`, ...), so
 `convert.unit2mel_from_jax` maps one onto the other.
 """
@@ -28,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention
 from latent_diffusion_speech_tpu_torch.ops.kernels.fused_attention import fused_attention
 from latent_diffusion_speech_tpu_torch.ops.layers import Dense, GroupNorm, LayerNorm
 
@@ -69,8 +76,8 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
 class Conv1dSame(nn.Conv1d):
     """'Same'-padded odd-kernel Conv1d over (B, T, C) inputs."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1):
-        super().__init__(in_ch, out_ch, kernel_size, stride=stride, padding=(kernel_size - 1) // 2)
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1, bias: bool = True):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride, padding=(kernel_size - 1) // 2, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv1d(x.to(self.weight.dtype).transpose(1, 2), self.weight, self.bias,
@@ -104,9 +111,10 @@ class ResBlock1D(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, channels: int, n_heads: int):
+    def __init__(self, channels: int, n_heads: int, attn_impl: str = "xla"):
         super().__init__()
         self.n_heads = n_heads
+        self.attn_impl = attn_impl
         self.to_q = Dense(channels, channels, bias=False)
         self.to_k = Dense(channels, channels, bias=False)
         self.to_v = Dense(channels, channels, bias=False)
@@ -115,9 +123,11 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, C = x.shape
         shape = (B, T, self.n_heads, C // self.n_heads)
-        out = fused_attention(
-            self.to_q(x).reshape(shape), self.to_k(x).reshape(shape), self.to_v(x).reshape(shape)
-        )
+        q, k, v = self.to_q(x).reshape(shape), self.to_k(x).reshape(shape), self.to_v(x).reshape(shape)
+        if self.attn_impl == "pallas":
+            out = dot_product_attention(q, k, v, impl="pallas")
+        else:
+            out = fused_attention(q, k, v)
         return self.to_out(out.reshape(B, T, C))
 
 
@@ -137,15 +147,16 @@ class GegluFF(nn.Linear):
 class TransformerBlock1D(nn.Module):
     """Transformer2DModel(num_layers=1) effective runtime path."""
 
-    def __init__(self, channels: int, n_heads: int, groups: int = 8, gelu: str = "auto"):
+    def __init__(self, channels: int, n_heads: int, groups: int = 8, gelu: str = "auto",
+                 attn_impl: str = "xla"):
         super().__init__()
         self.gelu = gelu
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = Dense(channels, channels)
         self.norm1 = LayerNorm(channels)
-        self.attn1 = SelfAttention(channels, n_heads)
+        self.attn1 = SelfAttention(channels, n_heads, attn_impl)
         self.norm2 = LayerNorm(channels)
-        self.attn2 = SelfAttention(channels, n_heads)
+        self.attn2 = SelfAttention(channels, n_heads, attn_impl)
         self.norm3 = LayerNorm(channels)
         self.ff_proj = GegluFF(channels)
         self.ff_out = Dense(4 * channels, channels)
@@ -198,14 +209,14 @@ class UNet1D(nn.Module):
                 self.add_module(f"down_{i}_res_{j}", ResBlock1D(ch, boc[i], E, g))
                 ch = boc[i]
                 if cfg.cross_attn[i]:
-                    self.add_module(f"down_{i}_attn_{j}", TransformerBlock1D(ch, cfg.n_heads, g, cfg.gelu))
+                    self.add_module(f"down_{i}_attn_{j}", TransformerBlock1D(ch, cfg.n_heads, g, cfg.gelu, cfg.attn_impl))
                 skip_ch.append(ch)
             if i < n - 1:
                 self.add_module(f"down_{i}_downsample", Downsample1D(ch))
                 skip_ch.append(ch)
 
         self.mid_res_0 = ResBlock1D(ch, boc[-1], E, g)
-        self.mid_attn = TransformerBlock1D(boc[-1], cfg.n_heads, g, cfg.gelu)
+        self.mid_attn = TransformerBlock1D(boc[-1], cfg.n_heads, g, cfg.gelu, cfg.attn_impl)
         self.mid_res_1 = ResBlock1D(boc[-1], boc[-1], E, g)
         ch = boc[-1]
 
@@ -216,7 +227,7 @@ class UNet1D(nn.Module):
                 self.add_module(f"up_{i}_res_{j}", ResBlock1D(ch + skip_ch.pop(), rev[i], E, g))
                 ch = rev[i]
                 if rev_attn[i]:
-                    self.add_module(f"up_{i}_attn_{j}", TransformerBlock1D(ch, cfg.n_heads, g, cfg.gelu))
+                    self.add_module(f"up_{i}_attn_{j}", TransformerBlock1D(ch, cfg.n_heads, g, cfg.gelu, cfg.attn_impl))
             if i < n - 1:
                 self.add_module(f"up_{i}_upsample", Upsample1D(ch))
 

@@ -5,9 +5,15 @@ Counterpart of `latent_diffusion_speech_tpu/models/diffusion/unit2mel.py`:
 condition = unit_embed(units) [+ volume_embed(volume)] [+ spk_embed(spk_id-1)]
             [+ aug_shift_embed(aug_shift / 5)]
 
-Only the flagship denoiser (`UNet1D`) is ported; `denoiser='general'` raises.
-`Unit2MelSystem(unet_impl=...)` picks how the sampler runs the denoiser, as
-in the JAX package: 'xla' (and 'auto') the eager module, 'pallas' the fused
+`denoiser` picks the backbone as in the JAX package: 'flagship' is the
+perf-tuned `UNet1D`; 'general' is `UNet1DCondition`, the reference's own
+block layout, built from `Unit2MelConfig.general_unet_config()` (block-type
+overrides that are not ported raise).  `attn_impl` picks the UNet's
+attention: 'pallas' is the K5 kernel (f32 probabilities, no backward, so
+`loss` raises with it); 'xla' and 'fused' are K4 in the flagship, and the
+plain path ('xla') or K4 ('fused', T <= 512) in the general denoiser.
+`Unit2MelSystem(unet_impl=...)` picks how the sampler runs the flagship
+denoiser: 'xla' (and 'auto') the eager module, 'pallas' the fused
 whole-UNet kernel (`ops/kernels/unet_fused.py`) for B=1.  `Unit2MelSystem.loss`
 is the training loss; the diffusion trainer (`train/diffusion_trainer.py`)
 trains `Unit2MelSystem.module` in place.
@@ -23,6 +29,10 @@ from torch import nn
 
 from latent_diffusion_speech_tpu_torch.models.diffusion.gaussian import GaussianDiffusion
 from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import UNet1D, UNet1DConfig
+from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d_condition import (
+    UNet1DCondition,
+    UNet1DConditionConfig,
+)
 from latent_diffusion_speech_tpu_torch.ops.kernels.unet_fused import pack_unet_params, unet_fwd
 from latent_diffusion_speech_tpu_torch.ops.layers import Dense, cast_compute_dtype, resolve_device, seeded
 
@@ -45,10 +55,14 @@ class Unit2MelConfig:
     k_step: int = 1000
     max_beta: float = 0.02
     conv_impl: str = "xla"           # kept for parity; one lowering per device
-    attn_impl: str = "xla"           # kept for parity; CUDA always runs the K4 kernel
+    attn_impl: str = "xla"           # UNet attention: 'xla' | 'fused' (K4) | 'pallas' (K5)
     gelu: str = "auto"               # GEGLU gelu: 'auto' (tanh iff B>=128) | 'exact' | 'tanh'
     qkv: str = "split"               # kept for parity; one lowering per device
-    denoiser: str = "flagship"       # only 'flagship' is ported
+    # Denoiser backbone: 'flagship' = the perf-tuned effective architecture
+    # (UNet1D); 'general' = the reference-layout block-graph UNet
+    # (UNet1DCondition), with the block-type overrides below (None = the
+    # reference's effective types; only those five are ported).
+    denoiser: str = "flagship"
     down_block_types: Optional[Tuple[str, ...]] = None
     up_block_types: Optional[Tuple[str, ...]] = None
     mid_block_type: Optional[str] = "UNetMidBlock2DCrossAttn"
@@ -67,14 +81,32 @@ class Unit2MelConfig:
             qkv=self.qkv,
         )
 
+    def general_unet_config(self) -> UNet1DConditionConfig:
+        """UNet1DConditionConfig equivalent of the effective architecture,
+        with any block-type overrides applied (Unit2Mel pins
+        only_cross_attention=True + scale_shift)."""
+        n = len(self.block_out_channels)
+        down = self.down_block_types or (("CrossAttnDownBlock2D",) * (n - 1) + ("DownBlock2D",))
+        up = self.up_block_types or (("UpBlock2D",) + ("CrossAttnUpBlock2D",) * (n - 1))
+        return UNet1DConditionConfig(
+            in_channels=self.out_dims + self.n_hidden,
+            out_channels=self.out_dims,
+            block_out_channels=self.block_out_channels,
+            down_block_types=tuple(down),
+            up_block_types=tuple(up),
+            mid_block_type=self.mid_block_type,
+            layers_per_block=self.n_layers,
+            norm_num_groups=8,
+            cross_attention_dim=tuple(self.block_out_channels),
+            attention_head_dim=self.n_heads,
+            only_cross_attention=True,
+            resnet_time_scale_shift="scale_shift",
+        )
+
 
 class Unit2Mel(nn.Module):
     def __init__(self, cfg: Unit2MelConfig):
         super().__init__()
-        if cfg.denoiser != "flagship":
-            raise NotImplementedError(
-                f"denoiser {cfg.denoiser!r}: only 'flagship' is ported (ROADMAP.md)"
-            )
         self.cfg = cfg
         self.unit_embed = Dense(cfg.input_channel, cfg.n_hidden)
         if not cfg.is_tts:
@@ -83,7 +115,10 @@ class Unit2Mel(nn.Module):
             self.spk_embed = nn.Embedding(cfg.n_spk, cfg.n_hidden)
         if cfg.use_pitch_aug:
             self.aug_shift_embed = Dense(1, cfg.n_hidden, bias=False)
-        self.unet = UNet1D(cfg.unet_config())
+        if cfg.denoiser == "general":
+            self.unet = UNet1DCondition(cfg.general_unet_config(), attn_impl=cfg.attn_impl)
+        else:
+            self.unet = UNet1D(cfg.unet_config())
 
     def condition(self, units, volume=None, spk_id=None, aug_shift=None) -> torch.Tensor:
         """units (B, T, C_in) -> condition (B, T, n_hidden)."""
@@ -117,13 +152,14 @@ class Unit2MelSystem:
         """device: None means `cuda` (raises without a card).
 
         unet_impl: how sampling runs the denoiser, with the JAX package's
-        values.  'xla' runs the eager `UNet1D` module (on the card, its
-        self-attention is the K4 kernel).  'pallas' packs the weights once
+        values.  'xla' runs the eager module (on the card its attention is
+        the kernel `attn_impl` names: K4, or K5 for 'pallas').  'pallas' packs the weights once
         per `infer` call and sends every B=1 denoiser forward through the
         fused whole-UNet kernel (`ops/kernels/unet_fused.py::unet_fwd`: one
         launch per forward on the card, its plain version on the CPU); B>1
         stays on the eager module, as in the JAX package.  'auto' resolves
-        to 'xla', as it does there."""
+        to 'xla', as it does there.  'pallas' targets the flagship layout and
+        raises with denoiser='general'."""
         if unet_impl not in ("auto", "xla", "pallas"):
             raise ValueError(f"unet_impl must be 'auto', 'xla' or 'pallas', got {unet_impl!r}")
         if cfg.denoiser == "general" and unet_impl == "pallas":

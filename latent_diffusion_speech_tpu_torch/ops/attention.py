@@ -2,10 +2,17 @@
 
 Counterpart of `latent_diffusion_speech_tpu/ops/attention.py`: attention
 over (B, T, H, D) tensors with an f32 softmax whatever the input dtype, the
-probabilities cast back to the input dtype before the product with v.  The
-UNet's self-attention goes through the K4 kernel wrapper instead
-(`ops/kernels/fused_attention.py`); everything else (RoFormer encoder and
-decode loop) uses this function.
+probabilities cast back to the input dtype before the product with v.
+
+`impl` routes a call as the JAX function does: 'xla' (the default) is the
+plain path below; 'pallas' is the K5 kernel wrapper
+(`ops/kernels/flash_attention.py`, which itself takes the plain path for a
+bias or a mask); 'fused' is the K4 wrapper (`ops/kernels/fused_attention.py`)
+for self-attention with no bias, mask or causal mask and T <= 512, and the
+plain path otherwise.  The flagship UNet calls the K4 wrapper directly for
+'xla' and 'fused' (`models/diffusion/unet1d.py`); the RoFormer encoder and
+decode loop use the plain path.  Ring attention (sequence parallelism) and
+attention dropout are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,7 +21,12 @@ from typing import Optional
 
 import torch
 
-__all__ = ["dot_product_attention", "rotate_half", "apply_rotary"]
+from latent_diffusion_speech_tpu_torch.ops.kernels.flash_attention import flash_attention
+from latent_diffusion_speech_tpu_torch.ops.kernels.fused_attention import fused_attention
+
+__all__ = ["dot_product_attention", "rotate_half", "apply_rotary", "MAX_FUSED_T"]
+
+MAX_FUSED_T = 512  # the JAX package's cap on the single-block K4 route
 
 
 def dot_product_attention(
@@ -25,11 +37,21 @@ def dot_product_attention(
     mask: Optional[torch.Tensor] = None,
     is_causal: bool = False,
     scale: Optional[float] = None,
+    impl: str = "xla",
 ) -> torch.Tensor:
     """q (B, Tq, H, D), k/v (B, Tkv, H, D) -> (B, Tq, H, D).
 
     mask: broadcastable bool (True = attend) of shape (..., Tq, Tkv);
-    bias: additive float bias with the same broadcast rules."""
+    bias: additive float bias with the same broadcast rules;
+    impl: 'xla' | 'pallas' (K5) | 'fused' (K4 where eligible)."""
+    if impl == "pallas":
+        return flash_attention(q, k, v, bias=bias, mask=mask, is_causal=is_causal, scale=scale)
+    if impl == "fused":
+        if (bias is None and mask is None and not is_causal
+                and q.shape == k.shape == v.shape and q.shape[1] <= MAX_FUSED_T):
+            return fused_attention(q, k, v, scale)
+    elif impl != "xla":
+        raise ValueError(f"impl must be 'xla', 'pallas' or 'fused', got {impl!r}")
     orig_dtype = q.dtype
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     # f32 products of the input-dtype values == f32 accumulation

@@ -18,6 +18,9 @@ each gradient's scale (see `test_k4_bwd_kernel_matches_plain`).  K6 must
 give exactly the plain version's ids.  Gradients through a small UNet on
 the card are held to the CPU plain path's at rtol 1e-3 / atol 1e-4 of each
 gradient's scale (f32 sums in another order through the whole network).
+K5 is held to its plain version at atol 2e-5 in f32 (the JAX contract) and
+in bf16 within 1e-2 of max|out| of the plain version on the same bf16
+inputs (the same f32 arithmetic, rounded once).
 """
 
 import pytest
@@ -30,7 +33,9 @@ from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import UNet1D, UN
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerConfig, RoformerSystem, StackConfig
 from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig, process_logits
+from latent_diffusion_speech_tpu_torch.ops import attention
 from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+from latent_diffusion_speech_tpu_torch.ops.kernels import flash_attention as k5
 from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
 from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
 from latent_diffusion_speech_tpu_torch.ops.kernels import unet_fused as k23
@@ -71,6 +76,57 @@ def test_k4_rejects_unsupported_head_dim(dev):
     x = torch.zeros((1, 8, 2, 16), device=dev)
     with pytest.raises(ValueError, match="head dim"):
         k4.fused_attention(x, x, x)
+
+
+@pytest.mark.parametrize("B,Tq,Tkv,D,causal", [
+    (1, 448, 448, 32, False), (4, 224, 224, 48, False), (1, 112, 112, 64, False), (1, 100, 260, 64, False),
+    (1, 96, 96, 32, True), (2, 70, 200, 64, True), (2, 200, 70, 48, True), (1, 13, 5, 32, False)])
+def test_k5_kernel_matches_plain(dev, B, Tq, Tkv, D, causal):
+    """Strided q/k/v views (a fused projection's slices, a transposed v)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((B, Tq, 3 * 8 * D), generator=gen, device=dev)[..., : 8 * D].reshape(B, Tq, 8, D)
+    k = torch.randn((B, Tkv, 8, D), generator=gen, device=dev)
+    v = torch.randn((B, 8, Tkv, D), generator=gen, device=dev).transpose(1, 2)
+    with torch.no_grad():
+        before = k5.launches
+        out = k5.flash_attention(q, k, v, is_causal=causal)
+        assert k5.launches == before + 1
+        torch.testing.assert_close(out, k5.flash_attention_plain(q, k, v, causal), atol=2e-5, rtol=0)
+        qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+        outb = k5.flash_attention(qb, kb, vb, is_causal=causal)
+        refb = k5.flash_attention_plain(qb, kb, vb, causal).float()
+    assert outb.dtype == torch.bfloat16
+    assert (outb.float() - refb).abs().max().item() <= 1e-2 * refb.abs().max().item()
+
+
+def test_k5_rejects_unsupported_head_dim_and_gradients(dev):
+    x = torch.zeros((1, 8, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="head dim 16"):
+        k5.flash_attention(x, x, x)
+    y = torch.zeros((1, 8, 2, 32), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k5.flash_attention(y, y, y)
+
+
+def test_general_denoiser_forward_runs_k5_on_the_card(dev):
+    """The full-width general denoiser: one forward is 32 K5 launches (no
+    K4, no call routed to the plain attention) and matches the same forward
+    with K5's plain version (f32, 1e-3 of the output's scale)."""
+    sys_ = Unit2MelSystem(Unit2MelConfig(denoiser="general", attn_impl="pallas"), device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, 64, 384), generator=gen, device=dev)
+    t = torch.tensor([437], device=dev)
+    with torch.no_grad():
+        before = (k5.launches, k5.plain_routes, k4.launches)
+        got = sys_.module.denoise(x, t)
+        assert (k5.launches - before[0], k5.plain_routes - before[1], k4.launches - before[2]) == (32, 0, 0)
+        real = attention.flash_attention
+        attention.flash_attention = lambda q, k, v, **kw: k5.flash_attention_plain(q, k, v)
+        try:
+            ref = sys_.module.denoise(x, t)
+        finally:
+            attention.flash_attention = real
+    torch.testing.assert_close(got, ref, atol=1e-3 * ref.abs().max().item(), rtol=0)
 
 
 def _lm(dev, dtype):

@@ -22,12 +22,13 @@ import pytest
 import latent_diffusion_speech_tpu_torch as port
 from latent_diffusion_speech_tpu import config as j_config
 from latent_diffusion_speech_tpu.models.diffusion import unet1d as j_unet1d
+from latent_diffusion_speech_tpu.models.diffusion import unet1d_condition as j_unet1d_condition
 from latent_diffusion_speech_tpu.models.diffusion import unit2mel as j_unit2mel
 from latent_diffusion_speech_tpu.models.lm import roformer as j_roformer
 from latent_diffusion_speech_tpu.models.lm import sampling as j_sampling
 from latent_diffusion_speech_tpu.models.vaegan import config as j_vaegan_config
 from latent_diffusion_speech_tpu_torch import config
-from latent_diffusion_speech_tpu_torch.models.diffusion import unet1d, unit2mel
+from latent_diffusion_speech_tpu_torch.models.diffusion import unet1d, unet1d_condition, unit2mel
 from latent_diffusion_speech_tpu_torch.models.lm import roformer, sampling
 from latent_diffusion_speech_tpu_torch.models.vaegan import config as vaegan_config
 
@@ -124,6 +125,7 @@ PAIRS = {
     "RoformerConfig": (roformer.RoformerConfig, j_roformer.RoformerConfig),
     "SamplingConfig": (sampling.SamplingConfig, j_sampling.SamplingConfig),
     "UNet1DConfig": (unet1d.UNet1DConfig, j_unet1d.UNet1DConfig),
+    "UNet1DConditionConfig": (unet1d_condition.UNet1DConditionConfig, j_unet1d_condition.UNet1DConditionConfig),
     "Unit2MelConfig": (unit2mel.Unit2MelConfig, j_unit2mel.Unit2MelConfig),
     "VAEGANConfig": (vaegan_config.VAEGANConfig, j_vaegan_config.VAEGANConfig),
     **{name: (getattr(config, name), getattr(j_config, name)) for name in (
