@@ -4,27 +4,49 @@
 // Replaces: latent_diffusion_speech_tpu/ops/pallas/fused_attention.py,
 // function `fused_attention` (forward `_fused_fwd` / `_fwd_kernel`).
 //
-// What bounds it on this card: at the UNet's shapes (T = 56..448, D = 32..64,
-// H = 8, B = 1..16) a call moves well under 1 MB and does 0.01-0.3 GFLOP
-// (three T x T x D products per head: q.k twice, p.v once), so it is bound
-// by latency and occupancy (8-112 blocks, short loops); at T = 1024 it does
-// ~3 GFLOP on the CUDA cores (no tensor cores yet).  The TPU kernel held
-// the whole (T, T) score tile in VMEM, which capped T at 512; a block here
-// has at most 227 KB of shared memory, so the scores never materialise.
+// Numerics (the TPU kernel's): f32 scores and softmax statistics; the
+// normalised probability p = exp(s - m) / l is rounded to the input dtype
+// before p @ v, which accumulates in f32; the f32 log-sum-exp m + log l of
+// every row is written for the backward.
 //
-// Design: the body is `lds_attn::attention_tile` in attention_fwd.cuh (shared
-// with the fused UNet kernel); this kernel runs one tile per block, grid
-// (query tiles, B * H).
+// Two kernels, one per entry:
+//
+// attention_fwd_bf16 (tensor cores; the serve path's).  What bounds it on
+// this card: at the UNet's shapes (T = 56..448, D = 32..64, H = 8, B = 1..4)
+// a call moves well under 1 MB and does 0.01-0.3 GFLOP (three T x T x D
+// products per head: q.k twice, p.v once), so it is bound by latency (a
+// warp's serial walk over the keys) and, back to back, by the host's
+// launch; at T = 1024 the products dominate.  Design (attention_mma.cuh): a
+// block of 64 query rows (four warps, 16 rows each); bf16 64-key tiles
+// double-buffered through shared memory by cp.async.  Pass 1 walks the
+// K tiles: S = Q K^T by mma.sync in f32, times scale, and a running (max,
+// sum) per row and thread; the four threads of a row merge theirs into m and
+// l.  Pass 2 walks the K and V tiles again, recomputes S (bit for bit),
+// forms p = exp(s - m) * (1 / l) rounded to bf16 (the normalised p, as the
+// TPU kernel rounds it), and that bf16 fragment is the A operand of the
+// P V MMA.  The two passes are one stream of tiles, so pass 2's first tile
+// loads while pass 1's last computes.  The TPU kernel held the whole (T, T)
+// score tile in VMEM, which capped T at 512; here the scores never
+// materialise, so any T works.
+//
+// attention_fwd_f32 and attention_fwd_simt_bf16 (CUDA cores): the body is
+// `lds_attn::attention_tile` in attention_fwd.cuh (shared with the fused
+// UNet kernel), one tile per block, grid (query tiles, B * H).  f32 is the
+// trainer's dtype (its contract, atol 2e-5, is beyond bf16 products); the
+// bf16 instantiation is a yardstick that no serve or training path calls.
+
+#include <stddef.h>
+#include <string.h>
 
 #include "attention_fwd.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
-using lds_attn::BQ;
-using lds_attn::NT;
+// ---- CUDA cores (f32, and the bf16 yardstick)
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) attention_fwd_kernel(
+__global__ void __launch_bounds__(lds_attn::NT) attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse,
     int H, int T_len,
@@ -37,22 +59,171 @@ __global__ void __launch_bounds__(NT) attention_fwd_kernel(
                                  svb, svt, svh, scale, blockIdx.y, blockIdx.x, smem);
 }
 
+// ---- tensor cores (bf16)
+
+template <int D>
+__global__ void __launch_bounds__(lds_mma::NT) attention_fwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    int H, int T_len,
+    long long sqb, long long sqt, long long sqh,
+    long long skb, long long skt, long long skh,
+    long long svb, long long svt, long long svh,
+    float scale) {
+  using lds_mma::BK, lds_mma::BM;
+  using Dm = lds_mma::Dims<D>;
+  using lds_mma::cp_async_commit, lds_mma::cp_async_wait, lds_mma::load_rows, lds_mma::load_q,
+      lds_mma::qk_tile, lds_mma::scale_mask, lds_mma::quad_max, lds_mma::quad_sum, lds_mma::pack_bf16,
+      lds_mma::pv_step, lds_mma::store_rows;
+  __shared__ __align__(16) lds_mma::Smem<D> sm;
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int wrow = blockIdx.x * BM + 16 * w;  // the warp's first row
+  const int row0 = wrow + (lane >> 2);        // this thread's first fragment row
+  const bool live = wrow < T_len;
+  const __nv_bfloat16* qb = q + b * sqb + h * sqh;
+  const __nv_bfloat16* kb = k + b * skb + h * skh;
+  const __nv_bfloat16* vb = v + b * svb + h * svh;
+  const int n = (T_len + BK - 1) / BK;  // tiles a pass; steps [0, n) are pass 1, [n, 2n) pass 2
+
+  load_rows<D, BM>(sm.q, qb, sqt, blockIdx.x * BM, T_len);
+  cp_async_commit();
+  load_rows<D, BK>(sm.k[0], kb, skt, 0, T_len);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[Dm::KD][4];
+  load_q<D>(qf, sm.q + 16 * w * Dm::DP, lane);
+
+  // pass 1: this thread's running (max, sum) over its columns, rows g and g + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
+  float acc[Dm::ND][4];
+#pragma unroll
+  for (int i = 0; i < Dm::ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const float scale_log2 = scale * lds_mma::LOG2E;
+
+  for (int step = 0; step < 2 * n; ++step) {
+    if (step + 1 < 2 * n) {
+      const int next = step + 1, tile = next < n ? next : next - n;
+      load_rows<D, BK>(sm.k[next & 1], kb, skt, tile * BK, T_len);
+      if (next >= n) load_rows<D, BK>(sm.v[next & 1], vb, svt, tile * BK, T_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (step == n) {
+      // merge the quad's partial statistics into the row's m (log2 units)
+      // and l; a thread that saw no unmasked key (l = 0) adds nothing
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_row = quad_max(m[r]);
+        const float l_row = quad_sum(l[r] > 0.f ? l[r] * exp2f(m[r] - m_row) : 0.f);
+        const int row = row0 + 8 * r;
+        if ((lane & 3) == 0 && row < T_len)
+          lse[(long long)bh * T_len + row] = (m_row + log2f(l_row)) * lds_mma::LN2;
+        m[r] = m_row;
+        inv_l[r] = 1.f / l_row;
+      }
+    }
+    const int key0 = (step < n ? step : step - n) * BK;
+    if (live) {  // warp-uniform
+      float s[8][4];
+      qk_tile<D>(s, qf, sm.k[step & 1], lane);
+      scale_mask(s, scale_log2, key0 + BK > T_len, key0, T_len, row0, false, lane);
+      if (step < n) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fmaxf(s[i][2 * r], s[i][2 * r + 1]));
+          const float m_new = fmaxf(m[r], mx);
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;  // every column so far masked
+          float sum = 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) sum += exp2f(s[i][2 * r] - m_use) + exp2f(s[i][2 * r + 1] - m_use);
+          l[r] = l[r] * exp2f(m[r] - m_use) + sum;
+          m[r] = m_new;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // 16 keys a k-step; steps past T skipped
+          if (key0 + 16 * j >= T_len) break;
+          uint32_t pa[1][4];
+#pragma unroll
+          for (int half = 0; half < 2; ++half)  // n-tiles 2j and 2j + 1
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              pa[0][2 * half + r] = pack_bf16(exp2f(s[2 * j + half][2 * r] - m[r]) * inv_l[r],
+                                              exp2f(s[2 * j + half][2 * r + 1] - m[r]) * inv_l[r]);
+          pv_step<D, 1>(acc, pa, sm.v[step & 1], j, lane);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const float one[2] = {1.f, 1.f};
+  if (live) store_rows<D>(out + ((long long)b * T_len * H + h) * D, (long long)H * D, acc, one, row0, T_len, lane);
+}
+
+// ---- launches
+
+// One launch's arguments, packed by the Python wrapper (`ARGS` in
+// ops/kernels/fused_attention.py, "<6q9q4if4x"): one ctypes argument
+// instead of 20.  Strides are (q, k, v) x (b, t, h), in elements; the head
+// dim is contiguous; out is contiguous (B, T, H, D), lse (B * H, T) f32.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  float* lse;
+  void* stream;
+  long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh;
+  int B, T, H, D;
+  float scale;
+};
+static_assert(sizeof(Args) == 144, "Args must match the wrapper's packing");
+// each field where the wrapper packs it (tests/test_torch_attention_mma.py
+// holds these offsets to the wrapper's `ARGS` and `ARG_NAMES`)
+#define ARG_AT(field, offset) \
+  static_assert(offsetof(Args, field) == (offset), "Args." #field " must sit where the wrapper packs it")
+ARG_AT(q, 0);
+ARG_AT(k, 8);
+ARG_AT(v, 16);
+ARG_AT(out, 24);
+ARG_AT(lse, 32);
+ARG_AT(stream, 40);
+ARG_AT(sqb, 48);
+ARG_AT(sqt, 56);
+ARG_AT(sqh, 64);
+ARG_AT(skb, 72);
+ARG_AT(skt, 80);
+ARG_AT(skh, 88);
+ARG_AT(svb, 96);
+ARG_AT(svt, 104);
+ARG_AT(svh, 112);
+ARG_AT(B, 120);
+ARG_AT(T, 124);
+ARG_AT(H, 128);
+ARG_AT(D, 132);
+ARG_AT(scale, 136);
+#undef ARG_AT
+
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int B, int T_len, int H, int D,
-           long long sqb, long long sqt, long long sqh,
-           long long skb, long long skt, long long skh,
-           long long svb, long long svt, long long svh,
-           float scale, void* stream) {
-  dim3 grid((T_len + BQ - 1) / BQ, B * H);
-  dim3 block(NT);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH_D(DV)                                                          \
-  attention_fwd_kernel<T, DV><<<grid, block, 0, s>>>(                         \
-      static_cast<const T*>(q), static_cast<const T*>(k),                     \
-      static_cast<const T*>(v), static_cast<T*>(out), lse, H, T_len,          \
-      sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, scale)
-  switch (D) {
+int launch_simt(const Args& a) {
+  dim3 grid((a.T + lds_attn::BQ - 1) / lds_attn::BQ, a.B * a.H);
+  dim3 block(lds_attn::NT);
+  cudaStream_t s = static_cast<cudaStream_t>(a.stream);
+#define LAUNCH_D(DV)                                                                          \
+  attention_fwd_kernel<T, DV><<<grid, block, 0, s>>>(                                         \
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),    \
+      static_cast<T*>(a.out), a.lse, a.H, a.T, a.sqb, a.sqt, a.sqh, a.skb, a.skt, a.skh,      \
+      a.svb, a.svt, a.svh, a.scale)
+  switch (a.D) {
     case 32: LAUNCH_D(32); break;
     case 48: LAUNCH_D(48); break;
     case 64: LAUNCH_D(64); break;
@@ -62,26 +233,38 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_mma(const Args& a) {
+  dim3 grid((a.T + lds_mma::BM - 1) / lds_mma::BM, a.B * a.H);
+  dim3 block(lds_mma::NT);
+  cudaStream_t s = static_cast<cudaStream_t>(a.stream);
+#define LAUNCH_D(DV)                                                                          \
+  attention_fwd_mma_kernel<DV><<<grid, block, 0, s>>>(                                        \
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),         \
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.out), a.lse, a.H, \
+      a.T, a.sqb, a.sqt, a.sqh, a.skb, a.skt, a.skh, a.svb, a.svt, a.svh, a.scale)
+  switch (a.D) {
+    case 32: LAUNCH_D(32); break;
+    case 48: LAUNCH_D(48); break;
+    case 64: LAUNCH_D(64); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LAUNCH_D
+  return static_cast<int>(cudaGetLastError());
+}
+
+Args unpack(const void* packed) {
+  Args a;
+  memcpy(&a, packed, sizeof a);
+  return a;
+}
+
 }  // namespace
 
-extern "C" int attention_fwd_bf16(
-    const void* q, const void* k, const void* v, void* out, float* lse,
-    int B, int T_len, int H, int D,
-    long long sqb, long long sqt, long long sqh,
-    long long skb, long long skt, long long skh,
-    long long svb, long long svt, long long svh,
-    float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, lse, B, T_len, H, D, sqb, sqt, sqh,
-                               skb, skt, skh, svb, svt, svh, scale, stream);
+// The bf16 entry needs 16-byte aligned pointers and strides (cp.async).
+extern "C" int attention_fwd_bf16(const void* packed) { return launch_mma(unpack(packed)); }
+
+extern "C" int attention_fwd_simt_bf16(const void* packed) {
+  return launch_simt<__nv_bfloat16>(unpack(packed));
 }
 
-extern "C" int attention_fwd_f32(
-    const void* q, const void* k, const void* v, void* out, float* lse,
-    int B, int T_len, int H, int D,
-    long long sqb, long long sqt, long long sqh,
-    long long skb, long long skt, long long skh,
-    long long svb, long long svt, long long svh,
-    float scale, void* stream) {
-  return launch<float>(q, k, v, out, lse, B, T_len, H, D, sqb, sqt, sqh,
-                       skb, skt, skh, svb, svt, svh, scale, stream);
-}
+extern "C" int attention_fwd_f32(const void* packed) { return launch_simt<float>(unpack(packed)); }

@@ -1,0 +1,229 @@
+// Tensor-core tile toolkit for the bf16 attention kernels: K5
+// (`flash_attention.cu`, entry flash_attention_bf16) and the K4 forward
+// (`attention_fwd.cu`, entry attention_fwd_bf16).
+//
+// Layout.  A block of 4 warps covers BM = 64 query rows; warp w owns rows
+// [16w, 16w + 16) of the block over every key, so warps never merge partial
+// results.  (Blocks of one warp, 16 rows, were never faster on the H100, not
+// even where 64-row blocks leave most multiprocessors idle: the same warps
+// then each stream their own K/V tiles.)  Keys stream through shared memory in BK = 64-key K/V
+// tiles that stay bf16, each row padded by 8 elements (16 bytes): the 8 rows
+// one ldmatrix phase reads then start in 8 distinct 16-byte bank groups (row
+// strides of 80, 112 and 144 bytes for D = 32, 48, 64).  Tiles arrive by
+// 16-byte cp.async copies, double-buffered, so tile j + 1 loads while tile j
+// computes; the kernels issue them through `load_rows`.
+//
+// Arithmetic.  mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32.
+// - S = Q K^T: Q's A fragments come from ldmatrix once per block; each
+//   64-key tile is 8 n-tiles of 8 keys, their B fragments from ldmatrix on
+//   the K rows (a K row is a column of K^T, the "col" B layout).  A thread
+//   holds s[n][0..1] at row g = lane / 4, keys 8n + 2(lane % 4) + {0, 1},
+//   and s[n][2..3] at row g + 8, the same keys.
+// - O += P V: the f32 C fragments of two neighbouring S n-tiles are, element
+//   for element, the A fragment of one 16-key k-step of P V
+//   (FlashAttention-2's register reuse), so P never leaves registers; V's B
+//   fragments come from ldmatrix.trans on the V rows.
+// - Row statistics: a row's 64 scores of a tile lie in the 4 threads of a
+//   quad (lanes 4g..4g+3), reduced with two xor shuffles.
+// - Scores are taken in log2 units (s * scale * log2(e)), so that every
+//   exponential is one exp2f; masked scores are -inf and give p = 0.
+//
+// Every pointer and every b/t/h stride must be 16-byte aligned (cp.async);
+// the Python wrappers check it and raise.  D is a template parameter (32,
+// 48 or 64: a multiple of 16, the MMA's k depth).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace lds_mma {
+
+constexpr int WARPS = 4;          // warps per block
+constexpr int NT = 32 * WARPS;    // threads per block
+constexpr int BM = 16 * WARPS;    // query rows per block
+constexpr int BK = 64;            // keys per shared-memory tile
+constexpr int PAD = 8;            // bf16 elements of padding per shared-memory row
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+struct Dims {
+  static_assert(D % 16 == 0, "the head dim must be a multiple of 16");
+  static constexpr int DP = D + PAD;   // shared-memory row stride (elements)
+  static constexpr int KD = D / 16;    // k-steps of Q K^T
+  static constexpr int ND = D / 8;     // 8-wide n-tiles of the output
+};
+
+// shared memory of a block: the Q tile and two K and two V tiles
+template <int D>
+struct Smem {
+  __nv_bfloat16 q[BM * Dims<D>::DP];
+  __nv_bfloat16 k[2][BK * Dims<D>::DP];
+  __nv_bfloat16 v[2][BK * Dims<D>::DP];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with full = false the destination is zero-filled
+// and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one register of two bf16 (round to nearest even); x in the low
+// half, which holds the lower column of a fragment
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x ~ hi + lo with hi = bf16(x) and lo = bf16(x - hi): about 16 significant
+// bits, so an f32 p times a bf16 v through two MMAs into one f32 accumulator
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// cp.async rows [r0, r0 + ROWS) of one (batch, head) of a (.., T, .., D)
+// tensor (`base` at row 0, row stride `st` elements) into shared memory
+// [ROWS][DP]; rows at or past T are zero-filled (so padded keys hold v = 0
+// and padded queries q = 0).  All NT threads of the block call it.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base, long long st,
+                                          int r0, int T) {
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int it = 0; it < (ROWS * CH + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if (ROWS * CH % NT != 0 && i >= ROWS * CH) break;
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < T;
+    cp_async16(dst + r * Dims<D>::DP + c * 8, base + (ok ? (long long)(r0 + r) * st : 0) + c * 8, ok);
+  }
+}
+
+// the A fragments of a warp's 16 query rows (`qs` at the warp's first row)
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t (&qf)[Dims<D>::KD][4], const __nv_bfloat16* qs, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < Dims<D>::KD; ++kk)
+    ldmatrix_x4(qf[kk], qs + (lane & 15) * Dims<D>::DP + kk * 16 + (lane >> 4) * 8);
+}
+
+// s = q . k (f32 sums of exact bf16 products) for the warp's 16 rows and the
+// 64 keys of the tile `ks`
+template <int D>
+__device__ __forceinline__ void qk_tile(float (&s)[8][4], const uint32_t (&qf)[Dims<D>::KD][4],
+                                        const __nv_bfloat16* ks, int lane) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  const int key = (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < Dims<D>::KD; ++kk) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {  // two n-tiles (16 keys) an ldmatrix
+      uint32_t b[4];
+      ldmatrix_x4(b, ks + (np * 16 + key) * Dims<D>::DP + kk * 16 + col);
+      mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+      mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+    }
+  }
+}
+
+// s -> s * scale_log2, with -inf where key >= kv_len or, if causal, key >
+// row (top-left aligned); key0 is the tile's first key, row0 the row of the
+// thread's first fragment row (g).  `edge` is false when the tile has no
+// masked score for any row of the warp, and then only the scale applies.
+__device__ __forceinline__ void scale_mask(float (&s)[8][4], float scale_log2, bool edge, int key0,
+                                           int kv_len, int row0, bool causal, int lane) {
+  if (!edge) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= scale_log2;
+    return;
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + n * 8 + 2 * (lane & 3) + (e & 1), row = row0 + (e >> 1) * 8;
+      s[n][e] = key < kv_len && (!causal || key <= row) ? s[n][e] * scale_log2 : -INFINITY;
+    }
+}
+
+// acc (the warp's 16 rows x D, f32) += P V over the 16 keys [16j, 16j + 16)
+// of the tile `vs`, for each of the NP A fragments `pa` (one: a rounded p;
+// two: the hi and lo parts of an f32 p)
+template <int D, int NP>
+__device__ __forceinline__ void pv_step(float (&acc)[Dims<D>::ND][4], const uint32_t (&pa)[NP][4],
+                                        const __nv_bfloat16* vs, int j, int lane) {
+  const int key = 16 * j + (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
+#pragma unroll
+  for (int dp = 0; dp < Dims<D>::ND / 2; ++dp) {  // two n-tiles (16 columns) an ldmatrix
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, vs + key * Dims<D>::DP + dp * 16 + col);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      mma_bf16(acc[2 * dp], pa[i], b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], pa[i], b[2], b[3]);
+    }
+  }
+}
+
+// store the warp's 16 x D rows o[.][.] / den[r] (r = 0: row g, r = 1: row
+// g + 8) as bf16 to out rows row0 (+8), row stride `ld` elements, rows at or
+// past T skipped
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long ld, const float (&o)[Dims<D>::ND][4],
+                                           const float (&den)[2], int row0, int T, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row >= T) continue;
+    __nv_bfloat16* p = out + (long long)row * ld + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < Dims<D>::ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(p + n * 8) =
+          __floats2bfloat162_rn(o[n][2 * r] / den[r], o[n][2 * r + 1] / den[r]);
+  }
+}
+
+}  // namespace lds_mma

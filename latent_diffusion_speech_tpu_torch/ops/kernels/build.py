@@ -10,12 +10,21 @@ import: the CPU tests import every module of the package.
 
 The build directory is `<package>/_build/` (listed in `.gitignore`), or
 `$LDS_TORCH_BUILD_DIR` when that is set.
+
+`entry` hands a wrapper one of the library's C functions with its ctypes
+argument types set once per loaded library, not on every call.  The
+attention wrappers pass each launch's arguments as one packed struct
+(`struct.Struct.pack`, one ctypes argument, `launch_packed`): converting ~20
+Python ints one by one costs several µs a call.  `attention_strides` and
+`attention_plan` hold the checks and the launch plan that the K4 and K5
+wrappers share.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -23,9 +32,12 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
-__all__ = ["load_library", "build_info", "CSRC_DIR"]
+import torch
+
+__all__ = ["load_library", "build_info", "entry", "check_aligned", "attention_strides", "attention_plan",
+           "launch_packed", "PACKED_ARGTYPES", "HEAD_DIMS", "CSRC_DIR"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -34,10 +46,13 @@ NVCC_FLAGS = [
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+HEAD_DIMS = (32, 48, 64)  # the attention kernels' head dims (a template parameter each)
+PACKED_ARGTYPES = [ctypes.c_char_p]  # a C entry that takes one packed struct
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _info: dict = {}
+_entries: dict = {}  # name -> (library, its function with argtypes set)
 
 
 def _nvcc() -> str:
@@ -111,3 +126,68 @@ def build_info() -> dict:
     """After `load_library`: {'path', 'built', 'seconds', 'log'} (the log
     holds ptxas's register / shared-memory / spill report)."""
     return dict(_info)
+
+
+def entry(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The library's C function `name`, returning int (a cudaError_t), with
+    `argtypes` set the first time it is asked for from this library."""
+    lib = load_library()
+    hit = _entries.get(name)
+    if hit is not None and hit[0] is lib:
+        return hit[1]
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    _entries[name] = (lib, fn)
+    return fn
+
+
+def check_aligned(what: str, strides: Sequence[int], pointers: Sequence[int]) -> None:
+    """Raise ValueError unless every data pointer and every stride (2-byte
+    elements) is a multiple of 16 bytes, as the kernels' 16-byte cp.async
+    copies need."""
+    if math.gcd(*pointers) % 16 or math.gcd(*strides) % 8:
+        raise ValueError(
+            f"{what}: bf16 q, k, v need 16-byte aligned data pointers and (b, t, h) strides that are "
+            f"multiples of 8 elements, got pointers {[p % 16 for p in pointers]} (mod 16) and strides "
+            f"{tuple(strides)}"
+        )
+
+
+def attention_strides(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dtypes) -> tuple:
+    """Check q, k, v (B, T, H, D) of one dtype in `dtypes`, a head dim in
+    HEAD_DIMS, one device and a contiguous head dim; return their nine
+    (b, t, h) strides in elements.  The caller checks the shapes."""
+    dtype = q.dtype
+    if dtype not in dtypes or k.dtype != dtype or v.dtype != dtype:
+        raise TypeError(f"{what} takes bf16 or f32, got {q.dtype} {k.dtype} {v.dtype}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {q.shape[3]} not in {HEAD_DIMS}")
+    if k.get_device() != q.get_device() or v.get_device() != q.get_device():
+        raise ValueError(f"{what}: q, k, v on different devices")
+    sq, sk, sv = q.stride(), k.stride(), v.stride()
+    if sq[3] != 1 or sk[3] != 1 or sv[3] != 1:
+        raise ValueError(f"{what}: the head dim must be contiguous (stride 1)")
+    return sq[:3] + sk[:3] + sv[:3]
+
+
+def attention_plan(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, entries: dict) -> Tuple[str, tuple]:
+    """`attention_strides`, and for bf16 (the 16-byte cp.async copies)
+    `check_aligned`; return (the C entry `entries` gives q's dtype, the
+    strides).  Reads no device data, so it runs on tensors of any device."""
+    strides = attention_strides(what, q, k, v, entries)
+    if q.dtype is torch.bfloat16:
+        check_aligned(what, strides, (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    return entries[q.dtype], strides
+
+
+def launch_packed(name: str, index: int, pack: Callable[[int], bytes]) -> None:
+    """Call the C entry `name`, which takes one packed struct, with
+    `pack(stream)` for the current stream of CUDA device `index`; raise on a
+    CUDA error.  Makes `index` the current device only when it is not."""
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return launch_packed(name, index, pack)
+    err = entry(name, PACKED_ARGTYPES)(pack(torch.cuda.current_stream(index).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -1,12 +1,23 @@
 """K4: self-attention for the UNet's transformer blocks, forward and backward.
 
 Counterpart of `latent_diffusion_speech_tpu/ops/pallas/fused_attention.py`.
-`fused_attention_with_lse` launches the forward kernel in
+`fused_attention_with_lse` launches a forward kernel of
 `csrc/attention_fwd.cu` and `attention_bwd` the backward kernel in
 `csrc/attention_bwd.cu` for CUDA tensors; for CPU tensors they run
 `fused_attention_plain` and `fused_attention_bwd_plain`.  There is no other
-path.  Unlike the TPU kernels they take any T (tiles stream through shared
-memory), so no length cap and no fallback.
+path.  The dtype picks the forward kernel (`ENTRIES`): bf16 runs on the
+tensor cores (`attention_fwd_bf16`), f32 on the CUDA cores
+(`attention_fwd_f32`).  Unlike the TPU kernels they take any T (tiles
+stream through shared memory), so no length cap and no fallback.
+
+The bf16 forward copies q, k and v in 16-byte pieces: their data pointers
+and (b, t, h) strides must be 16-byte aligned, or the call raises
+ValueError.  `plan` makes every check and picks the entry without touching
+the device (the checks K5 shares sit in `build.attention_plan`);
+`launch_args` packs a launch's arguments into the struct the C entries take
+(`ARGS`, field by field as `ARG_NAMES` names them).  `attention_fwd_simt`
+runs the CUDA-core forward in bf16, a yardstick for `chip_smoke.py`; no serve
+or training path calls it.
 
 `fused_attention` is what the UNet calls: when a gradient is needed it goes
 through `FusedAttention`, the counterpart of the JAX `custom_vjp`, which
@@ -17,23 +28,37 @@ saves (q, k, v, out, lse) and runs the backward kernel; otherwise (serving,
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Optional, Tuple
 
 import torch
+
+from latent_diffusion_speech_tpu_torch.ops.kernels import build
 
 __all__ = [
     "fused_attention",
     "fused_attention_with_lse",
     "fused_attention_plain",
+    "attention_fwd_simt",
     "attention_bwd",
     "fused_attention_bwd_plain",
     "FusedAttention",
+    "plan",
+    "launch_args",
     "SUPPORTED_HEAD_DIMS",
 ]
 
-SUPPORTED_HEAD_DIMS = (32, 48, 64)
-_DTYPES = {torch.bfloat16: "attention_fwd_bf16", torch.float32: "attention_fwd_f32"}
+SUPPORTED_HEAD_DIMS = build.HEAD_DIMS
+ENTRIES = {torch.bfloat16: "attention_fwd_bf16", torch.float32: "attention_fwd_f32"}
+SIMT_BF16 = "attention_fwd_simt_bf16"
 _BWD = {torch.bfloat16: "attention_bwd_bf16", torch.float32: "attention_bwd_f32"}
+# the forward entries' one argument: the struct `Args` of csrc/attention_fwd.cu,
+# its fields in order (the C side asserts each field's offset)
+ARG_NAMES = ("q", "k", "v", "out", "lse", "stream", "sqb", "sqt", "sqh", "skb", "skt", "skh", "svb", "svt", "svh",
+             "B", "T", "H", "D", "scale")
+ARGS = struct.Struct("<6q9q4if4x")
+# q, k, v, out, dout, lse, dq, dk, dv, delta, dq_acc; B, T, H, D; strides; scale, stream
+BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
 
 # kernel launches since the last reset (chip_smoke.py resets and reads them)
 launches = 0
@@ -57,18 +82,33 @@ def fused_attention_plain(
     return out, lse
 
 
-def _check(q, k, v):
-    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
+def _check_shapes(q, k, v) -> None:
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"self-attention over (B, T, H, D) only: {q.shape} {k.shape} {v.shape}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise TypeError(f"fused_attention takes bf16 or f32, got {q.dtype} {k.dtype} {v.dtype}")
-    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {SUPPORTED_HEAD_DIMS}")
-    for x in (q, k, v):
-        if x.device != q.device:
-            raise ValueError("q, k, v on different devices")
-        if x.stride(-1) != 1:
-            raise ValueError("the head dim must be contiguous (stride 1)")
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[str, tuple]:
+    """Check q, k, v for the forward kernels and return (entry name, the
+    nine (b, t, h) strides of q, k, v in elements).  Reads no device data,
+    so it runs on tensors of any device."""
+    _check_shapes(q, k, v)
+    return build.attention_plan("fused_attention", q, k, v, ENTRIES)
+
+
+def launch_args(q, k, v, out, lse, strides: tuple, scale: Optional[float], stream: int) -> bytes:
+    """One forward launch's arguments packed as `ARGS`, in the order of
+    `ARG_NAMES` (runs on tensors of any device)."""
+    B, T, H, D = q.shape
+    return ARGS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), stream, *strides,
+                     B, T, H, D, D**-0.5 if scale is None else scale)
+
+
+def _launch(name: str, q, k, v, strides: tuple, scale: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, T, H, _ = q.shape
+    out = q.new_empty(q.shape)
+    lse = q.new_empty((B * H, T), dtype=torch.float32)
+    build.launch_packed(name, q.get_device(), lambda stream: launch_args(q, k, v, out, lse, strides, scale, stream))
+    return out, lse
 
 
 def fused_attention_with_lse(
@@ -76,35 +116,26 @@ def fused_attention_with_lse(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """As `fused_attention`, also returning the f32 lse rows (B*H, T)."""
     global launches
-    if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return fused_attention_plain(q, k, v, scale)
         raise RuntimeError(f"fused_attention: no kernel for device {q.device}")
-    _check(q, k, v)
-    from latent_diffusion_speech_tpu_torch.ops.kernels.build import load_library
-
-    B, T, H, D = q.shape
-    scale = scale if scale is not None else D**-0.5
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    fn = getattr(load_library(), _DTYPES[q.dtype])
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + \
-        [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            B, T, H, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            float(scale), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"attention_fwd launch failed: cudaError {err}")
+    name, strides = plan(q, k, v)
+    out_lse = _launch(name, q, k, v, strides, scale)
     launches += 1
-    return out, lse
+    return out_lse
+
+
+def attention_fwd_simt(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA-core forward in bf16 on CUDA tensors, the same function
+    as `fused_attention_with_lse`: a same-call yardstick for the
+    tensor-core kernel.  Not counted in `launches`."""
+    if q.dtype != torch.bfloat16 or not q.is_cuda:
+        raise ValueError(f"attention_fwd_simt takes bf16 CUDA tensors, got {q.dtype} on {q.device}")
+    _, strides = plan(q, k, v)
+    return _launch(SIMT_BF16, q, k, v, strides, scale)
 
 
 def fused_attention_bwd_plain(
@@ -141,7 +172,8 @@ def attention_bwd(
         return fused_attention_bwd_plain(q, k, v, out, dout, lse, scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"attention_bwd: no kernel for device {q.device}")
-    _check(q, k, v)
+    _check_shapes(q, k, v)
+    build.attention_strides("attention_bwd", q, k, v, _BWD)
     B, T, H, D = q.shape
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"out {out.shape} {out.dtype} and dout {dout.shape} {dout.dtype} must match q")
@@ -152,17 +184,12 @@ def attention_bwd(
     for x in (out, dout, lse):
         if x.device != q.device:
             raise ValueError("attention_bwd inputs on different devices")
-    from latent_diffusion_speech_tpu_torch.ops.kernels.build import load_library
-
     scale = scale if scale is not None else D**-0.5
     dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
     delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     dq_acc = torch.empty((B * H, T, D), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 15)(*(x.stride(i) for x in (q, k, v, out, dout) for i in range(3)))
-    fn = getattr(load_library(), _BWD[q.dtype])
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn = build.entry(_BWD[q.dtype], BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(

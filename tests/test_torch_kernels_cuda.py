@@ -21,12 +21,18 @@ gradient's scale (f32 sums in another order through the whole network).
 K5 is held to its plain version at atol 2e-5 in f32 (the JAX contract) and
 in bf16 within 1e-2 of max|out| of the plain version on the same bf16
 inputs (the same f32 arithmetic, rounded once).
+
+The bf16 entries of K4 forward and K5 run on the tensor cores; besides the
+tolerances above, at most 2% of their bf16 outputs may differ from the
+plain version's bf16 outputs on the same inputs (rounding p to bf16 where
+K5 keeps it f32, or rounding it before normalising where K4 rounds after,
+changes 40-50%), and K4's LSE stays within 1e-4 of the plain version's.
 """
+
+import copy
 
 import pytest
 import torch
-
-import copy
 
 from latent_diffusion_speech_tpu_torch.config import Config
 from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import UNet1D, UNet1DConfig
@@ -319,3 +325,114 @@ def test_trainer_trains_in_f32_on_the_card(dev):
     fwd, bwd = k4.launches, k4.bwd_launches
     loss = trainer.train_step(batch, step_generator(0, 0, dev))["loss"]
     assert bool(torch.isfinite(loss)) and k4.launches > fwd and k4.bwd_launches - bwd == k4.launches - fwd
+
+
+def _views(dev, B, Tq, Tkv, D, dtype=torch.bfloat16, seed=0):
+    """q a slice of a fused projection, k a contiguous tensor, v a transposed
+    (B, H, Tkv, D) tensor: the layouts the callers hand over."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Tq, 3 * 8 * D), generator=gen, device=dev)[..., 8 * D: 16 * D].reshape(B, Tq, 8, D)
+    k = torch.randn((B, Tkv, 8, D), generator=gen, device=dev)
+    v = torch.randn((B, 8, Tkv, D), generator=gen, device=dev).transpose(1, 2)
+    return tuple(x.to(dtype) for x in (q, k, v))
+
+
+def _differing(got, ref):
+    return (got != ref).float().mean().item()
+
+
+# K4 forward in bf16: the serve path's (B, T, D) at H=8 (tts at B=1, tts_batch
+# at B=4, the 1024-frame bucket) and ragged T
+K4_BF16 = [(1, 448, 32), (1, 224, 48), (1, 112, 64), (1, 56, 64), (1, 1024, 64), (4, 448, 32), (4, 56, 64),
+           (1, 13, 32), (2, 70, 48), (2, 100, 64), (1, 200, 32)]
+
+
+@pytest.mark.parametrize("B,T,D", K4_BF16)
+def test_k4_bf16_tensor_cores_match_plain(dev, B, T, D):
+    q, k, v = _views(dev, B, T, T, D)
+    before = k4.launches
+    out, lse = k4.fused_attention_with_lse(q, k, v)
+    assert k4.launches == before + 1 and out.dtype == torch.bfloat16
+    ref32, _ = k4.fused_attention_plain(q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), ref32, atol=3e-2, rtol=3e-2)
+    ref, ref_lse = k4.fused_attention_plain(q, k, v)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    assert _differing(out, ref) <= 0.02
+
+
+K5_BF16 = [(b, t, t, d, False) for b in (1, 4) for t, d in ((448, 32), (224, 48), (112, 64), (56, 64), (1024, 32))]
+K5_BF16 += [(1, 100, 260, 64, False), (1, 96, 96, 32, True), (2, 70, 200, 64, True), (2, 200, 70, 48, True),
+            (1, 13, 13, 32, False), (1, 70, 70, 48, True), (2, 100, 100, 64, False), (1, 200, 200, 32, True),
+            (1, 13, 5, 32, False)]
+
+
+@pytest.mark.parametrize("B,Tq,Tkv,D,causal", K5_BF16)
+def test_k5_bf16_tensor_cores_match_plain(dev, B, Tq, Tkv, D, causal):
+    q, k, v = _views(dev, B, Tq, Tkv, D)
+    with torch.no_grad():
+        before = k5.launches
+        out = k5.flash_attention(q, k, v, is_causal=causal)
+        assert k5.launches == before + 1 and out.dtype == torch.bfloat16
+        ref = k5.flash_attention_plain(q, k, v, causal)
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    assert _differing(out, ref) <= 0.02
+
+
+@pytest.mark.parametrize("T,D", [(88, 32), (44, 48), (13, 64)])
+def test_fused_attention_bf16_forward_and_backward(dev, T, D):
+    """FusedAttention in bf16 (the tensor-core forward, its LSE into the
+    backward kernel) against the f32 plain forward and backward of the same
+    bf16 inputs, within 2^-5 of each output's scale."""
+    q, k, v = (x.detach().requires_grad_() for x in _views(dev, 4, T, T, D))
+    dout = torch.randn((4, T, 8, D), generator=torch.Generator(device=dev).manual_seed(1), device=dev).bfloat16()
+    fwd, bwd = k4.launches, k4.bwd_launches
+    out = k4.fused_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert (k4.launches - fwd, k4.bwd_launches - bwd) == (1, 1)
+    qf, kf, vf = (x.detach().float() for x in (q, k, v))
+    out32, lse32 = k4.fused_attention_plain(qf, kf, vf)
+    ref = k4.fused_attention_bwd_plain(qf, kf, vf, out32, dout.float(), lse32)
+    for g, r, name in zip((out, *grads), (out32, *ref), ("out", "dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16
+        assert (g.float() - r).abs().max().item() <= 2**-5 * r.abs().max().item(), name
+
+
+def test_bf16_wrappers_replay_in_a_cuda_graph(dev):
+    """Each wrapper captured in a CUDA graph and replayed gives its eager
+    output bit for bit (no sync and no host read of device data inside)."""
+    q, k, v = _views(dev, 1, 448, 448, 32)
+    with torch.no_grad():
+        eager = (k5.flash_attention(q, k, v), k5.flash_attention(q, k, v, is_causal=True),
+                 *k4.fused_attention_with_lse(q, k, v))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graphs asks
+            k5.flash_attention(q, k, v)
+            k4.fused_attention_with_lse(q, k, v)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = (k5.flash_attention(q, k, v), k5.flash_attention(q, k, v, is_causal=True),
+                        *k4.fused_attention_with_lse(q, k, v))
+        for x in captured:
+            x.zero_()
+        graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("what", ["pointer", "stride"])
+def test_bf16_misaligned_views_raise(dev, what):
+    """The tensor-core kernels copy 16 bytes at a time: a q whose data
+    pointer or row stride is not 16-byte aligned raises ValueError."""
+    width = 8 * 32 + (8 if what == "pointer" else 4)
+    base = torch.zeros((1, 64, width), device=dev, dtype=torch.bfloat16)
+    q = (base[..., 1:257] if what == "pointer" else base[..., :256]).view(1, 64, 8, 32)
+    x = torch.zeros((1, 64, 8, 32), device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="16-byte"):
+            k5.flash_attention(q, x, x)
+        with pytest.raises(ValueError, match="16-byte"):
+            k4.fused_attention(q, x, x)
