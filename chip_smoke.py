@@ -11,8 +11,9 @@ with nvcc (sm_90a), then:
    at B=1 and B=4 and T=1024, and at the JAX kernel's contract shapes,
    causal with Tq != Tkv included; K1 ar_decode at the flagship decoder
    width, B in {1, 4}, N=430; the fused UNet forward unet_fwd (K2/K3) at
-   the flagship width, T in {64, 448, 1024}, f32 and bf16), and times each
-   beside its plain version, its bound and, where one exists, the one
+   the flagship width, T in {64, 448, 1024}, f32 and bf16, with its
+   per-group phase breakdown at T=448 beside the earlier design's), and
+   times each beside its plain version, its bound and, where one exists, the one
    PyTorch call that computes the same function.  The bf16 K4 forward and
    K5, on the tensor cores, are also held to their CUDA-core (SIMT)
    kernels in the same call: back-to-back and device times (50 calls
@@ -29,7 +30,8 @@ with nvcc (sm_90a), then:
    (`Unit2MelSystem(unet_impl="pallas")`, the same weights): one `tts`
    (20 unet_fwd launches, no K4) and one `tts_batch` of 4 (B>1 stays on the
    eager module: K4, no unet_fwd), with its stage times beside the eager
-   ones;
+   ones, and one more `tts` with UniPC (the shipped config's sampler):
+   20 unet_fwd launches, a finite waveform;
 4. drives the path through K5: the general (reference-layout) denoiser,
    `Unit2MelConfig(denoiser="general", attn_impl="pallas")`, at full width,
    one `tts` and one `tts_batch` of 4, and the flagship with
@@ -39,7 +41,8 @@ with nvcc (sm_90a), then:
 5. checks the 20-step diffusion + vocoder against the same run with the
    plain attention, in f32, on a short input, for the flagship with K4 and
    for the general denoiser with K5, and the fused configuration's
-   diffusion trajectory against the eager one (bf16 and f32, same x_init);
+   diffusion trajectory against the eager one from the same x_init
+   (DPM-Solver++ in bf16 and f32, UniPC in bf16);
 6. holds the training kernels against their plain versions at the shapes
    the diffusion trainer gives them (K4 attention_bwd at B=48, H=8 and the
    four UNet resolutions of a 1 s crop, f32 and bf16; K6 kmeans_argmin at
@@ -548,9 +551,27 @@ def check_unet(dev) -> dict:
     return dict(max_abs_err=worst, rows=rows, **rows[448])
 
 
+# The earlier design of csrc/unet_fwd.cu (a k step per tap of 32 channels,
+# loads and prologue synchronous in one shared buffer, attention on the
+# CUDA cores), the same forward at T=448, bf16, flagship widths, seeded
+# weights: us over phases by group, as that tree's chip_smoke.py printed
+# them in a run in turns with this one (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+EARLIER_PHASES_US = {
+    "attention": (1637.7, 32),
+    "GEMM plain k=1": (898.0, 48),
+    "GEMM LayerNorm k=1": (894.9, 48),
+    "GEMM GroupNorm k=3": (851.5, 31),
+    "GEMM GroupNorm k=3 + GEMM plain k=1": (672.6, 14),
+    "GEMM GEGLU k=1": (413.0, 16),
+    "GEMM GroupNorm k=1": (323.3, 16),
+    "GEMM plain k=3": (156.0, 7),
+}
+
+
 def phase_breakdown(k23, packed, x, t, cfg):
     """Where one fused forward's time goes: the GPU clock after every grid
-    barrier, summed by the kind of record(s) in each phase."""
+    barrier, summed by the kind of record(s) in each phase, beside the
+    earlier design's figures for the same groups."""
     import torch
 
     T = x.shape[1]
@@ -577,7 +598,11 @@ def phase_breakdown(k23, packed, x, t, cfg):
     print(f"unet_fwd T={T} bf16 phases: {table.phases} barriers, {sum(d) / 1e6:.3f} ms between the first "
           "and the last")
     for key, (s, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {key}: {s / 1e3:.1f} us over {n} phases ({s / n / 1e3:.1f} us each)")
+        was = EARLIER_PHASES_US.get(key)
+        beside = f"; earlier: {was[0]:.1f} us over {was[1]} phases ({was[0] / was[1]:.1f} us each)" if was else ""
+        print(f"  {key}: {s / 1e3:.1f} us over {n} phases ({s / n / 1e3:.1f} us each){beside}")
+    print(f"  earlier design in all: {sum(v[0] for v in EARLIER_PHASES_US.values()):.1f} us over "
+          f"{sum(v[1] for v in EARLIER_PHASES_US.values())} phases")
 
 
 def build_pipeline(dev, dtype, seed=0):
@@ -696,7 +721,9 @@ def serve(dev, card: str) -> dict:
 def serve_fused(dev, card: str, eager: dict) -> int:
     """The serve path in the fused configuration: `tts` sends its 20
     denoiser forwards through unet_fwd (and no K4); `tts_batch` of 4 keeps
-    B>1 on the eager module (K4, no unet_fwd)."""
+    B>1 on the eager module (K4, no unet_fwd); one more `tts` with UniPC
+    (method="unipc", infer_speedup=50): 20 unet_fwd launches, no K4.
+    Returns the unet_fwd launches of the three calls (40)."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
@@ -731,13 +758,27 @@ def serve_fused(dev, card: str, eager: dict) -> int:
     for w, s in outs:
         if s != 44100 or w.ndim != 1 or len(w) == 0 or not np.isfinite(w).all():
             raise AssertionError(f"fused tts_batch: bad output: sr {s}, shape {w.shape}")
+    # UniPC, the sampler of the shipped config: 20 steps, one unet_fwd each
+    before, k4_before, diff_before = k23.launches, k4.launches, stages["diffusion_20step"]
+    t0 = time.perf_counter()
+    wav_u, sr_u = pipe.tts(TEXT, language="EN", max_length=N_TOKENS, method="unipc", infer_speedup=50)
+    t_unipc = time.perf_counter() - t0
+    diff_unipc = stages["diffusion_20step"] - diff_before
+    if k23.launches - before != 20 or k4.launches != k4_before:
+        raise AssertionError(f"fused UniPC tts: unet_fwd {k23.launches - before} (want 20), attention_fwd "
+                             f"{k4.launches - k4_before} (want 0)")
+    if sr_u != 44100 or wav_u.ndim != 1 or len(wav_u) != len(wav) or not np.isfinite(wav_u).all():
+        raise AssertionError(f"fused UniPC tts: bad output: sr {sr_u}, shape {wav_u.shape}")
+
     e = eager["stages"]
     print(f"fused serve tts: {len(wav) / sr:.3f} s of audio in {t_tts:.3f} s (eager {eager['t_tts']:.3f} s); "
           f"20-step diffusion of the tts {diff_tts:.4f} s (eager {eager['diff_tts']:.4f} s); launches "
           f"{tts_launches} [{card}]")
     print(f"fused serve tts_batch x4: {t_batch:.3f} s (B>1: eager module; unet_fwd +0, attention_fwd "
-          f"+{k4.launches} over {n_batch_inf} infer calls); diffusion stage over both calls "
-          f"{stages['diffusion_20step']:.4f} s vs eager {e['diffusion_20step']:.4f} s [{card}]")
+          f"+{k4_before} over {n_batch_inf} infer calls); diffusion stage over both calls "
+          f"{diff_before:.4f} s vs eager {e['diffusion_20step']:.4f} s [{card}]")
+    print(f"fused serve tts, UniPC (20 steps): {len(wav_u) / sr_u:.3f} s of audio in {t_unipc:.3f} s; 20-step "
+          f"diffusion {diff_unipc:.4f} s; unet_fwd +20 [{card}]")
     return k23.launches
 
 
@@ -867,19 +908,25 @@ def check_trajectory(dev):
     tokens -> the 448-frame bucket) against the eager one from the same
     x_init: bf16 under the JAX wiring contract (tests/test_pallas_unet.py:
     corr > 0.99, max |a-b| < 0.15 max(|a|, 1)); f32 at atol/rtol 2e-3 (the
-    sampler tolerance of tests/test_diffusion.py)."""
+    sampler tolerance of tests/test_diffusion.py).  DPM-Solver++ in bf16
+    and f32 (the serve default), UniPC in bf16 (the shipped config's
+    sampler)."""
     import torch
 
-    for dtype in (torch.bfloat16, torch.float32):
-        eager = build_pipeline(dev, dtype)
-        fused = fused_pipeline(eager, dev, dtype)
+    pipes = {}
+    for dtype, method in ((torch.bfloat16, "dpm-solver"), (torch.bfloat16, "unipc"), (torch.float32, "dpm-solver")):
+        if dtype not in pipes:
+            eager = build_pipeline(dev, dtype)
+            pipes = {dtype: (eager, fused_pipeline(eager, dev, dtype))}
+        eager, fused = pipes[dtype]
         units = eager.semantic_to_units(np.arange(N_TOKENS) * 7 % 4096)
         x_init = torch.randn((1, 448, 128), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
         mels, wavs = [], []
         for pipe in (eager, fused):
             real = pipe.diffusion.infer
             pipe.diffusion.infer = lambda *a, _real=real, **kw: mels.append(_real(*a, **kw)) or mels[-1]
-            wavs.append(pipe.infer(units, spk_id=2, x_init=x_init).float())
+            wavs.append(pipe.infer(units, spk_id=2, method=method, x_init=x_init).float())
+            pipe.diffusion.infer = real
         a, b = (m.float() for m in mels)
         err = (a - b).abs().max().item()
         corr = torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1].item()
@@ -887,9 +934,9 @@ def check_trajectory(dev):
             ok = corr > 0.99 and err < 0.15 * max(a.abs().max().item(), 1.0)
         else:
             ok = bool(((a - b).abs() <= 2e-3 + 2e-3 * a.abs()).all())
-        if not ok:
-            raise AssertionError(f"fused vs eager trajectory {dtype}: max err {err}, corr {corr}")
-        print(f"trajectory {str(dtype)[6:]} fused vs eager (20 steps, T=448, same x_init): mel max err "
+        if not ok or not bool(torch.isfinite(b).all()):
+            raise AssertionError(f"fused vs eager trajectory {dtype} {method}: max err {err}, corr {corr}")
+        print(f"trajectory {str(dtype)[6:]} {method} fused vs eager (20 steps, T=448, same x_init): mel max err "
               f"{err:.3e} (scale {a.abs().max().item():.3f}), corr {corr:.6f}; wav max err "
               f"{(wavs[0] - wavs[1]).abs().max().item():.3e}")
 

@@ -18,8 +18,9 @@
 // warp's serial walk over the keys) and, back to back, by the host's
 // launch; at T = 1024 the products dominate.  Design (attention_mma.cuh): a
 // block of 64 query rows (four warps, 16 rows each); bf16 64-key tiles
-// double-buffered through shared memory by cp.async.  Pass 1 walks the
-// K tiles: S = Q K^T by mma.sync in f32, times scale, and a running (max,
+// double-buffered through shared memory by cp.async.  The body is
+// `lds_mma::attention_fwd_rows`, shared with the fused UNet kernel.  Pass 1
+// walks the K tiles: S = Q K^T by mma.sync in f32, times scale, and a running (max,
 // sum) per row and thread; the four threads of a row merge theirs into m and
 // l.  Pass 2 walks the K and V tiles again, recomputes S (bit for bit),
 // forms p = exp(s - m) * (1 / l) rounded to bf16 (the normalised p, as the
@@ -70,103 +71,11 @@ __global__ void __launch_bounds__(lds_mma::NT) attention_fwd_mma_kernel(
     long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh,
     float scale) {
-  using lds_mma::BK, lds_mma::BM;
-  using Dm = lds_mma::Dims<D>;
-  using lds_mma::cp_async_commit, lds_mma::cp_async_wait, lds_mma::load_rows, lds_mma::load_q,
-      lds_mma::qk_tile, lds_mma::scale_mask, lds_mma::quad_max, lds_mma::quad_sum, lds_mma::pack_bf16,
-      lds_mma::pv_step, lds_mma::store_rows;
   __shared__ __align__(16) lds_mma::Smem<D> sm;
-
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int wrow = blockIdx.x * BM + 16 * w;  // the warp's first row
-  const int row0 = wrow + (lane >> 2);        // this thread's first fragment row
-  const bool live = wrow < T_len;
-  const __nv_bfloat16* qb = q + b * sqb + h * sqh;
-  const __nv_bfloat16* kb = k + b * skb + h * skh;
-  const __nv_bfloat16* vb = v + b * svb + h * svh;
-  const int n = (T_len + BK - 1) / BK;  // tiles a pass; steps [0, n) are pass 1, [n, 2n) pass 2
-
-  load_rows<D, BM>(sm.q, qb, sqt, blockIdx.x * BM, T_len);
-  cp_async_commit();
-  load_rows<D, BK>(sm.k[0], kb, skt, 0, T_len);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[Dm::KD][4];
-  load_q<D>(qf, sm.q + 16 * w * Dm::DP, lane);
-
-  // pass 1: this thread's running (max, sum) over its columns, rows g and g + 8
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
-  float acc[Dm::ND][4];
-#pragma unroll
-  for (int i = 0; i < Dm::ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const float scale_log2 = scale * lds_mma::LOG2E;
-
-  for (int step = 0; step < 2 * n; ++step) {
-    if (step + 1 < 2 * n) {
-      const int next = step + 1, tile = next < n ? next : next - n;
-      load_rows<D, BK>(sm.k[next & 1], kb, skt, tile * BK, T_len);
-      if (next >= n) load_rows<D, BK>(sm.v[next & 1], vb, svt, tile * BK, T_len);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (step == n) {
-      // merge the quad's partial statistics into the row's m (log2 units)
-      // and l; a thread that saw no unmasked key (l = 0) adds nothing
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_row = quad_max(m[r]);
-        const float l_row = quad_sum(l[r] > 0.f ? l[r] * exp2f(m[r] - m_row) : 0.f);
-        const int row = row0 + 8 * r;
-        if ((lane & 3) == 0 && row < T_len)
-          lse[(long long)bh * T_len + row] = (m_row + log2f(l_row)) * lds_mma::LN2;
-        m[r] = m_row;
-        inv_l[r] = 1.f / l_row;
-      }
-    }
-    const int key0 = (step < n ? step : step - n) * BK;
-    if (live) {  // warp-uniform
-      float s[8][4];
-      qk_tile<D>(s, qf, sm.k[step & 1], lane);
-      scale_mask(s, scale_log2, key0 + BK > T_len, key0, T_len, row0, false, lane);
-      if (step < n) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float mx = -INFINITY;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fmaxf(s[i][2 * r], s[i][2 * r + 1]));
-          const float m_new = fmaxf(m[r], mx);
-          const float m_use = m_new == -INFINITY ? 0.f : m_new;  // every column so far masked
-          float sum = 0.f;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) sum += exp2f(s[i][2 * r] - m_use) + exp2f(s[i][2 * r + 1] - m_use);
-          l[r] = l[r] * exp2f(m[r] - m_use) + sum;
-          m[r] = m_new;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {  // 16 keys a k-step; steps past T skipped
-          if (key0 + 16 * j >= T_len) break;
-          uint32_t pa[1][4];
-#pragma unroll
-          for (int half = 0; half < 2; ++half)  // n-tiles 2j and 2j + 1
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              pa[0][2 * half + r] = pack_bf16(exp2f(s[2 * j + half][2 * r] - m[r]) * inv_l[r],
-                                              exp2f(s[2 * j + half][2 * r + 1] - m[r]) * inv_l[r]);
-          pv_step<D, 1>(acc, pa, sm.v[step & 1], j, lane);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const float one[2] = {1.f, 1.f};
-  if (live) store_rows<D>(out + ((long long)b * T_len * H + h) * D, (long long)H * D, acc, one, row0, T_len, lane);
+  lds_mma::attention_fwd_rows<D>(q + b * sqb + h * sqh, k + b * skb + h * skh, v + b * svb + h * svh, sqt, skt,
+                                 svt, out + ((long long)b * T_len * H + h) * D, (long long)H * D,
+                                 lse + (long long)bh * T_len, T_len, scale, blockIdx.x, sm);
 }
 
 // ---- launches

@@ -1,6 +1,7 @@
 // Tensor-core tile toolkit for the bf16 attention kernels: K5
 // (`flash_attention.cu`, entry flash_attention_bf16) and the K4 forward
-// (`attention_fwd.cu`, entry attention_fwd_bf16).
+// (`attention_fwd.cu`, entry attention_fwd_bf16, whose body
+// `attention_fwd_rows` the fused UNet kernel `unet_fwd.cu` also runs).
 //
 // Layout.  A block of 4 warps covers BM = 64 query rows; warp w owns rows
 // [16w, 16w + 16) of the block over every key, so warps never merge partial
@@ -224,6 +225,109 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long ld, con
       *reinterpret_cast<__nv_bfloat162*>(p + n * 8) =
           __floats2bfloat162_rn(o[n][2 * r] / den[r], o[n][2 * r + 1] / den[r]);
   }
+}
+
+// The K4 forward's two passes for one (batch, head) and the 64 query rows
+// [64 q_tile, 64 q_tile + 64), by the block's NT threads: q, k, v at the
+// head's row 0 with row strides sqt, skt, svt; out at the head's row 0 with
+// row stride ld_out; lse (the head's T_len f32, may be null) receives
+// m + log l of each row.  Pass 1 walks the K tiles for each row's running
+// (max, sum); pass 2 walks the K and V tiles again, recomputes S bit for
+// bit and multiplies p = exp(s - m) / l, rounded to bf16, by V.  The two
+// passes are one stream of double-buffered tiles.  Ends with a barrier
+// after its last use of `sm`.
+template <int D>
+__device__ __forceinline__ void attention_fwd_rows(const __nv_bfloat16* qb, const __nv_bfloat16* kb,
+                                                   const __nv_bfloat16* vb, long long sqt, long long skt,
+                                                   long long svt, __nv_bfloat16* ob, long long ld_out,
+                                                   float* lse, int T_len, float scale, int q_tile,
+                                                   Smem<D>& sm) {
+  using Dm = Dims<D>;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int wrow = q_tile * BM + 16 * w;  // the warp's first row
+  const int row0 = wrow + (lane >> 2);    // this thread's first fragment row
+  const bool live = wrow < T_len;
+  const int n = (T_len + BK - 1) / BK;  // tiles a pass; steps [0, n) are pass 1, [n, 2n) pass 2
+
+  load_rows<D, BM>(sm.q, qb, sqt, q_tile * BM, T_len);
+  cp_async_commit();
+  load_rows<D, BK>(sm.k[0], kb, skt, 0, T_len);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[Dm::KD][4];
+  load_q<D>(qf, sm.q + 16 * w * Dm::DP, lane);
+
+  // pass 1: this thread's running (max, sum) over its columns, rows g and g + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
+  float acc[Dm::ND][4];
+#pragma unroll
+  for (int i = 0; i < Dm::ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int step = 0; step < 2 * n; ++step) {
+    if (step + 1 < 2 * n) {
+      const int next = step + 1, tile = next < n ? next : next - n;
+      load_rows<D, BK>(sm.k[next & 1], kb, skt, tile * BK, T_len);
+      if (next >= n) load_rows<D, BK>(sm.v[next & 1], vb, svt, tile * BK, T_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (step == n) {
+      // merge the quad's partial statistics into the row's m (log2 units)
+      // and l; a thread that saw no unmasked key (l = 0) adds nothing
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_row = quad_max(m[r]);
+        const float l_row = quad_sum(l[r] > 0.f ? l[r] * exp2f(m[r] - m_row) : 0.f);
+        const int row = row0 + 8 * r;
+        if (lse != nullptr && (lane & 3) == 0 && row < T_len) lse[row] = (m_row + log2f(l_row)) * LN2;
+        m[r] = m_row;
+        inv_l[r] = 1.f / l_row;
+      }
+    }
+    const int key0 = (step < n ? step : step - n) * BK;
+    if (live) {  // warp-uniform
+      float s[8][4];
+      qk_tile<D>(s, qf, sm.k[step & 1], lane);
+      scale_mask(s, scale_log2, key0 + BK > T_len, key0, T_len, row0, false, lane);
+      if (step < n) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fmaxf(s[i][2 * r], s[i][2 * r + 1]));
+          const float m_new = fmaxf(m[r], mx);
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;  // every column so far masked
+          float sum = 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) sum += exp2f(s[i][2 * r] - m_use) + exp2f(s[i][2 * r + 1] - m_use);
+          l[r] = l[r] * exp2f(m[r] - m_use) + sum;
+          m[r] = m_new;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // 16 keys a k-step; steps past T skipped
+          if (key0 + 16 * j >= T_len) break;
+          uint32_t pa[1][4];
+#pragma unroll
+          for (int half = 0; half < 2; ++half)  // n-tiles 2j and 2j + 1
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              pa[0][2 * half + r] = pack_bf16(exp2f(s[2 * j + half][2 * r] - m[r]) * inv_l[r],
+                                              exp2f(s[2 * j + half][2 * r + 1] - m[r]) * inv_l[r]);
+          pv_step<D, 1>(acc, pa, sm.v[step & 1], j, lane);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const float one[2] = {1.f, 1.f};
+  if (live) store_rows<D>(ob, ld_out, acc, one, row0, T_len, lane);
 }
 
 }  // namespace lds_mma

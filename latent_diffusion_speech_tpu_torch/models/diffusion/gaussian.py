@@ -4,8 +4,9 @@ Counterpart of `latent_diffusion_speech_tpu/models/diffusion/gaussian.py`:
 spec normalisation by the scalar `acoustic_scale`, the frame axis padded to
 the UNet's downsample grid and cropped back, the eps-prediction loss
 `p_losses` (L2 or L1, t uniform in [0, k_step)), and `sample` from pure
-noise (or a given `x_init`) with DPM-Solver++.  Shallow diffusion from a
-ground-truth spec and the other samplers are not ported yet (ROADMAP.md).
+noise (or a given `x_init`) with UniPC (the default, as in the JAX package)
+or DPM-Solver++.  Shallow diffusion from a ground-truth spec and the other
+samplers are not ported yet (ROADMAP.md).
 
 Layout: condition (B, T, H), spec (B, T, M); the denoiser input is the
 channel concat [x_t ++ cond] -> (B, T, M + H).
@@ -18,7 +19,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from latent_diffusion_speech_tpu_torch.models.diffusion.samplers import dpmpp_sample
+from latent_diffusion_speech_tpu_torch.models.diffusion.samplers import dpmpp_sample, unipc_sample
 from latent_diffusion_speech_tpu_torch.models.diffusion.schedule import DiffusionSchedule, NoiseSchedule
 
 __all__ = ["GaussianDiffusion"]
@@ -104,16 +105,17 @@ class GaussianDiffusion:
         self,
         cond: torch.Tensor,
         generator: Optional[torch.Generator] = None,
-        method: str = "dpm-solver",
+        method: str = "unipc",
         infer_speedup: int = 10,
         x_init: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Generate spec (B, T, M) from condition (B, T, H), starting from
         `x_init` if given, else from N(0, 1) noise drawn with `generator`."""
-        if method != "dpm-solver" or infer_speedup <= 1:
+        samplers = {"unipc": unipc_sample, "dpm-solver": dpmpp_sample}
+        if method not in samplers or infer_speedup <= 1:
             raise NotImplementedError(
                 f"sampler {method!r} (speedup {infer_speedup}) is not ported yet; "
-                "only 'dpm-solver' with infer_speedup > 1 (see ROADMAP.md)"
+                "only 'unipc' and 'dpm-solver' with infer_speedup > 1 (see ROADMAP.md)"
             )
         B, T = cond.shape[:2]
         t_max = self.k_step
@@ -129,5 +131,5 @@ class GaussianDiffusion:
             return self.denoise_fn(params, torch.cat([x_t, cond_p.to(x_t.dtype)], dim=-1), t)
 
         ns = NoiseSchedule(self.schedule.betas[:t_max])
-        x = dpmpp_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
+        x = samplers[method](eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
         return self.denorm_spec(x[:, :orig_T])

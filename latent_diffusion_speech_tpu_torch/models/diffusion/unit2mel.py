@@ -216,7 +216,7 @@ class Unit2MelSystem:
         volume=None,
         spk_id=None,
         aug_shift=None,
-        method: str = "dpm-solver",
+        method: str = "unipc",
         infer_speedup: int = 10,
         x_init=None,
     ) -> torch.Tensor:

@@ -56,6 +56,8 @@ __all__ = [
 ]
 
 _DTYPES = {torch.bfloat16: "unet_fwd_bf16", torch.float32: "unet_fwd_f32"}
+ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3)
 
 # kernel launches since the last reset (chip_smoke.py resets and reads it)
 launches = 0
@@ -434,6 +436,7 @@ PRO_NONE, PRO_GN, PRO_LN, PRO_GEGLU = 0, 1, 2, 3
 MODES = {"plain": 0, "down": 1, "up": 2}
 BUF_WS, BUF_X, BUF_Y = 0, 1, 2
 _ALIGN = 8  # elements: 16-byte aligned activations in bf16
+MAX_NORM_C = 1024  # channels of a GroupNorm / LayerNorm input, at most (MAX_NORM_C in the kernel)
 
 
 @dataclass(frozen=True)
@@ -630,6 +633,9 @@ def _check(packed: PackedUNet, x: torch.Tensor) -> None:
         raise ValueError(f"T={x.shape[1]} is not a multiple of {cfg.downsample_factor}")
     if any(c % 8 for c in (cfg.in_channels, cfg.out_channels, *cfg.block_out_channels)):
         raise ValueError("the kernel loads 8 channels at a time: every channel count must be a multiple of 8")
+    if 2 * max(cfg.block_out_channels) > MAX_NORM_C:
+        raise ValueError(f"the kernel holds a normalised input's coefficients for at most {MAX_NORM_C} channels "
+                         f"(an up block's concatenation has 2 x {max(cfg.block_out_channels)})")
     if packed.dtype not in _DTYPES:
         raise TypeError(f"unet_fwd takes bf16 or f32 weights, got {packed.dtype}")
     if x.device != packed.device:
@@ -654,7 +660,7 @@ def unet_fwd(packed: PackedUNet, x: torch.Tensor, t: torch.Tensor, cfg=None,
         raise RuntimeError(f"unet_fwd: no kernel for device {x.device}")
     _check_cfg(packed, cfg)
     _check(packed, x)
-    from latent_diffusion_speech_tpu_torch.ops.kernels.build import load_library
+    from latent_diffusion_speech_tpu_torch.ops.kernels.build import entry
 
     T = x.shape[1]
     table = _table(packed, T)
@@ -672,10 +678,7 @@ def unet_fwd(packed: PackedUNet, x: torch.Tensor, t: torch.Tensor, cfg=None,
     if phase_ns is not None and (phase_ns.dtype != torch.int64 or phase_ns.numel() < table.phases + 1
                                  or phase_ns.device != dev):
         raise ValueError(f"phase_ns must be an int64 tensor of {table.phases + 1} elements on {dev}")
-    fn = getattr(load_library(), _DTYPES[packed.dtype])
-    fn.restype = ctypes.c_int
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, i32] + [ptr] * 7 + [i32, ptr, i32, ptr, i32] + [ptr] * 3
+    fn = entry(_DTYPES[packed.dtype], ARGTYPES)
     info = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

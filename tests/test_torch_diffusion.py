@@ -3,8 +3,8 @@
 Parameters move over with `convert.unit2mel_from_jax`; inputs and the
 starting noise are made with numpy from a seed; f32 on the CPU.
 Tolerances: schedule tables exact / rtol 1e-6; UNet eps atol 2e-4, rtol 1e-3
-(tests/test_unit2mel_import.py); sampler trajectories and `Unit2MelSystem.infer`
-atol/rtol 2e-3 (tests/test_diffusion.py).
+(tests/test_unit2mel_import.py); sampler trajectories (DPM-Solver++ and UniPC) and
+`Unit2MelSystem.infer` atol/rtol 2e-3 (tests/test_diffusion.py).
 """
 
 import jax
@@ -14,12 +14,13 @@ import pytest
 import torch
 
 from latent_diffusion_speech_tpu.models.diffusion.samplers import dpmpp_sample as j_dpmpp_sample
+from latent_diffusion_speech_tpu.models.diffusion.samplers import unipc_sample as j_unipc_sample
 from latent_diffusion_speech_tpu.models.diffusion.schedule import DiffusionSchedule as JDiffusionSchedule
 from latent_diffusion_speech_tpu.models.diffusion.schedule import NoiseSchedule as JNoiseSchedule
 from latent_diffusion_speech_tpu.models.diffusion.unit2mel import Unit2MelConfig as JUnit2MelConfig
 from latent_diffusion_speech_tpu.models.diffusion.unit2mel import Unit2MelSystem as JUnit2MelSystem
 from latent_diffusion_speech_tpu_torch.convert import unit2mel_from_jax
-from latent_diffusion_speech_tpu_torch.models.diffusion.samplers import dpmpp_sample
+from latent_diffusion_speech_tpu_torch.models.diffusion.samplers import dpmpp_sample, unipc_sample
 from latent_diffusion_speech_tpu_torch.models.diffusion.schedule import DiffusionSchedule, NoiseSchedule
 from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import timestep_embedding
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
@@ -94,6 +95,54 @@ def test_dpmpp_trajectory_matches(rng, steps):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-3, rtol=2e-3)
 
 
+@pytest.mark.parametrize("variant", ["bh1", "bh2"])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("steps", [1, 2, 3, 5, 10, 20])
+def test_unipc_trajectory_matches(rng, steps, order, variant):
+    """UniPC over a fixed linear eps_fn, from the same x_init."""
+    betas = JDiffusionSchedule.linear(1000, 0.02).betas
+    x0 = rng.standard_normal((2, 9, 4)).astype(np.float32)
+    w = rng.standard_normal((4, 4)).astype(np.float32) / 2
+
+    def j_eps(x, t):
+        return (x @ jnp.asarray(w)) * (1.0 - t.astype(jnp.float32) / 2000.0)[:, None, None]
+
+    def t_eps(x, t):
+        return (x @ torch.from_numpy(w)) * (1.0 - t.float() / 2000.0)[:, None, None]
+
+    ref = j_unipc_sample(j_eps, JNoiseSchedule(betas), jnp.asarray(x0), steps=steps, order=order,
+                         variant=variant)
+    got = unipc_sample(t_eps, NoiseSchedule(betas), torch.from_numpy(x0), steps=steps, order=order,
+                       variant=variant)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-3, rtol=2e-3)
+
+
+def test_unipc_makes_steps_model_calls():
+    betas = JDiffusionSchedule.linear(1000, 0.02).betas
+    calls = []
+
+    def eps(x, t):
+        calls.append(float(t[0]))
+        return 0.1 * x
+
+    unipc_sample(eps, NoiseSchedule(betas), torch.ones((1, 3, 2)), steps=7)
+    assert len(calls) == 7 and calls == sorted(calls, reverse=True)
+
+
+def test_unit2mel_infer_defaults_match(systems, rng):
+    """Both packages' `infer` on their defaults (UniPC, speedup 10) from the
+    same x_init."""
+    jsys, sys_ = systems
+    units = rng.standard_normal((2, 11, 12)).astype(np.float32)
+    spk = np.array([[2], [4]], np.int32)
+    x0 = rng.standard_normal((2, 11, 6)).astype(np.float32)
+    infer = jax.jit(lambda p, u, s, x: jsys.infer(u, jax.random.PRNGKey(0), spk_id=s, params=p, x_init=x))
+    ref = infer(jsys.params, jnp.asarray(units), jnp.asarray(spk), jnp.asarray(x0))
+    got = sys_.infer(torch.from_numpy(units), spk_id=torch.from_numpy(spk).long(), x_init=torch.from_numpy(x0))
+    assert got.shape == (2, 11, 6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-3, rtol=2e-3)
+
+
 def test_unit2mel_infer_matches(systems, rng):
     """condition -> pad to the UNet grid -> 10-step DPM-Solver++ -> crop,
     from the same x_init."""
@@ -113,4 +162,4 @@ def test_unit2mel_infer_matches(systems, rng):
 def test_unported_samplers_raise(systems):
     _, sys_ = systems
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sys_.infer(torch.zeros((1, 8, 12)), method="unipc")
+        sys_.infer(torch.zeros((1, 8, 12)), method="ddim")

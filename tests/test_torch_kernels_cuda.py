@@ -219,6 +219,29 @@ def test_unet_fwd_kernel_matches_plain(dev, T):
     assert torch.corrcoef(torch.stack([gotb.flatten(), ref32.flatten()]))[0, 1].item() > 0.999
 
 
+@pytest.mark.parametrize("T", [64, 448, 1024])
+def test_unet_fwd_flagship_matches_plain(dev, T):
+    """The flagship width (256, 384, 512, 512) at the serve path's frame
+    buckets, under the same two checks as the small UNet above."""
+    cfg = UNet1DConfig()
+    m32 = seeded(lambda: UNet1D(cfg), 0).to(dev).eval()
+    m16 = cast_compute_dtype(copy.deepcopy(m32), torch.bfloat16)
+    m32r = cast_compute_dtype(copy.deepcopy(m16), torch.float32)
+    p32, p16, p32r = (k23.pack_unet_params(m, cfg) for m in (m32, m16, m32r))
+    x = torch.randn((1, T, cfg.in_channels), generator=torch.Generator(device=dev).manual_seed(T), device=dev)
+    t = torch.tensor([437.0], device=dev)
+    with torch.no_grad():
+        ref = k23.unet_fwd_plain(p32, x, t, cfg)
+        torch.testing.assert_close(k23.unet_fwd(p32, x, t, cfg), ref, atol=1e-3 * ref.abs().max().item(), rtol=0)
+        xb = x.bfloat16()
+        gotb = k23.unet_fwd(p16, xb, t, cfg).float()
+        plainb = k23.unet_fwd_plain(p16, xb, t, cfg).float()
+        ref32 = k23.unet_fwd_plain(p32r, xb.float(), t, cfg)
+    bound = max(4 * (plainb - ref32).abs().max().item(), 0.02 * ref32.abs().max().item())
+    assert (gotb - ref32).abs().max().item() <= bound
+    assert torch.corrcoef(torch.stack([gotb.flatten(), ref32.flatten()]))[0, 1].item() > 0.999
+
+
 def test_unit2mel_pallas_routes_b1_through_the_kernel(dev):
     cfg = Unit2MelConfig(input_channel=16, n_spk=4, out_dims=16, n_hidden=32, block_out_channels=(64, 96),
                          n_layers=1, n_heads=2, timesteps=50, k_step=50)
@@ -268,7 +291,13 @@ def test_k4_bwd_kernel_matches_plain(dev, T, D):
         assert (g.float() - r).abs().max().item() <= 2**-5 * r.abs().max().item(), name
 
 
-@pytest.mark.parametrize("n,k,d", [(300, 700, 32), (256, 512, 64), (1000, 777, 50), (4128, 4096, 1280)])
+# contract shapes, ragged N < 128 and K < 128, D = 33 and 1281 (masked
+# scalar loads), and the trainer's size
+K6_SHAPES = [(300, 700, 32), (256, 512, 64), (1000, 777, 50), (100, 90, 33), (5, 3, 16), (257, 300, 1281),
+             (4128, 4096, 1280)]
+
+
+@pytest.mark.parametrize("n,k,d", K6_SHAPES)
 def test_k6_kernel_matches_plain(dev, n, k, d):
     """Ids equal to the plain version's; at the trainer's size (units near
     their centroids, as k-means units are) and at the contract shapes."""
@@ -283,6 +312,40 @@ def test_k6_kernel_matches_plain(dev, n, k, d):
     got = k6.kmeans_argmin(x, cb)
     assert k6.launches == before + 1 and got.dtype == torch.int32
     assert torch.equal(got, k6.kmeans_argmin_plain(x, cb))
+
+
+def test_k6_exact_ties_go_to_the_lowest_index(dev):
+    """Duplicated codebook rows give exactly equal distances: the lowest
+    index wins, inside a code tile, across tiles and across code splits."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    base = torch.randn((200, 64), generator=gen, device=dev)
+    cb = torch.cat([base, base, base[:50]])  # code i, i + 200 and (i < 50) i + 400 are equal
+    x = base[torch.randint(0, 200, (500,), generator=gen, device=dev)].clone()
+    got = k6.kmeans_argmin(x, cb)
+    assert bool((got < 200).all())
+    assert torch.equal(got, k6.kmeans_argmin_plain(x, cb))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k6_one_split_equals_many(dev, aligned):
+    """The code-range split and its ordered merge give the ids of one block
+    walking every code; a view 4 bytes off the 16-byte grid takes the
+    masked scalar loads and gives the same ids."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n, k, d = 700, 1500, 128
+    flat = torch.randn((n * d + 1,), generator=gen, device=dev)
+    x = flat[:n * d].view(n, d) if aligned else flat[1:].view(n, d)
+    cb = torch.randn((k, d), generator=gen, device=dev)
+    many = k6.kmeans_argmin(x, cb)
+    chosen = k6.split_codes
+    try:
+        assert chosen(n, k, torch.cuda.get_device_properties(dev).multi_processor_count)[0] > 1
+        k6.split_codes = lambda n, k, sms: (1, -(-k // k6.BLOCK_CODES) * k6.BLOCK_CODES)
+        one = k6.kmeans_argmin(x, cb)
+    finally:
+        k6.split_codes = chosen
+    assert torch.equal(one, many)
+    assert torch.equal(many, k6.kmeans_argmin_plain(x, cb))
 
 
 def test_unet_gradients_flow_through_k4_on_the_card(dev):

@@ -53,7 +53,7 @@ def test_split_codes_covers_the_codebook_in_whole_tiles():
     assert k6.split_codes(4128, 4096, 132) == (8, 512)
     for n, k, sms in [(1, 1, 132), (64, 65, 132), (100_000, 4096, 132), (300, 700, 8)]:
         splits, per = k6.split_codes(n, k, sms)
-        assert per % 64 == 0 and splits * per >= k > (splits - 1) * per
+        assert per % k6.BLOCK_CODES == 0 and splits * per >= k > (splits - 1) * per
 
 
 @pytest.mark.parametrize("shape", [(7, 16), (2, 5, 16)])

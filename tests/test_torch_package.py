@@ -7,16 +7,22 @@
 * the entry points run on the card unless asked for the CPU;
 * each config dataclass the port declares again has the same fields and
   defaults as its JAX counterpart, so the two cannot drift, and both
-  `load_config`s read `configs/config.yaml` to the same values.
+  `load_config`s read `configs/config.yaml` to the same values;
+* every public function and method the port shares by name with the JAX
+  package has the same default argument values (dtype defaults, torch
+  against jnp, are listed and compared by name).
 """
 
 import dataclasses
+import importlib
+import inspect
 import pkgutil
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 import latent_diffusion_speech_tpu_torch as port
@@ -145,3 +151,59 @@ def test_config_matches_jax_counterpart(name):
 def test_load_config_matches_jax():
     path = PORT_DIR.parent / "configs" / "config.yaml"
     assert config.config_to_dict(config.load_config(path)) == j_config.config_to_dict(j_config.load_config(path))
+
+
+# (module of the port, qualified name, parameter): a dtype default, torch's
+# against jnp's; compared by the dtype's name
+DTYPE_DEFAULTS = {
+    ("models.diffusion.unit2mel", "Unit2MelSystem.__init__", "dtype"),
+    ("models.lm.roformer", "RoformerSystem.__init__", "dtype"),
+}
+
+
+def _shared_callables(mine, theirs):
+    """(qualified name, port function, JAX function) for the public functions
+    and the methods (and `__init__`) of the public classes defined in the
+    port's module whose name the JAX module shares."""
+    for attr, obj in vars(mine).items():
+        if attr.startswith("_") or getattr(obj, "__module__", None) != mine.__name__:
+            continue
+        other = getattr(theirs, attr, None)
+        if inspect.isfunction(obj) and inspect.isfunction(other):
+            yield attr, obj, other
+        elif inspect.isclass(obj) and inspect.isclass(other):
+            for name, fn in vars(obj).items():
+                if name.startswith("_") and name != "__init__":
+                    continue
+                fn, other_fn = getattr(fn, "__func__", fn), inspect.getattr_static(other, name, None)
+                other_fn = getattr(other_fn, "__func__", other_fn)
+                if inspect.isfunction(fn) and inspect.isfunction(other_fn):
+                    yield f"{attr}.{name}", fn, other_fn
+
+
+def test_default_arguments_match_jax():
+    """The same call gives the same defaults in both packages (a sampler
+    default that differed made the same call run another sampler)."""
+    compared, mismatched, dtypes = 0, [], set()
+    for name in MODULES:
+        try:
+            theirs = importlib.import_module(name.replace(port.__name__, "latent_diffusion_speech_tpu", 1))
+        except ModuleNotFoundError:
+            continue  # the port's own modules (kernels, convert)
+        short = name[len(port.__name__) + 1:]
+        for qual, fn, other in _shared_callables(importlib.import_module(name), theirs):
+            mine_p, their_p = inspect.signature(fn).parameters, inspect.signature(other).parameters
+            for p, param in mine_p.items():
+                a = param.default
+                b = their_p[p].default if p in their_p else inspect.Parameter.empty
+                if a is inspect.Parameter.empty or b is inspect.Parameter.empty:
+                    continue
+                compared += 1
+                if (short, qual, p) in DTYPE_DEFAULTS:
+                    dtypes.add((short, qual, p))
+                    assert str(a).removeprefix("torch.") == np.dtype(b).name, (qual, p, a, b)
+                elif not (type(a) is type(b) and a == b):
+                    mismatched.append((short, qual, p, a, b))
+    assert not mismatched
+    assert dtypes == DTYPE_DEFAULTS
+    assert compared >= 500

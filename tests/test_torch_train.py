@@ -313,7 +313,8 @@ def test_ema_tracks_saves_resumes_and_evaluates(tmp_path):
 
 def test_interval_validation_runs_during_train(tmp_path):
     """interval_val with a val loader: a save and `validate_full` (loss and
-    the sampler's mel error) at each interval; an unported sampler raises."""
+    the sampler's mel error) at each interval; `validate_full` also runs under
+UniPC, the shipped config's sampler."""
     ds = _DetDataset()
     cfg = _tiny_config(tmp_path)
     cfg.diffusion.train.interval_val = 2
@@ -331,9 +332,10 @@ def test_interval_validation_runs_during_train(tmp_path):
     (step, metrics), = logged
     assert step == 2 and set(metrics) == {"val/loss", "val/mel_abs_err"}
     assert all(np.isfinite(v) for v in metrics.values())
-    cfg.common.infer.method = "unipc"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.validate_full(DataLoader(ds, batch_size=4, shuffle=False), torch.Generator().manual_seed(0))
+    cfg.common.infer.method = "unipc"  # the shipped config's sampler
+    metrics = trainer.validate_full(DataLoader(ds, batch_size=4, shuffle=False), torch.Generator().manual_seed(0))
+    assert set(metrics) == {"val/loss", "val/mel_abs_err"}
+    assert all(np.isfinite(v) for v in metrics.values())
 
 
 def test_step_generator_is_a_function_of_seed_and_step():

@@ -175,6 +175,7 @@ def test_fields_match_the_kernel_source():
     body = re.search(r"enum Field : int \{(.*?)\};", src, re.S).group(1)
     assert tuple(re.findall(r"F_([A-Z_]+)", body)) == uf.FIELDS
     assert int(re.search(r"constexpr int REC = (\d+);", src).group(1)) == uf.REC >= len(uf.FIELDS)
+    assert int(re.search(r"constexpr int MAX_NORM_C = (\d+);", src).group(1)) == uf.MAX_NORM_C
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -362,7 +363,8 @@ def test_unet_fwd_has_no_path_for_other_devices():
 
 def test_kernel_wrapper_rejects_shapes_it_does_not_take():
     """The checks `unet_fwd` runs before a launch: 8-channel vectors, the
-    head dims of the attention routine, B=1, the downsample grid."""
+    head dims of the attention routine, B=1, the downsample grid, at most
+    MAX_NORM_C channels into a norm."""
     cfg, m = _module("tiny", torch.float32)
     packed = uf.pack_unet_params(m, cfg)
     with pytest.raises(ValueError, match="head dim 4"):
@@ -375,6 +377,11 @@ def test_kernel_wrapper_rejects_shapes_it_does_not_take():
     packed = uf.pack_unet_params(seeded(lambda: UNet1D(odd), 0), odd)
     with pytest.raises(ValueError, match="multiple of 8"):
         uf._check(packed, torch.zeros((1, 16, 12)))
+    wide = UNet1DConfig(in_channels=8, out_channels=8, block_out_channels=(8, 520), layers_per_block=1, n_heads=8,
+                        norm_num_groups=8)
+    packed = uf.pack_unet_params(seeded(lambda: UNet1D(wide), 0), wide)
+    with pytest.raises(ValueError, match="at most 1024 channels"):
+        uf._check(packed, torch.zeros((1, 16, 8)))
 
 
 @pytest.mark.slow
