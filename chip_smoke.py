@@ -10,7 +10,11 @@ with nvcc (sm_90a), then:
    resolutions at B=1 and B=4 and T=1024; K5 flash_attention at the four UNet resolutions
    at B=1 and B=4 and T=1024, and at the JAX kernel's contract shapes,
    causal with Tq != Tkv included; K1 ar_decode at the flagship decoder
-   width, B in {1, 4}, N=430; the fused UNet forward unet_fwd (K2/K3) at
+   width, B in {1, 4}, N=430 (f32 greedy also with the end gate; bf16
+   logits also at N=1024), timed at N=430 and N=1024 with its cluster plan,
+   cudaOccupancyMaxActiveClusters and the wrapper's host time, and with the
+   encoder K/V in shared memory against device memory where the plan puts
+   it in shared memory; the fused UNet forward unet_fwd (K2/K3) at
    the flagship width, T in {64, 448, 1024}, f32 and bf16, with its
    per-group phase breakdown at T=448 beside the earlier design's), and
    times each beside its plain version, its bound and, where one exists, the one
@@ -24,8 +28,10 @@ with nvcc (sm_90a), then:
    tensor-core kernel (cuobjdump -sass);
 2. drives the port's serve path once at flagship width with seeded random
    weights (bf16): one `TTSPipeline.tts` and one `tts_batch` of 4 English
-   requests, with per-stage wall times, and shows through the kernels'
-   launch counters that the path ran through K1 and K4;
+   requests, with per-stage wall times (the tts's lm_decode split into the
+   encoder with the cross K/V, the K1 wrapper's host time and the kernel),
+   and shows through the kernels' launch counters that the path ran
+   through K1 and K4;
 3. drives the same path in the fused configuration
    (`Unit2MelSystem(unet_impl="pallas")`, the same weights): one `tts`
    (20 unet_fwd launches, no K4) and one `tts_batch` of 4 (B>1 stays on the
@@ -45,9 +51,10 @@ with nvcc (sm_90a), then:
    (DPM-Solver++ in bf16 and f32, UniPC in bf16);
 6. holds the training kernels against their plain versions at the shapes
    the diffusion trainer gives them (K4 attention_bwd at B=48, H=8 and the
-   four UNet resolutions of a 1 s crop, f32 and bf16; K6 kmeans_argmin at
-   the contract shapes and at N=4128, K=4096, D=1280), timed beside their
-   plain versions, bounds and PyTorch yardsticks;
+   four UNet resolutions of a 1 s crop, f32 and bf16, two calls
+   bit-identical, its 16-key tiles against 32-key tiles at T=11; K6 kmeans_argmin at the contract shapes and at N=4128,
+   K=4096, D=1280), timed beside their plain versions, bounds, PyTorch
+   yardsticks and the earlier kernels' times on the same card;
 7. trains the flagship Unit2Mel in f32 at B=48 through the port's training
    entry point (`cli/train_diffusion.py::build` + `DiffusionTrainer.train`,
    `configs/config.yaml` with the k-means unit snap) on a seeded synthetic
@@ -65,11 +72,14 @@ Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import functools
 import json
 import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -103,6 +113,11 @@ TRAIN_B, TRAIN_STEPS = 48, (3, 12)  # batch; steps before and after the resume
 PROFILED_STEPS = 5  # training steps under torch.profiler (CUDA activity only)
 # K6 on the training path: 48 crops x 86 frames against the 4096 x 1280 codebook
 K6_TRAIN = (TRAIN_B * 86, 4096, 1280)
+# the previous kernels' times on the same card (chip_smoke.py of the parent
+# commit, NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's: K1 bf16
+# sampled at N=430 by B (ms), the K4 backward in f32 at B=48 by T (µs)
+EARLIER_K1_MS = {1: 49.55, 4: 47.56}
+EARLIER_K4_BWD_US = {88: 163.0, 44: 105.3, 22: 76.2, 11: 48.4}
 # H100 SXM peaks (NVIDIA datasheet, dense): HBM bytes/s, bf16 tensor FLOP/s,
 # f32 FLOP/s outside the tensor cores
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -396,40 +411,53 @@ def check_k1(dev) -> dict:
         return SamplingConfig(max_new_tokens=N_TOKENS, do_sample=do_sample, eos_token_id=cfg.semantic_eos,
                               pad_token_id=cfg.semantic_pad, bos_token_id=cfg.semantic_bos)
 
+    def placement(m, sg, kvs, clen) -> str:
+        p = k1._prepare(m, sg, kvs, clen, None, False)[2]
+        return (f"plan: KV cache in {'shared' if p.kv_smem else 'device'} memory, encoder K/V in "
+                f"{'shared' if p.ckv_smem else 'device'} memory, weight ring {p.stages} slots")
+
     out = {}
-    # f32 greedy: tokens and lengths identical
+    # f32 greedy: tokens and lengths identical, also with the end gate
     lm32 = RoformerSystem(cfg, dtype=torch.float32, device=dev, seed=0)
-    for B in (1, 4):
+    for B, gate in ((1, None), (4, None), (4, 1e-9)):
         m, kvs, clen = prepare(lm32, B)
-        got = k1.roformer_decode(m, sampling(False), kvs, clen)
-        ref = k1.roformer_decode_plain(m, sampling(False), kvs, clen)
+        sg = dataclasses.replace(sampling(False), end_gate_threshold=gate)
+        got = k1.roformer_decode(m, sg, kvs, clen)
+        ref = k1.roformer_decode_plain(m, sg, kvs, clen)
         for g, r, what in zip(got, ref, ("tokens", "lengths")):
             if not torch.equal(g.cpu(), r.cpu()):
                 bad = (g.cpu() != r.cpu()).nonzero()[:5].tolist()
-                raise AssertionError(f"K1 f32 greedy B={B}: {what} differ at {bad}")
-        print(f"K1 ar_decode f32 greedy B={B} N={N_TOKENS}: tokens and lengths identical "
-              f"(lengths {got[1].tolist()})")
+                raise AssertionError(f"K1 f32 greedy B={B} end gate {gate}: {what} differ at {bad}")
+        print(f"K1 ar_decode f32 greedy B={B} N={N_TOKENS} end gate {gate}: tokens and lengths identical "
+              f"(lengths {got[1].tolist()}; {placement(m, sg, kvs, clen)})")
 
     # bf16 greedy: the raw logits (debug-logits path) close at every step
     # whose inputs agree, i.e. up to and including the first step at which
     # a rounding flips an argmax; sampled tokens in the processed top-k/top-p
     # support of the kernel's own logits
+    # (at N=430 and at the serve default max_length=1024, whose plan keeps
+    # the encoder K/V in device memory behind a two-slot weight ring)
     lm16 = RoformerSystem(cfg, dtype=torch.bfloat16, device=dev, seed=0)
     m, kvs, clen = prepare(lm16, 4)
-    toks_k, _, lg = k1.roformer_decode(m, sampling(False), kvs, clen, debug_logits=True)
-    toks_p, _, lg_ref = k1.roformer_decode_plain(m, sampling(False), kvs, clen, debug_logits=True)
-    differ = (toks_k != toks_p).any(dim=0).nonzero()
-    n_cmp = int(differ[0]) + 1 if len(differ) else N_TOKENS
-    a, b = lg[:, :n_cmp], lg_ref[:, :n_cmp]
-    err = (a - b).abs().max().item()
-    scale = b.abs().max().item()
-    corr = float(np.corrcoef(a.flatten().cpu().numpy(), b.flatten().cpu().numpy())[0, 1])
-    # 2% of the logits' scale: a few bf16 roundings of C=256 sums apart
-    if err > 0.02 * scale or corr < 0.9999:
-        raise AssertionError(f"K1 bf16 logits over {n_cmp} steps: max err {err} (scale {scale}), corr {corr}")
-    print(f"K1 ar_decode bf16 greedy B=4: logits of the first {n_cmp} steps (tokens agree before "
-          f"the last): max abs err {err:.3e} (scale {scale:.2f}, tolerance 2% of scale), "
-          f"corr {corr:.6f}")
+    errs = []
+    for N in (N_TOKENS, 1024):
+        sg = dataclasses.replace(sampling(False), max_new_tokens=N)
+        toks_k, _, lg = k1.roformer_decode(m, sg, kvs, clen, debug_logits=True)
+        toks_p, _, lg_ref = k1.roformer_decode_plain(m, sg, kvs, clen, debug_logits=True)
+        differ = (toks_k != toks_p).any(dim=0).nonzero()
+        n_cmp = int(differ[0]) + 1 if len(differ) else N
+        a, b = lg[:, :n_cmp], lg_ref[:, :n_cmp]
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        corr = float(np.corrcoef(a.flatten().cpu().numpy(), b.flatten().cpu().numpy())[0, 1])
+        # 2% of the logits' scale: a few bf16 roundings of C=256 sums apart
+        if err > 0.02 * scale or corr < 0.9999:
+            raise AssertionError(f"K1 bf16 N={N} logits over {n_cmp} steps: max err {err} (scale {scale}), "
+                                 f"corr {corr}")
+        errs.append(err)
+        print(f"K1 ar_decode bf16 greedy B=4 N={N}: logits of the first {n_cmp} steps (tokens agree before "
+              f"the last): max abs err {err:.3e} (scale {scale:.2f}, tolerance 2% of scale), "
+              f"corr {corr:.6f}; {placement(m, sg, kvs, clen)}")
 
     sc = sampling(True)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -449,22 +477,46 @@ def check_k1(dev) -> dict:
         rep[torch.arange(4, device=dev), cur] = True
     print(f"K1 ar_decode bf16 sampled (top_k=5, top_p=0.8, rep 1.2) B=4: all tokens within "
           f"the processed support (lengths {lens.tolist()})")
-    out["max_abs_err"] = err
+    out["max_abs_err"] = max(errs)
 
-    # timing at the serve setting (bf16, sampled), per generated token
-    for B in (1, 4):
-        m, kvs, clen = prepare(lm16, B)
-        t_k = cuda_time_ms(lambda: k1.roformer_decode(m, sc, kvs, clen, generator=gen), iters=5, warmup=1)
-        t_p = cuda_time_ms(lambda: k1.roformer_decode_plain(m, sc, kvs, clen, generator=gen), iters=2, warmup=1)
-        n = int(k1.roformer_decode(m, sc, kvs, clen, generator=gen)[1].max())
-        print(f"K1 ar_decode bf16 B={B}: kernel {t_k:.2f} ms ({t_k * 1e3 / N_TOKENS:.1f} us/step), "
-              f"plain {t_p:.2f} ms ({t_p * 1e3 / N_TOKENS:.1f} us/step); {N_TOKENS} steps, "
-              f"longest stream {n} tokens")
-        if B == 1:
-            out.update(ms=t_k, plain_ms=t_p)
-            out["bound_ms"], out["bound_by"] = k1_bound(m, kvs, cfg, B, n)
-            print(f"K1 at B=1: bound {out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}) for {n} steps; "
-                  "no single PyTorch call computes a whole decode")
+    # timing at the serve setting (bf16, sampled), per generated token, at
+    # N=430 and at the serve default max_length=1024; the cluster plan and
+    # how many clusters the card holds at once; the wrapper's host time
+    for N in (N_TOKENS, 1024):
+        sn = dataclasses.replace(sc, max_new_tokens=N)
+        for B in (1, 4):
+            m, kvs, clen = prepare(lm16, B)
+            t_k = cuda_time_ms(lambda: k1.roformer_decode(m, sn, kvs, clen, generator=gen), iters=5, warmup=1)
+            n = int(k1.roformer_decode(m, sn, kvs, clen, generator=gen)[1].max())
+            plan, clusters = k1.max_active_clusters(m, sn, kvs, clen)
+            host = host_us(lambda: k1._prepare(m, sn, kvs, clen, gen, False), calls=50)
+            was = EARLIER_K1_MS.get(B) if N == N_TOKENS else None
+            beside = f" (earlier kernel {was:.2f} ms, {was * 1e3 / N:.1f} us/step)" if was else ""
+            print(f"K1 ar_decode bf16 B={B} N={N}: kernel {t_k:.3f} ms ({t_k * 1e3 / N:.2f} us/step){beside}; "
+                  f"longest stream {n} tokens; cluster of CL={plan.CL} blocks a stream, {plan.smem_bytes} bytes "
+                  f"of shared memory a block (KV cache there: {plan.kv_smem}, encoder K/V there: "
+                  f"{plan.ckv_smem}, weight ring {plan.stages} x {plan.chunk} bytes), "
+                  f"cudaOccupancyMaxActiveClusters {clusters}; wrapper host time (checks, packing, seed) "
+                  f"{host:.1f} us")
+            if plan.ckv_smem:
+                # the plan keeps the encoder K/V in shared memory here: the
+                # same decode with it in device memory, in turns
+                device_kv = functools.partial(k1.plan, encoder_kv_smem=False)
+                turns = {"shared": [], "device": []}
+                for where in ("shared", "device", "device", "shared"):
+                    with mock.patch.object(k1, "plan", k1.plan if where == "shared" else device_kv):
+                        turns[where].append(cuda_time_ms(
+                            lambda: k1.roformer_decode(m, sn, kvs, clen, generator=gen), iters=5, warmup=1))
+                print(f"K1 ar_decode bf16 B={B} N={N}: encoder K/V in shared memory "
+                      f"{[round(x, 3) for x in turns['shared']]} ms against device memory "
+                      f"{[round(x, 3) for x in turns['device']]} ms (in turns)")
+            if N == N_TOKENS and B == 1:
+                t_p = cuda_time_ms(lambda: k1.roformer_decode_plain(m, sn, kvs, clen, generator=gen), iters=2,
+                                   warmup=1)
+                out.update(ms=t_k, plain_ms=t_p)
+                out["bound_ms"], out["bound_by"] = k1_bound(m, kvs, cfg, B, n)
+                print(f"K1 at B=1: plain loop {t_p:.2f} ms; bound {out['bound_ms'] * 1e3:.2f} us "
+                      f"({out['bound_by']}) for {n} steps; no single PyTorch call computes a whole decode")
     return out
 
 
@@ -639,6 +691,49 @@ def timed(stages: dict, name: str, fn):
     return wrapper
 
 
+def lm_decode_split(pipe, generate, call, card: str) -> None:
+    """The tts's lm_decode stage (its B=1 `generate` call, repeated) in
+    parts: the encoder with the cross K/V, the K1 wrapper's host time
+    (checks, weight packing, seed; the device idle before it), and the
+    kernel (the rest of the decode call, synchronised)."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+
+    module = pipe.lm.module
+    parts: dict = {}
+    real = dict(encode=module.encode, compute_cross_kv=module.compute_cross_kv, prepare=k1._prepare,
+                decode=k1.roformer_decode)
+
+    def prepare(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real["prepare"](*a, **kw)
+        parts["wrapper"] = parts.get("wrapper", 0.0) + time.perf_counter() - t0
+        return out
+
+    module.encode = timed(parts, "encoder", module.encode)
+    module.compute_cross_kv = timed(parts, "cross_kv", module.compute_cross_kv)
+    k1._prepare = prepare
+    k1.roformer_decode = timed(parts, "decode", k1.roformer_decode)
+    try:
+        for _ in range(2):  # the first call warms up, the second is read
+            parts.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate(*call[0], **call[1])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        module.encode, module.compute_cross_kv = real["encode"], real["compute_cross_kv"]
+        k1._prepare, k1.roformer_decode = real["prepare"], real["decode"]
+    enc = parts["encoder"] + parts["cross_kv"]
+    kernel = parts["decode"] - parts["wrapper"]
+    print(f"lm_decode split, tts (B=1) [{card}]: {wall * 1e3:.3f} ms in all; encoder + cross K/V "
+          f"{enc * 1e3:.3f} ms; K1 wrapper host {parts['wrapper'] * 1e3:.3f} ms; K1 kernel (with its launch) "
+          f"{kernel * 1e3:.3f} ms; other {(wall - enc - parts['decode']) * 1e3:.3f} ms")
+
+
 def fused_pipeline(pipe, dev, dtype, seed=0):
     """`pipe` with its Unit2Mel in the fused configuration (the same seed,
     so the same weights)."""
@@ -662,7 +757,10 @@ def serve(dev, card: str) -> dict:
     stages: dict = {}
     generated = []
 
+    calls = []
+
     def generate(*a, **kw):
+        calls.append((a, kw))
         toks, lens = real_generate(*a, **kw)
         generated.append((toks.cpu().numpy(), lens.cpu().numpy()))
         return toks, lens
@@ -715,6 +813,7 @@ def serve(dev, card: str) -> dict:
               f"(tts + tts_batch) [{card}]")
     print(f"launches in the serve run: {launches} ({n_gen} generate, {n_inf} diffusion calls)")
     print(f"20-step diffusion of the tts (B=1): {diff_tts:.4f} s [{card}]")
+    lm_decode_split(pipe, real_generate, calls[0], card)
     return dict(launches=launches, stages=stages, pipe=pipe, t_tts=t_tts, diff_tts=diff_tts)
 
 
@@ -1015,7 +1114,30 @@ def check_k4_bwd(dev) -> dict:
                 raise AssertionError(f"K4 bwd bf16 T={T} D={D} {name}: max err {err} over 2^-5 of scale {scale}")
             eb.append(err / scale)
         worst = max(worst, e32)
+        # two calls on the same inputs give bit-identical gradients (the
+        # trainer's bitwise resume depends on it)
+        for args in ((q, k, v, out, dout, lse), (qb, kb, vb, outb, db, lseb)):
+            again = k4.attention_bwd(*args)
+            first = k4.attention_bwd(*args)
+            if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                raise AssertionError(f"K4 bwd {args[0].dtype} T={T} D={D}: two calls differ")
         ms = cuda_time_ms(lambda: k4.attention_bwd(q, k, v, out, dout, lse), iters=50)
+        device_ms = cuda_graph_time_ms(lambda: k4.attention_bwd(q, k, v, out, dout, lse))
+        if k4.bwd_plan(TRAIN_B, T, 8, D)["tile"] == 16:
+            # the 16-key path (four heads a block) against 32-key tiles, which
+            # give the same gradients bit for bit: device µs in turns
+            wide = functools.partial(k4.bwd_plan, tile=32)
+            with mock.patch.object(k4, "bwd_plan", wide):
+                if not all(torch.equal(x, y) for x, y in zip(k4.attention_bwd(q, k, v, out, dout, lse), got)):
+                    raise AssertionError(f"K4 bwd f32 T={T} D={D}: 32-key tiles differ from 16-key tiles")
+            turns = {16: [], 32: []}
+            for tile in (16, 32, 32, 16):
+                with mock.patch.object(k4, "bwd_plan", k4.bwd_plan if tile == 16 else wide):
+                    turns[tile].append(cuda_graph_time_ms(lambda: k4.attention_bwd(q, k, v, out, dout, lse)) * 1e3)
+            print(f"K4 attention_bwd f32 B={TRAIN_B} T={T} D={D}: device us, 16-key tiles four heads a block "
+                  f"{[round(x, 2) for x in turns[16]]} against 32-key tiles {[round(x, 2) for x in turns[32]]} "
+                  f"(in turns; gradients bit-identical)")
+        host = host_us(lambda: k4.attention_bwd(q, k, v, out, dout, lse))
         plain_ms = cuda_time_ms(lambda: k4.fused_attention_bwd_plain(q, k, v, out, dout, lse), iters=20)
         qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
         dos = dout.transpose(1, 2).contiguous()
@@ -1024,15 +1146,19 @@ def check_k4_bwd(dev) -> dict:
         n = TRAIN_B * T * 8 * D
         bound_ms, bound_by = bound(8 * n * 4 + TRAIN_B * 8 * T * 4, 5 * 2 * T * T * D * TRAIN_B * 8, F32_FLOPS)
         rows.append(dict(T=T, D=D, calls=calls, ms=ms, plain_ms=plain_ms, library_ms=t_both - t_fwd,
-                         bound_ms=bound_ms, bound_by=bound_by))
+                         bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms))
         print(f"K4 attention_bwd B={TRAIN_B} T={T} H=8 D={D}: forward f32 out err {e_out:.2e} lse err "
               f"{e_lse:.2e}; backward f32 max err {e32:.2e}; bf16 vs f32 plain max err "
-              f"{max(eb):.2e} of scale (limit 2^-5); kernel {ms * 1e3:.1f} us/call, plain {plain_ms * 1e3:.1f} us, "
+              f"{max(eb):.2e} of scale (limit 2^-5); two calls bit-identical (f32, bf16); kernel "
+              f"{ms * 1e3:.1f} us/call back to back (earlier kernel {EARLIER_K4_BWD_US[T]:.1f} us), device "
+              f"{device_ms * 1e3:.1f} us (CUDA graph), host {host:.1f} us; plain {plain_ms * 1e3:.1f} us, "
               f"SDPA backward {(t_both - t_fwd) * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}); "
               f"{calls} calls per forward")
     step_ms = sum(r["ms"] * r["calls"] for r in rows)
-    print(f"K4 attention_bwd per training step (32 calls): {step_ms * 1e3:.1f} us of kernel time "
-          f"(plain {sum(r['plain_ms'] * r['calls'] for r in rows) * 1e3:.1f} us)")
+    print(f"K4 attention_bwd per training step (32 calls): {step_ms * 1e3:.1f} us of kernel time back to back, "
+          f"{sum(r['device_ms'] * r['calls'] for r in rows) * 1e3:.1f} us device (earlier kernel "
+          f"{sum(EARLIER_K4_BWD_US[r['T']] * r['calls'] for r in rows):.1f} us back to back; plain "
+          f"{sum(r['plain_ms'] * r['calls'] for r in rows) * 1e3:.1f} us)")
     return dict(max_abs_err=worst, rows=rows, step_ms=step_ms, **{k: rows[0][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 

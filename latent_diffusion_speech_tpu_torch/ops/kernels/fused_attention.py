@@ -19,6 +19,16 @@ the device (the checks K5 shares sit in `build.attention_plan`);
 runs the CUDA-core forward in bf16, a yardstick for `chip_smoke.py`; no serve
 or training path calls it.
 
+The backward launches as `bwd_plan` lays it out (a block per head and key
+tile, four heads a block where T <= 16) with one packed struct (`BWD_ARGS`,
+`BWD_ARG_NAMES`); its dq sums run in a fixed order, so two calls on the
+same inputs give bit-identical gradients.  Where a head has several key
+tiles, an int32 counter tells the last of its blocks to finish, which
+merges dq and resets the counter.  The counters are one buffer per device, shared by every
+call on it, so backward calls on one device must not run concurrently (on
+two streams, or a CUDA graph replayed beside an eager call): the trainer
+runs them on one stream.
+
 `fused_attention` is what the UNet calls: when a gradient is needed it goes
 through `FusedAttention`, the counterpart of the JAX `custom_vjp`, which
 saves (q, k, v, out, lse) and runs the backward kernel; otherwise (serving,
@@ -27,7 +37,6 @@ saves (q, k, v, out, lse) and runs the backward kernel; otherwise (serving,
 
 from __future__ import annotations
 
-import ctypes
 import struct
 from typing import Optional, Tuple
 
@@ -36,6 +45,8 @@ import torch
 from latent_diffusion_speech_tpu_torch.ops.kernels import build
 
 __all__ = [
+    "bwd_plan",
+    "bwd_blocks",
     "fused_attention",
     "fused_attention_with_lse",
     "fused_attention_plain",
@@ -57,8 +68,13 @@ _BWD = {torch.bfloat16: "attention_bwd_bf16", torch.float32: "attention_bwd_f32"
 ARG_NAMES = ("q", "k", "v", "out", "lse", "stream", "sqb", "sqt", "sqh", "skb", "skt", "skh", "svb", "svt", "svh",
              "B", "T", "H", "D", "scale")
 ARGS = struct.Struct("<6q9q4if4x")
-# q, k, v, out, dout, lse, dq, dk, dv, delta, dq_acc; B, T, H, D; strides; scale, stream
-BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+# the backward entries' one argument: the struct `BwdArgs` of
+# csrc/attention_bwd.cu, its fields in order (the C side asserts each offset)
+_STRIDES = tuple(f"s{x}{a}" for x in ("q", "k", "v", "o", "do") for a in "bth")
+BWD_ARG_NAMES = ("q", "k", "v", "o", "dout", "lse", "dq", "dk", "dv", "dq_part", "counters", "stream", *_STRIDES,
+                 "B", "T", "H", "D", "tile", "vec", "scale")
+BWD_ARGS = struct.Struct("<12q15q6if4x")
+_counters: dict = {}  # device index -> int32 zeros the backward's dq merge counts with (reset by the kernel)
 
 # kernel launches since the last reset (chip_smoke.py resets and reads them)
 launches = 0
@@ -161,44 +177,89 @@ def fused_attention_bwd_plain(
     return dq, dk, dv
 
 
+def bwd_plan(B: int, T: int, H: int, D: int, tile: Optional[int] = None) -> dict:
+    """The backward kernel's launch plan: key tiles of `tile` keys (by
+    default 16 where T <= 16, else 32; tile=32 at T <= 16 is the yardstick
+    `chip_smoke.py` times the 16-key path against), `heads` heads a block of
+    128 threads (4 with 16-key tiles, a warp each), grid (n_kt, head
+    groups), and the f32 dq partial scratch and int32 counters it needs when
+    a head has several key tiles."""
+    if tile is None:
+        tile = 16 if T <= 16 else 32
+    if tile not in (16, 32) or (tile == 16 and T > 16):
+        raise ValueError(f"bwd_plan: {tile}-key tiles at T={T}")
+    heads = 4 if tile == 16 else 1
+    n_kt = -(-T // tile)
+    several = n_kt > 1
+    return dict(tile=tile, heads=heads, n_kt=n_kt, grid=(n_kt, -(-(B * H) // heads)),
+                dq_part=B * H * n_kt * T * D if several else 0, counters=B * H if several else 0)
+
+
+def bwd_blocks(plan: dict, B: int, H: int):
+    """For each block (x, y) of `plan`'s grid, the (batch * head, key tile)
+    pairs it computes (as csrc/attention_bwd.cu assigns them)."""
+    nx, ny = plan["grid"]
+    for y in range(ny):
+        for x in range(nx):
+            yield (x, y), [(y * plan["heads"] + g, x) for g in range(plan["heads"]) if y * plan["heads"] + g < B * H]
+
+
+def _vec_ok(dtype, pointers, strides) -> bool:
+    """4-element vector loads: data pointers on 16 (f32) / 8 (bf16) bytes and
+    (b, t, h) strides that are multiples of 4 elements."""
+    align = 16 if dtype == torch.float32 else 8
+    return all(p % align == 0 for p in pointers) and all(x % 4 == 0 for x in strides)
+
+
 def attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
     lse: torch.Tensor, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 backward: the kernel for CUDA tensors, the plain version for CPU
-    tensors.  Returns contiguous (dq, dk, dv) in the input dtype."""
+    tensors.  Returns contiguous (dq, dk, dv) in the input dtype.  Two calls
+    on the same inputs give bit-identical results.  Calls on one device must
+    not run concurrently (they share the dq merge counters, `_counters`)."""
     global bwd_launches
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, out, dout, lse, scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"attention_bwd: no kernel for device {q.device}")
     _check_shapes(q, k, v)
-    build.attention_strides("attention_bwd", q, k, v, _BWD)
+    strides = build.attention_strides("attention_bwd", q, k, v, _BWD)
     B, T, H, D = q.shape
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"out {out.shape} {out.dtype} and dout {dout.shape} {dout.dtype} must match q")
     if lse.shape != (B * H, T) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous f32 (B*H, T) = {(B * H, T)}, got {lse.shape} {lse.dtype}")
     # autograd may hand over a view with a strided head dim (e.g. an expand)
-    out, dout = (x if x.stride(-1) == 1 else x.contiguous() for x in (out, dout))
-    for x in (out, dout, lse):
-        if x.device != q.device:
-            raise ValueError("attention_bwd inputs on different devices")
+    if out.stride(-1) != 1:
+        out = out.contiguous()
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    index = q.get_device()
+    if out.get_device() != index or dout.get_device() != index or lse.get_device() != index:
+        raise ValueError("attention_bwd inputs on different devices")
     scale = scale if scale is not None else D**-0.5
-    dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
-    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty((B * H, T, D), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 15)(*(x.stride(i) for x in (q, k, v, out, dout) for i in range(3)))
-    fn = build.entry(_BWD[q.dtype], BWD_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-            B, T, H, D, ctypes.addressof(strides), float(scale), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"attention_bwd launch failed: cudaError {err}")
+    plan = bwd_plan(B, T, H, D)
+    dq, dk, dv = torch.empty((3, B, T, H, D), dtype=q.dtype, device=q.device).unbind(0)
+    dq_part = counters = None
+    if plan["counters"]:
+        dq_part = torch.empty(plan["dq_part"], dtype=torch.float32, device=q.device)
+        counters = _counters.get(index)
+        if counters is None or counters.numel() < plan["counters"]:
+            counters = _counters[index] = torch.zeros(max(plan["counters"], 4096), dtype=torch.int32,
+                                                      device=q.device)
+    strides += out.stride()[:3] + dout.stride()[:3]
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr())
+    vec = int(_vec_ok(q.dtype, pointers, strides))
+
+    def pack(stream: int) -> bytes:
+        return BWD_ARGS.pack(*pointers, lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                             dq_part.data_ptr() if dq_part is not None else 0,
+                             counters.data_ptr() if counters is not None else 0, stream, *strides,
+                             B, T, H, D, plan["tile"], vec, scale)
+
+    build.launch_packed(_BWD[q.dtype], index, pack)
     bwd_launches += 1
     return dq, dk, dv
 

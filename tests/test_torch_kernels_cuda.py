@@ -30,6 +30,8 @@ changes 40-50%), and K4's LSE stays within 1e-4 of the plain version's.
 """
 
 import copy
+import functools
+from unittest import mock
 
 import pytest
 import torch
@@ -168,6 +170,95 @@ def test_k1_greedy_matches_plain_f32(dev, gate):
         assert torch.equal(g.cpu(), r.cpu())
 
 
+def _lm_wide(dev, dtype, C=256, H=8, B=4, L=24):
+    """A decoder of the given width (I = 512, the flagship's) over a 1-layer
+    encoder; cross_len ragged."""
+    cfg = RoformerConfig(encoder=StackConfig(num_hidden_layers=1, hidden_size=C, num_attention_heads=H),
+                         decoder=StackConfig(num_hidden_layers=1, hidden_size=C, num_attention_heads=H))
+    lm = RoformerSystem(cfg, dtype=dtype, device=dev, seed=0)
+    gen = torch.Generator().manual_seed(1)
+    phones = torch.randint(1, 60, (B, L), generator=gen).to(dev)
+    tones = torch.randint(0, 5, (B, L), generator=gen).to(dev)
+    clen = torch.randint(L // 2, L + 1, (B,), generator=gen).to(device=dev, dtype=torch.int32)
+    mask = (torch.arange(L, device=dev)[None] < clen[:, None]).long()
+    with torch.no_grad():
+        kvs = lm.module.compute_cross_kv(lm.module.encode(phones, tones, torch.ones_like(phones), mask))
+    return lm, kvs, clen
+
+
+def _k1_equals_plain(lm, kvs, clen, N):
+    sampling = _sampling(lm.cfg, N, do_sample=False)
+    before = k1.launches
+    got = k1.roformer_decode(lm.module, sampling, kvs, clen)
+    assert k1.launches == before + 1
+    ref = k1.roformer_decode_plain(lm.module, sampling, kvs, clen)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r.cpu())
+
+
+@pytest.mark.parametrize("B", [1, 4, 20])
+def test_k1_cluster_greedy_matches_plain_f32_flagship_width(dev, B):
+    """f32 greedy at C=256, H=8 (clusters of 8): identical tokens and
+    lengths.  At B=20 the 20 clusters (124 KB of shared memory a block, one
+    block an SM) outnumber those the card holds at once."""
+    lm, kvs, clen = _lm_wide(dev, torch.float32, B=B)
+    p, n = k1.max_active_clusters(lm.module, _sampling(lm.cfg, 430, do_sample=False), kvs, clen)
+    assert p.CL == 8 and p.kv_smem and not p.ckv_smem and n >= 1  # the encoder K/V in device memory
+    if B == 20:
+        assert n < B
+    _k1_equals_plain(lm, kvs, clen, N=430)
+
+
+@pytest.mark.parametrize("C,H", [(128, 4), (192, 6)])
+def test_k1_cluster_greedy_matches_plain_f32_other_heads(dev, C, H):
+    """H=4 (clusters of 4) and H=6 (clusters of 2, three heads a block)."""
+    _k1_equals_plain(*_lm_wide(dev, torch.float32, C=C, H=H), N=200)
+
+
+def test_k1_cluster_greedy_matches_plain_f32_n1024(dev):
+    """N=1024, the serve default max_length: the f32 KV cache no longer
+    fits in shared memory and lives in device memory (the encoder K/V of
+    L=24 rows then fits there)."""
+    lm, kvs, clen = _lm_wide(dev, torch.float32, B=2)
+    C, H = lm.cfg.decoder.hidden_size, lm.cfg.decoder.num_attention_heads
+    p = k1.plan(C, H, 512, lm.cfg.semantic_vocab_size, kvs[0][0].shape[1], 1024, 1, 4)
+    assert not p.kv_smem and p.ckv_smem
+    _k1_equals_plain(lm, kvs, clen, N=1024)
+
+
+@pytest.mark.parametrize("encoder_kv_smem", [True, False])
+def test_k1_encoder_kv_placement_greedy_matches_plain_f32(dev, encoder_kv_smem):
+    """f32 greedy at N=200, L=48, where the plan keeps the encoder K/V in
+    shared memory, and the same decode with it forced into device memory:
+    both identical to the plain loop."""
+    lm, kvs, clen = _lm_wide(dev, torch.float32, L=48)
+    C, H = lm.cfg.decoder.hidden_size, lm.cfg.decoder.num_attention_heads
+    assert k1.plan(C, H, 512, lm.cfg.semantic_vocab_size, 48, 200, 1, 4).ckv_smem
+    with mock.patch.object(k1, "plan", functools.partial(k1.plan, encoder_kv_smem=encoder_kv_smem)):
+        _k1_equals_plain(lm, kvs, clen, N=200)
+
+
+def test_k1_bf16_logits_match_plain_at_the_serve_default_n1024(dev):
+    """bf16 greedy at flagship width and N=1024 (`TTSPipeline.tts`'s
+    max_length), the serve default's plan: the KV cache in shared memory
+    behind a two-slot weight ring, the encoder K/V in device memory.  The
+    raw logits of each stream's steps up to its EOS (the kernel writes no
+    logits after it) agree within 2% of their scale, corr >= 0.9999, up to
+    and including the first step whose token differs."""
+    lm, kvs, clen = _lm_wide(dev, torch.bfloat16, L=48)
+    sampling = _sampling(lm.cfg, 1024, do_sample=False)
+    p, _ = k1.max_active_clusters(lm.module, sampling, kvs, clen)
+    assert p.kv_smem and not p.ckv_smem and p.stages == 2
+    toks, lens, lg = k1.roformer_decode(lm.module, sampling, kvs, clen, debug_logits=True)
+    toks_p, _, lg_p = k1.roformer_decode_plain(lm.module, sampling, kvs, clen, debug_logits=True)
+    differ = (toks != toks_p).any(dim=0).nonzero()
+    n = int(differ[0]) + 1 if len(differ) else 1024
+    live = torch.arange(n, device=dev)[None, :] < lens[:, None]
+    a, b = lg[:, :n][live].flatten(), lg_p[:, :n][live].flatten()
+    assert (a - b).abs().max().item() <= 0.02 * b.abs().max().item()
+    assert torch.corrcoef(torch.stack([a, b]))[0, 1].item() >= 0.9999
+
+
 def test_k1_sampled_tokens_in_support_bf16(dev):
     """bf16 sampling: each token has a finite processed logit (the kernel's
     own raw logits through the plain processors); PAD after EOS."""
@@ -289,6 +380,37 @@ def test_k4_bwd_kernel_matches_plain(dev, T, D):
     for g, r, name in zip(k4.attention_bwd(qb, kb, vb, outb, db, lseb), ref32, ("dq", "dk", "dv")):
         assert g.dtype == torch.bfloat16
         assert (g.float() - r).abs().max().item() <= 2**-5 * r.abs().max().item(), name
+
+
+@pytest.mark.parametrize("T,D", [(11, 64), (16, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_bwd_16_key_tiles_equal_32_key_tiles(dev, T, D, dtype):
+    """Where T <= 16 the plan takes 16-key tiles, four heads a block; 32-key
+    tiles, a head a block, give the same gradients bit for bit (the same
+    sums in the same order, the extra rows zero)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, dout = (torch.randn((6, T, 8, D), generator=gen, device=dev).to(dtype) for _ in range(4))
+    out, lse = k4.fused_attention_with_lse(q, k, v)
+    assert k4.bwd_plan(6, T, 8, D)["tile"] == 16
+    narrow = k4.attention_bwd(q, k, v, out, dout, lse)
+    with mock.patch.object(k4, "bwd_plan", functools.partial(k4.bwd_plan, tile=32)):
+        wide = k4.attention_bwd(q, k, v, out, dout, lse)
+    for x, y in zip(narrow, wide):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("T,D", K4_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_bwd_two_calls_are_bit_identical(dev, T, D, dtype):
+    """dq from several key tiles is summed in key-tile order, no atomics:
+    the trainer's bitwise resume needs the same gradients on every call."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, dout = (torch.randn((6, T, 8, D), generator=gen, device=dev).to(dtype) for _ in range(4))
+    out, lse = k4.fused_attention_with_lse(q, k, v)
+    first = k4.attention_bwd(q, k, v, out, dout, lse)
+    for _ in range(3):
+        for g, f in zip(k4.attention_bwd(q, k, v, out, dout, lse), first):
+            assert torch.equal(g, f)
 
 
 # contract shapes, ragged N < 128 and K < 128, D = 33 and 1281 (masked
