@@ -11,7 +11,9 @@ with nvcc (sm_90a), then:
    at B=1 and B=4 and T=1024, and at the JAX kernel's contract shapes,
    causal with Tq != Tkv included; K1 ar_decode at the flagship decoder
    width, B in {1, 4}, N=430 (f32 greedy also with the end gate; bf16
-   logits also at N=1024), timed at N=430 and N=1024 with its cluster plan,
+   logits also at N=1024), and at the HTTP server's batch sizes B in
+   {2, 8}, N=1024, over 64 encoder rows (bf16 logits and sampled tokens),
+   timed at N=430 and N=1024 with its cluster plan,
    cudaOccupancyMaxActiveClusters and the wrapper's host time, and with the
    encoder K/V in shared memory against device memory where the plan puts
    it in shared memory; the fused UNet forward unet_fwd (K2/K3) at
@@ -55,13 +57,25 @@ with nvcc (sm_90a), then:
    bit-identical, its 16-key tiles against 32-key tiles at T=11; K6 kmeans_argmin at the contract shapes and at N=4128,
    K=4096, D=1280), timed beside their plain versions, bounds, PyTorch
    yardsticks and the earlier kernels' times on the same card;
-7. trains the flagship Unit2Mel in f32 at B=48 through the port's training
+7. serve_entry: the port's serve entry points as a user starts them, on
+   `configs/config.yaml` at flagship width with seeded weights (no
+   `pretrain/`): `cli/infer_tts.py::build_pipeline` behind `TTSServer` and
+   the HTTP handler of `cli/serve.py` (the CLI's defaults; UniPC, 100
+   steps): six concurrent EN /tts requests coalesced into fewer batches,
+   one chunked /tts/stream of three pieces, a ZH request answered 500
+   (F2), /healthz and /metrics against the server's counters, with one K1
+   launch a batch and 32 K4 launches a denoiser evaluation; every other
+   sampler the CLIs can name once at T=64 (DDPM through the fused kernel);
+   the `infer_tts` CLI as a subprocess, plain and --long; K1 also at the
+   server's batch sizes B=2 and B=8 (N=1024) in step 1;
+8. trains the flagship Unit2Mel in f32 at B=48 through the port's training
    entry point (`cli/train_diffusion.py::build` + `DiffusionTrainer.train`,
    `configs/config.yaml` with the k-means unit snap) on a seeded synthetic
    data layout: one step's loss and gradients against the same step with
    the plain attention and argmin, 3 steps, a save, a resume and 12 more
    steps, with the launch counts per step (32 K4 forward, 32 K4 backward,
-   1 K6), the step time, samples/s and the kernels' share of a step.
+   1 K6), the step time, samples/s and the kernels' share of a step, and
+   loads the saved checkpoint back through `infer/load.py::load_native_pipeline`.
 
 Any failure raises (exit code != 0).  The second-to-last line is a JSON
 object with one entry per kernel; the last line is
@@ -76,6 +90,7 @@ import dataclasses
 import functools
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -85,6 +100,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_TOKENS = 430  # ~5 s of 44.1 kHz audio at hop 512
+# K1 at the HTTP server's batch sizes (2 and 5-8 requests pad to B=2 and
+# B=8), N=1024 (the serve default max_length), over SERVE_L encoder rows
+SERVE_K1_B, SERVE_L = (2, 8), 64
 TEXT = "The quick brown fox jumps over the lazy dog, and then it runs back home."
 BATCH_TEXTS = [
     "Hello world, this is a test of the speech system.",
@@ -94,8 +112,11 @@ BATCH_TEXTS = [
 ]
 # K4 shapes on the serve path: (B, T, D) at H=8 for the four UNet
 # resolutions of a 448-frame bucket at B=1 (tts) and B=4 (tts_batch), plus
-# the T=1024 bucket of max_length=1024
+# the T=1024 bucket of max_length=1024; and the four resolutions of that
+# 1024-frame bucket at the HTTP server's batch sizes (one request, two
+# stream pieces, and 5-8 requests padded to B=8)
 K4_SHAPES = [(b, t, d) for b in (1, 4) for t, d in ((448, 32), (224, 48), (112, 64), (56, 64))] + [(1, 1024, 64)]
+K4_SHAPES += [(b, t, d) for b in (1, 2, 8) for t, d in ((1024, 32), (512, 48), (256, 64), (128, 64))]
 # K5 shapes: (B, Tq, Tkv, D, causal) at H=8.  The serve path's: the four
 # UNet resolutions of a 448-frame bucket at B=1 (tts) and B=4 (tts_batch),
 # and the 1024-frame bucket; the JAX kernel's contract shapes
@@ -407,6 +428,18 @@ def check_k1(dev) -> dict:
             kvs = m.compute_cross_kv(enc)
         return m, kvs, torch.as_tensor(mask[:B].sum(-1), dtype=torch.int32, device=dev)
 
+    serve_rng = np.random.default_rng(1)
+    serve_phones = serve_rng.integers(1, 100, (8, SERVE_L))
+    serve_tones = serve_rng.integers(0, 10, (8, SERVE_L))
+    serve_mask = (np.arange(SERVE_L)[None] < np.array([64, 50, 37, 64, 21, 58, 44, 30])[:, None]).astype(np.int64)
+
+    def prepare_serve(lm, B):
+        m = lm.module
+        arrays = (serve_phones[:B], serve_tones[:B], np.ones_like(serve_phones[:B]), serve_mask[:B])
+        with torch.no_grad():
+            kvs = m.compute_cross_kv(m.encode(*(torch.as_tensor(a, device=dev) for a in arrays)))
+        return m, kvs, torch.as_tensor(serve_mask[:B].sum(-1), dtype=torch.int32, device=dev)
+
     def sampling(do_sample):
         return SamplingConfig(max_new_tokens=N_TOKENS, do_sample=do_sample, eos_token_id=cfg.semantic_eos,
                               pad_token_id=cfg.semantic_pad, bos_token_id=cfg.semantic_bos)
@@ -440,83 +473,99 @@ def check_k1(dev) -> dict:
     lm16 = RoformerSystem(cfg, dtype=torch.bfloat16, device=dev, seed=0)
     m, kvs, clen = prepare(lm16, 4)
     errs = []
-    for N in (N_TOKENS, 1024):
+
+    def logits_close(m, kvs, clen, B, N):
         sg = dataclasses.replace(sampling(False), max_new_tokens=N)
-        toks_k, _, lg = k1.roformer_decode(m, sg, kvs, clen, debug_logits=True)
+        toks_k, lens, lg = k1.roformer_decode(m, sg, kvs, clen, debug_logits=True)
         toks_p, _, lg_ref = k1.roformer_decode_plain(m, sg, kvs, clen, debug_logits=True)
         differ = (toks_k != toks_p).any(dim=0).nonzero()
         n_cmp = int(differ[0]) + 1 if len(differ) else N
-        a, b = lg[:, :n_cmp], lg_ref[:, :n_cmp]
+        # each stream's steps up to its EOS (the kernel writes no logits after it)
+        live = torch.arange(n_cmp, device=dev)[None, :] < lens[:, None]
+        a, b = lg[:, :n_cmp][live], lg_ref[:, :n_cmp][live]
         err = (a - b).abs().max().item()
         scale = b.abs().max().item()
         corr = float(np.corrcoef(a.flatten().cpu().numpy(), b.flatten().cpu().numpy())[0, 1])
         # 2% of the logits' scale: a few bf16 roundings of C=256 sums apart
         if err > 0.02 * scale or corr < 0.9999:
-            raise AssertionError(f"K1 bf16 N={N} logits over {n_cmp} steps: max err {err} (scale {scale}), "
+            raise AssertionError(f"K1 bf16 B={B} N={N} logits over {n_cmp} steps: max err {err} (scale {scale}), "
                                  f"corr {corr}")
         errs.append(err)
-        print(f"K1 ar_decode bf16 greedy B=4 N={N}: logits of the first {n_cmp} steps (tokens agree before "
-              f"the last): max abs err {err:.3e} (scale {scale:.2f}, tolerance 2% of scale), "
+        print(f"K1 ar_decode bf16 greedy B={B} N={N} L={kvs[0][0].shape[1]}: logits of the first {n_cmp} steps "
+              f"(tokens agree before the last): max abs err {err:.3e} (scale {scale:.2f}, tolerance 2% of scale), "
               f"corr {corr:.6f}; {placement(m, sg, kvs, clen)}")
 
+    def sampled_in_support(m, kvs, clen, B, N):
+        sc = dataclasses.replace(sampling(True), max_new_tokens=N)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        toks, lens, lg = k1.roformer_decode(m, sc, kvs, clen, generator=gen, debug_logits=True)
+        rep = torch.zeros((B, cfg.semantic_vocab_size), dtype=torch.bool, device=dev)
+        rep[:, cfg.semantic_bos] = True
+        for pos in range(N):
+            live = pos < lens
+            processed = process_logits(lg[:, pos], rep, sc)
+            cur = toks[:, pos].long()
+            chosen = processed.gather(1, cur[:, None])[:, 0]
+            if not bool(torch.isfinite(chosen[live]).all()):
+                raise AssertionError(f"K1 B={B} N={N}: sampled token outside the top-k/top-p support at step {pos}")
+            if not bool((cur[~live] == cfg.semantic_pad).all()):
+                raise AssertionError(f"K1 B={B} N={N}: non-PAD token after EOS at step {pos}")
+            rep[torch.arange(B, device=dev), cur] = True
+        print(f"K1 ar_decode bf16 sampled (top_k=5, top_p=0.8, rep 1.2) B={B} N={N}: all tokens within "
+              f"the processed support (lengths {lens.tolist()})")
+
+    for N in (N_TOKENS, 1024):
+        logits_close(m, kvs, clen, 4, N)
     sc = sampling(True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    toks, lens, lg = k1.roformer_decode(m, sc, kvs, clen, generator=gen, debug_logits=True)
-    V = cfg.semantic_vocab_size
-    rep = torch.zeros((4, V), dtype=torch.bool, device=dev)
-    rep[:, cfg.semantic_bos] = True
-    for pos in range(N_TOKENS):
-        live = pos < lens
-        processed = process_logits(lg[:, pos], rep, sc)
-        cur = toks[:, pos].long()
-        chosen = processed.gather(1, cur[:, None])[:, 0]
-        if not bool(torch.isfinite(chosen[live]).all()):
-            raise AssertionError(f"K1 sampled token outside the top-k/top-p support at step {pos}")
-        if not bool((cur[~live] == cfg.semantic_pad).all()):
-            raise AssertionError(f"K1: non-PAD token after EOS at step {pos}")
-        rep[torch.arange(4, device=dev), cur] = True
-    print(f"K1 ar_decode bf16 sampled (top_k=5, top_p=0.8, rep 1.2) B=4: all tokens within "
-          f"the processed support (lengths {lens.tolist()})")
+    sampled_in_support(m, kvs, clen, 4, N_TOKENS)
+
+    # the HTTP server's batches (serve_entry): tts_batch pads 2 requests to
+    # B=2 and 5-8 to B=8; an EN piece of up to 60 characters fills the
+    # 64-phone bucket; the serve default max_length=1024
+    for B in SERVE_K1_B:
+        m, kvs, clen = prepare_serve(lm16, B)
+        logits_close(m, kvs, clen, B, 1024)
+        sampled_in_support(m, kvs, clen, B, 1024)
     out["max_abs_err"] = max(errs)
 
     # timing at the serve setting (bf16, sampled), per generated token, at
     # N=430 and at the serve default max_length=1024; the cluster plan and
     # how many clusters the card holds at once; the wrapper's host time
-    for N in (N_TOKENS, 1024):
+    for N, B in [(n, b) for n in (N_TOKENS, 1024) for b in (1, 4)] + [(1024, b) for b in SERVE_K1_B]:
         sn = dataclasses.replace(sc, max_new_tokens=N)
-        for B in (1, 4):
-            m, kvs, clen = prepare(lm16, B)
-            t_k = cuda_time_ms(lambda: k1.roformer_decode(m, sn, kvs, clen, generator=gen), iters=5, warmup=1)
-            n = int(k1.roformer_decode(m, sn, kvs, clen, generator=gen)[1].max())
-            plan, clusters = k1.max_active_clusters(m, sn, kvs, clen)
-            host = host_us(lambda: k1._prepare(m, sn, kvs, clen, gen, False), calls=50)
-            was = EARLIER_K1_MS.get(B) if N == N_TOKENS else None
-            beside = f" (earlier kernel {was:.2f} ms, {was * 1e3 / N:.1f} us/step)" if was else ""
-            print(f"K1 ar_decode bf16 B={B} N={N}: kernel {t_k:.3f} ms ({t_k * 1e3 / N:.2f} us/step){beside}; "
-                  f"longest stream {n} tokens; cluster of CL={plan.CL} blocks a stream, {plan.smem_bytes} bytes "
-                  f"of shared memory a block (KV cache there: {plan.kv_smem}, encoder K/V there: "
-                  f"{plan.ckv_smem}, weight ring {plan.stages} x {plan.chunk} bytes), "
-                  f"cudaOccupancyMaxActiveClusters {clusters}; wrapper host time (checks, packing, seed) "
-                  f"{host:.1f} us")
-            if plan.ckv_smem:
-                # the plan keeps the encoder K/V in shared memory here: the
-                # same decode with it in device memory, in turns
-                device_kv = functools.partial(k1.plan, encoder_kv_smem=False)
-                turns = {"shared": [], "device": []}
-                for where in ("shared", "device", "device", "shared"):
-                    with mock.patch.object(k1, "plan", k1.plan if where == "shared" else device_kv):
-                        turns[where].append(cuda_time_ms(
-                            lambda: k1.roformer_decode(m, sn, kvs, clen, generator=gen), iters=5, warmup=1))
-                print(f"K1 ar_decode bf16 B={B} N={N}: encoder K/V in shared memory "
-                      f"{[round(x, 3) for x in turns['shared']]} ms against device memory "
-                      f"{[round(x, 3) for x in turns['device']]} ms (in turns)")
-            if N == N_TOKENS and B == 1:
-                t_p = cuda_time_ms(lambda: k1.roformer_decode_plain(m, sn, kvs, clen, generator=gen), iters=2,
-                                   warmup=1)
-                out.update(ms=t_k, plain_ms=t_p)
-                out["bound_ms"], out["bound_by"] = k1_bound(m, kvs, cfg, B, n)
-                print(f"K1 at B=1: plain loop {t_p:.2f} ms; bound {out['bound_ms'] * 1e3:.2f} us "
-                      f"({out['bound_by']}) for {n} steps; no single PyTorch call computes a whole decode")
+        m, kvs, clen = prepare(lm16, B) if B in (1, 4) else prepare_serve(lm16, B)
+        t_k = cuda_time_ms(lambda: k1.roformer_decode(m, sn, kvs, clen, generator=gen), iters=5, warmup=1)
+        n = int(k1.roformer_decode(m, sn, kvs, clen, generator=gen)[1].max())
+        plan, clusters = k1.max_active_clusters(m, sn, kvs, clen)
+        host = host_us(lambda: k1._prepare(m, sn, kvs, clen, gen, False), calls=50)
+        was = EARLIER_K1_MS.get(B) if N == N_TOKENS else None
+        beside = f" (earlier kernel {was:.2f} ms, {was * 1e3 / N:.1f} us/step)" if was else ""
+        print(f"K1 ar_decode bf16 B={B} N={N}: kernel {t_k:.3f} ms ({t_k * 1e3 / N:.2f} us/step){beside}; "
+              f"longest stream {n} tokens; cluster of CL={plan.CL} blocks a stream, {plan.smem_bytes} bytes "
+              f"of shared memory a block (KV cache there: {plan.kv_smem}, encoder K/V there: "
+              f"{plan.ckv_smem}, weight ring {plan.stages} x {plan.chunk} bytes), "
+              f"cudaOccupancyMaxActiveClusters {clusters}; wrapper host time (checks, packing, seed) "
+              f"{host:.1f} us")
+        if plan.ckv_smem:
+            # the plan keeps the encoder K/V in shared memory here: the
+            # same decode with it in device memory, in turns
+            device_kv = functools.partial(k1.plan, encoder_kv_smem=False)
+            turns = {"shared": [], "device": []}
+            for where in ("shared", "device", "device", "shared"):
+                with mock.patch.object(k1, "plan", k1.plan if where == "shared" else device_kv):
+                    turns[where].append(cuda_time_ms(
+                        lambda: k1.roformer_decode(m, sn, kvs, clen, generator=gen), iters=5, warmup=1))
+            print(f"K1 ar_decode bf16 B={B} N={N}: encoder K/V in shared memory "
+                  f"{[round(x, 3) for x in turns['shared']]} ms against device memory "
+                  f"{[round(x, 3) for x in turns['device']]} ms (in turns)")
+        if N == N_TOKENS and B == 1:
+            t_p = cuda_time_ms(lambda: k1.roformer_decode_plain(m, sn, kvs, clen, generator=gen), iters=2,
+                               warmup=1)
+            out.update(ms=t_k, plain_ms=t_p)
+            out["bound_ms"], out["bound_by"] = k1_bound(m, kvs, cfg, B, n)
+            print(f"K1 at B=1: plain loop {t_p:.2f} ms; bound {out['bound_ms'] * 1e3:.2f} us "
+                  f"({out['bound_by']}) for {n} steps; no single PyTorch call computes a whole decode")
     return out
 
 
@@ -1065,6 +1114,358 @@ def check_slice_against_plain(dev):
     print(f"slice f32 (50 tokens, 20 steps + vocoder) with K4 vs plain attention: max wav err {err:.2e}")
 
 
+SERVE_TEXTS = [
+    "Hello world, this is a test of the speech system.",
+    "Please read the following sentence slowly and clearly.",
+    "The quick brown fox jumps over the lazy dog.",
+    "How are you today, my dear old friend?",
+    "We will meet again at the station tomorrow.",
+    "Good morning, and welcome to the show.",
+]
+# three pieces at max_chars=40 (English periods do not end a sentence for
+# text/segment.py; "!" and "?" do)
+STREAM_TEXT = "Good morning to everyone here! Is the weather fine today? We will start the meeting soon!"
+STREAM_MAX_CHARS, PAUSE_MS = 40, 180.0
+ZH_TEXT = "今天天气真好。"
+CLI_TEXT = "Hello world, this is a test of the speech system."
+# the samplers the serve CLIs can name beyond UniPC and DPM-Solver++ order 2
+# (DDPM and DPM-Solver++ order 3 are run on their own)
+CARD_SAMPLERS = ("ddim", "pndm", "dpm-solver-singlestep", "dpm-solver-adaptive", "unipc-vary")
+
+
+def http_call(port: int, method: str, path: str, body=None) -> tuple:
+    """(status, headers, body bytes) of one request on a connection of its
+    own (http.client undoes the chunked transfer encoding)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        data = json.dumps(body) if body is not None else None
+        conn.request(method, path, data, {"Content-Type": "application/json"} if data else {})
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def wav_pcm(body: bytes) -> tuple:
+    """(sample rate, int16 samples) of a mono PCM-16 WAV body."""
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(body)) as wf:
+        if (wf.getnchannels(), wf.getsampwidth()) != (1, 2):
+            raise AssertionError(f"WAV of {wf.getnchannels()} channels, {wf.getsampwidth()}-byte samples")
+        return wf.getframerate(), np.frombuffer(wf.readframes(wf.getnframes()), "<i2")
+
+
+def serve_entry(dev, card: str) -> dict:
+    """The port's serve entry points on the card, at flagship width with
+    seeded weights (no `pretrain/` in the repository): the pipeline from
+    `cli/infer_tts.py::build_pipeline(configs/config.yaml)` (bf16, UniPC at
+    speedup 10: 100 steps over 1000 timesteps) behind `infer.TTSServer`
+    with the serve CLI's defaults (max_batch 8, max_wait_ms 30, max_queue
+    64) and `cli/serve.py::make_handler` on a `TTSHTTPServer` at
+    127.0.0.1:0.  After one unmeasured POST: six concurrent EN /tts POSTs
+    (200, WAVs of tokens x 512 samples at 44.1 kHz, fewer batches than
+    requests), one /tts/stream of three pieces (chunked, stitched with
+    pause_ms of silence), one ZH request (500 with the ZH frontend's own
+    error: F2), /healthz and /metrics (equal to the server's counters).
+    Counted over these requests: one K1 launch a dispatched batch, 32 K4
+    launches a denoiser evaluation, no K4 backward, no unet_fwd, no K5, no
+    plain route.  Then each sampler the CLIs can name beyond UniPC and
+    DPM-Solver++ once through `Unit2MelSystem.infer` at T=64 from one
+    x_init (DDPM, 1000 steps, through the fused kernel), DPM-Solver++
+    order 3 over the same denoiser, and the `infer_tts` CLI as a
+    subprocess, plain and `--long`.  Returns the phase's launches."""
+    import threading
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline as cli_build_pipeline
+    from latent_diffusion_speech_tpu_torch.cli.serve import TTSHTTPServer, make_handler
+    from latent_diffusion_speech_tpu_torch.config import load_config
+    from latent_diffusion_speech_tpu_torch.infer import TTSServer
+    from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+    from latent_diffusion_speech_tpu_torch.ops.kernels import flash_attention as k5
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import unet_fused as k23
+    from latent_diffusion_speech_tpu_torch.text import text_to_sequence
+    from latent_diffusion_speech_tpu_torch.text.segment import split_sentences
+
+    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+    absent = [cfg.text2semantic.model.codebook_path, cfg.common.vocoder.ckpt]
+    if any(os.path.exists(os.path.join(ROOT, p)) for p in absent):
+        raise AssertionError(f"{absent}: this phase expects no pretrained files in the checkout")
+    print(f"serve_entry: {absent} absent (no pretrain/ in the repository): seeded random weights, random "
+          f"centroids")
+    t0 = time.perf_counter()
+    pipe = cli_build_pipeline(cfg)
+    t_build = time.perf_counter() - t0
+    method, speedup = cfg.common.infer.method, cfg.common.infer.speedup
+    if (pipe.device.type, method, speedup) != ("cuda", "unipc", 10):
+        raise AssertionError(f"build_pipeline on {pipe.device}, sampler {method} at speedup {speedup}")
+    hop, sr_want = pipe.vocoder.vocoder_hop_size, pipe.vocoder.vocoder_sample_rate
+    K = pipe.lm.cfg.semantic_kmeans_num
+
+    # what the server formed: each tts_batch's texts, wall time and output
+    # lengths; each generate call's token counts; denoiser evaluations;
+    # calls of the plain decode
+    batches, token_rows, count = [], [], {"evals": 0, "plain_decode": 0}
+    real_batch, real_generate = pipe.tts_batch, pipe.lm.generate
+    real_denoise, real_plain = pipe.diffusion.diffusion.denoise_fn, k1.roformer_decode_plain
+
+    def tts_batch(texts, *a, **kw):
+        t = time.perf_counter()
+        out = real_batch(texts, *a, **kw)
+        torch.cuda.synchronize()
+        tokens = token_rows[-1][: len(texts)]
+        for (w, s), n in zip(out, tokens):
+            if s != sr_want or w.ndim != 1 or n == 0 or len(w) != n * hop or not np.isfinite(w).all():
+                raise AssertionError(f"tts_batch: sr {s}, shape {w.shape}, {n} tokens")
+        batches.append(dict(texts=list(texts), seconds=time.perf_counter() - t, tokens=tokens,
+                            lengths=[len(w) for w, _ in out]))
+        return out
+
+    def generate(*a, **kw):
+        toks, lens = real_generate(*a, **kw)
+        t, n = toks.cpu().numpy(), lens.cpu().numpy()
+        token_rows.append([int((t[b, : n[b]] < K).sum()) for b in range(len(t))])
+        return toks, lens
+
+    def denoise(*a):
+        count["evals"] += 1
+        return real_denoise(*a)
+
+    def plain_decode(*a, **kw):
+        count["plain_decode"] += 1
+        return real_plain(*a, **kw)
+
+    pipe.tts_batch, pipe.lm.generate, pipe.diffusion.diffusion.denoise_fn = tts_batch, generate, denoise
+    server = TTSServer(pipe, max_batch=8, max_wait_ms=30.0, method=method, infer_speedup=speedup, max_queue=64)
+    httpd = TTSHTTPServer(("127.0.0.1", 0), make_handler(server))
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        with mock.patch.object(k1, "roformer_decode_plain", plain_decode):
+            t0 = time.perf_counter()
+            status, _, _ = http_call(port, "POST", "/tts", {"text": SERVE_TEXTS[0], "language": "EN"})
+            t_warm = time.perf_counter() - t0
+            if status != 200:
+                raise AssertionError(f"warm-up POST: {status}")
+            batches.clear()
+            token_rows.clear()
+            count.update(evals=0, plain_decode=0)
+            k1.launches = k4.launches = k4.bwd_launches = k23.launches = k5.launches = k5.plain_routes = 0
+
+            # six EN requests from six client threads at once
+            replies = [None] * len(SERVE_TEXTS)
+            go = threading.Barrier(len(SERVE_TEXTS))
+
+            def client(i):
+                go.wait()
+                t = time.perf_counter()
+                got = http_call(port, "POST", "/tts", {"text": SERVE_TEXTS[i], "language": "EN", "spk_id": i + 1})
+                replies[i] = got + (time.perf_counter() - t,)
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(SERVE_TEXTS))]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            t_burst = time.perf_counter() - t0
+            burst = list(batches)
+            length_of = {txt: n for b in burst for txt, n in zip(b["texts"], b["lengths"])}
+            audio_s = []
+            for txt, reply in zip(SERVE_TEXTS, replies):
+                if reply is None:
+                    raise AssertionError(f"no reply to {txt!r}")
+                status, headers, body, wall = reply
+                if status != 200 or headers.get("content-type") != "audio/wav":
+                    raise AssertionError(f"/tts {txt!r}: {status} {headers}: {body[:200]!r}")
+                sr, pcm = wav_pcm(body)
+                if sr != sr_want or len(pcm) != length_of[txt]:
+                    raise AssertionError(f"/tts {txt!r}: {sr} Hz, {len(pcm)} samples, want {length_of[txt]}")
+                audio_s.append(len(pcm) / sr)
+            if len(burst) >= len(SERVE_TEXTS):
+                raise AssertionError(f"six concurrent requests in {len(burst)} batches: no coalescing")
+            walls = [r[3] for r in replies]
+            print(f"serve_entry HTTP [{card}]: six concurrent EN /tts requests in {t_burst:.3f} s; batches formed "
+                  f"{[len(b['texts']) for b in burst]} (padded to {[1 << (len(b['texts']) - 1).bit_length() for b in burst]}) "
+                  f"taking {[round(b['seconds'], 3) for b in burst]} s; tokens {[b['tokens'] for b in burst]}")
+            print(f"serve_entry HTTP [{card}]: request wall times {[round(w, 3) for w in walls]} s, audio "
+                  f"{[round(a, 3) for a in audio_s]} s, RTF per request {[round(w / a, 4) for w, a in zip(walls, audio_s)]}; "
+                  f"burst RTF {t_burst / sum(audio_s):.4f} (wall over all audio); warm-up request {t_warm:.3f} s; "
+                  f"build_pipeline {t_build:.3f} s")
+
+            # one stream of three pieces: the first dispatched alone, the
+            # other two as one batch
+            pieces = split_sentences(STREAM_TEXT, max_chars=STREAM_MAX_CHARS)
+            if len(pieces) != 3:
+                raise AssertionError(f"stream text splits into {pieces}")
+            n_before = len(batches)
+            t0 = time.perf_counter()
+            status, headers, body = http_call(port, "POST", "/tts/stream", {
+                "text": STREAM_TEXT, "language": "EN", "max_chars": STREAM_MAX_CHARS, "pause_ms": PAUSE_MS})
+            t_stream = time.perf_counter() - t0
+            formed = batches[n_before:]
+            if status != 200 or headers.get("transfer-encoding") != "chunked":
+                raise AssertionError(f"/tts/stream: {status} {headers}: {body[:200]!r}")
+            if (body[:4], body[8:12], struct.unpack_from("<II", body, 4)[0], struct.unpack_from("<I", body, 40)[0]) \
+                    != (b"RIFF", b"WAVE", 0xFFFFFFFF, 0xFFFFFFFF) or struct.unpack_from("<I", body, 24)[0] != sr_want:
+                raise AssertionError(f"/tts/stream header {body[:44]!r}")
+            pcm = np.frombuffer(body[44:], "<i2")
+            piece_len = {txt: n for b in formed for txt, n in zip(b["texts"], b["lengths"])}
+            lens = [piece_len[p] for p in pieces]
+            gap = int(round(sr_want * PAUSE_MS / 1000.0))
+            if [len(b["texts"]) for b in formed] != [1, 2] or len(pcm) != sum(lens) + 2 * gap:
+                raise AssertionError(f"/tts/stream: batches {[b['texts'] for b in formed]}, {len(pcm)} samples, "
+                                     f"want {lens} + 2 x {gap}")
+            cut = [lens[0], lens[0] + gap, lens[0] + gap + lens[1], lens[0] + 2 * gap + lens[1]]
+            if pcm[cut[0]:cut[1]].any() or pcm[cut[2]:cut[3]].any():
+                raise AssertionError("/tts/stream: the pauses between pieces are not silent")
+            print(f"serve_entry HTTP stream [{card}]: 3 pieces {[round(n / sr_want, 3) for n in lens]} s of audio "
+                  f"(batches {[len(b['texts']) for b in formed]}: the first alone, taking "
+                  f"{[round(b['seconds'], 3) for b in formed]} s) + 2 pauses of {gap} samples, chunked, in "
+                  f"{t_stream:.3f} s; RTF {t_stream / (len(pcm) / sr_want):.4f}")
+
+            # ZH: the frontend's own error (F2), answered 500
+            try:
+                text_to_sequence(ZH_TEXT, "ZH")
+            except Exception as e:  # noqa: BLE001 - the expected failure, compared below
+                zh_error = str(e)
+                zh_kind = type(e).__name__
+            else:
+                raise AssertionError("the ZH frontend ran: F2 is closed, update serve_entry")
+            status, _, body = http_call(port, "POST", "/tts", {"text": ZH_TEXT})
+            if status != 500 or json.loads(body)["error"] != zh_error:
+                raise AssertionError(f"ZH /tts: {status} {body[:300]!r}, want 500 {zh_error!r}")
+            print(f"serve_entry HTTP ZH: 500 with the ZH frontend's {zh_kind}: {zh_error!r}")
+
+            health = json.loads(http_call(port, "GET", "/healthz")[2])
+            metrics = {line.split()[0]: float(line.split()[1])
+                       for line in http_call(port, "GET", "/metrics")[2].decode().splitlines()
+                       if line and not line.startswith("#")}
+            counters = {k: getattr(server, k) for k in
+                        ("requests_served", "requests_failed", "requests_rejected", "batches_served")}
+            if any(health[k] != v or metrics[f"tts_{k}_total"] != v for k, v in counters.items()) \
+                    or health["queue_depth"] != 0 or metrics["tts_queue_depth"] != 0:
+                raise AssertionError(f"/healthz {health}, /metrics {metrics}, server {counters}")
+            if not (server.batches_served < server.requests_served and server.requests_failed == 1):
+                raise AssertionError(f"server counters {counters}")
+            print(f"serve_entry probes: /healthz and /metrics agree with the server: {counters}; audio served "
+                  f"{metrics['tts_audio_seconds_served_total']:.3f} s in {metrics['tts_batch_seconds_total']:.3f} s "
+                  f"of batches")
+
+            launches = {"ar_decode": k1.launches, "attention_fwd": k4.launches}
+            dispatched = len(batches)  # the ZH batch failed before its decode
+            want = {"ar_decode": dispatched, "attention_fwd": 32 * count["evals"]}
+            other = {"attention_bwd": k4.bwd_launches, "unet_fwd": k23.launches, "flash_attention": k5.launches,
+                     "plain_attention": k5.plain_routes, "plain_decode": count["plain_decode"]}
+            if launches != want or len(token_rows) != dispatched or any(other.values()):
+                raise AssertionError(f"serve_entry launches {launches}, want {want} ({dispatched} decoded batches, "
+                                     f"{count['evals']} denoiser evaluations); others {other} (want 0)")
+            print(f"serve_entry launches over the measured requests: {launches} ({dispatched} decoded batches, "
+                  f"{count['evals']} denoiser evaluations); {other}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    pipe.tts_batch, pipe.lm.generate = real_batch, real_generate
+    launches["unet_fwd"], n = card_samplers(pipe, dev, card, count)
+    launches["attention_fwd"] += n
+    run_cli(card)
+    return launches
+
+
+def card_samplers(pipe, dev, card: str, count: dict) -> tuple:
+    """Each sampler the CLIs can name beyond UniPC and DPM-Solver++ order 2
+    once at flagship width, T=64, from one x_init: through
+    `Unit2MelSystem.infer` (the eager UNet, 32 K4 launches an evaluation),
+    DPM-Solver++ order 3 over the same denoiser, and DDPM's 1000 steps with
+    `unet_impl="pallas"` (one unet_fwd launch a step).  Finite outputs.
+    Returns (unet_fwd launches, K4 launches)."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.models.diffusion.samplers import dpmpp_sample
+    from latent_diffusion_speech_tpu_torch.models.diffusion.schedule import NoiseSchedule
+    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelSystem
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import unet_fused as k23
+
+    system = pipe.diffusion
+    units = pipe.semantic_to_units(np.arange(64) * 7 % pipe.lm.cfg.semantic_kmeans_num)
+    spk = torch.full((1, 1), 2, device=dev)
+    x_init = torch.randn((1, 64, system.cfg.out_dims), generator=torch.Generator(device=dev).manual_seed(3),
+                         device=dev)
+    k4_total = k23_total = 0
+
+    def run(what, fn, unet_launches=0):
+        nonlocal k4_total, k23_total
+        k4_before, k23_before, evals_before = k4.launches, k23.launches, count["evals"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = fn()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        evals, n_k4, n_k23 = count["evals"] - evals_before, k4.launches - k4_before, k23.launches - k23_before
+        if mel.shape != (1, 64, system.cfg.out_dims) or not bool(torch.isfinite(mel).all()):
+            raise AssertionError(f"sampler {what}: shape {tuple(mel.shape)}, finite {bool(torch.isfinite(mel).all())}")
+        if (n_k4, n_k23) != ((32 * evals, 0) if not unet_launches else (0, unet_launches)):
+            raise AssertionError(f"sampler {what}: {n_k4} K4 and {n_k23} unet_fwd launches for {evals} evaluations")
+        k4_total, k23_total = k4_total + n_k4, k23_total + n_k23
+        print(f"sampler {what} on the card (flagship, bf16, T=64) [{card}]: {took:.3f} s, "
+              f"{evals or unet_launches} denoiser evaluations, finite (max |mel| {mel.float().abs().max().item():.3f})")
+
+    for method in CARD_SAMPLERS:
+        run(f"{method} (speedup 10)",
+            lambda: system.infer(units, spk_id=spk, method=method, infer_speedup=10, x_init=x_init))
+    cond = system.condition(units, spk_id=spk)
+
+    @torch.no_grad()
+    def order3():
+        def eps_fn(x, t):
+            return system.diffusion.denoise_fn(None, torch.cat([x, cond.to(x.dtype)], dim=-1), t)
+
+        ns = NoiseSchedule(system.diffusion.schedule.betas[: system.diffusion.k_step])
+        x = dpmpp_sample(eps_fn, ns, x_init.to(cond.dtype), steps=100, order=3)
+        return system.diffusion.denorm_spec(x)
+
+    run("dpm-solver order 3 (100 steps)", order3)
+    # DDPM's 1000 steps through the fused kernel (build_pipeline's seed: the same weights)
+    fused = Unit2MelSystem(system.cfg, dtype=torch.bfloat16, device=dev, unet_impl="pallas")
+    run("ddpm (1000 steps, unet_impl=pallas)", lambda: fused.infer(
+        units, torch.Generator(device=dev).manual_seed(4), spk_id=spk, method="ddpm", x_init=x_init),
+        unet_launches=system.diffusion.k_step)
+    return k23_total, k4_total
+
+
+def run_cli(card: str) -> None:
+    """`python -m latent_diffusion_speech_tpu_torch.cli.infer_tts` as a user
+    runs it, plain and with --long: exit 0 and a readable 44.1 kHz WAV
+    under exp/ (removed after)."""
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import read_wav
+
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    for name, text, extra in (("serve_entry_cli", CLI_TEXT, []), ("serve_entry_cli_long", STREAM_TEXT, ["--long"])):
+        out = os.path.join("exp", name + ".wav")
+        cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.infer_tts", "-c", "configs/config.yaml",
+               "-l", "EN", "-i", text, "-o", out, *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        took = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        wav, sr = read_wav(os.path.join(ROOT, out))
+        os.remove(os.path.join(ROOT, out))
+        if sr != 44100 or wav.ndim != 1 or len(wav) == 0 or not np.isfinite(wav).all():
+            raise AssertionError(f"{out}: {sr} Hz, shape {wav.shape}")
+        print(f"CLI infer_tts {' '.join(extra) or '(plain)'} [{card}]: exit 0 in {took:.1f} s (a new process: "
+              f"imports, the kernel library, build_pipeline, one request); {out}: {len(wav) / sr:.3f} s at {sr} Hz; "
+              f"{proc.stdout.strip().splitlines()[-1]}")
+
+
 def check_k4_bwd(dev) -> dict:
     """K4 at the training shapes, B=48, H=8: the f32 forward kernel's out
     and lse against the plain forward (atol 2e-5 / 1e-4, as check_k4); the
@@ -1343,6 +1744,28 @@ def step_breakdown(trainer, loader, dev) -> dict:
                 **{k: v / 1e3 / PROFILED_STEPS for k, v in sums.items()})
 
 
+def check_native_checkpoint(cfg, dev) -> None:
+    """`infer/load.py::load_native_pipeline` over the training phase's
+    experiment directory: its Unit2Mel's state equals the trainer's saved
+    state (the EMA sidecar's parameters where the trainer saved one)."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.infer.load import load_native_pipeline
+    from latent_diffusion_speech_tpu_torch.train.checkpoint import load_checkpoint, load_checkpoint_extra
+
+    expdir = cfg.diffusion.train.expdir
+    step, params, _ = load_checkpoint(expdir)
+    ema = load_checkpoint_extra(expdir, "ema", step)
+    want = {**params, **(ema or {})}
+    pipe = load_native_pipeline(cfg, expdir, dtype=torch.float32, device=dev)
+    got = pipe.diffusion.module.state_dict()
+    differ = sorted(n for n in want if n not in got or not torch.equal(got[n].cpu(), want[n]))
+    if got.keys() != want.keys() or differ:
+        raise AssertionError(f"load_native_pipeline: state differs from model_{step}.ckpt at {differ[:5]}")
+    print(f"load_native_pipeline({expdir}): the Unit2Mel's {len(got)} tensors equal model_{step}.ckpt"
+          f"{' with its EMA sidecar' if ema is not None else ' (no EMA sidecar: ema_decay 0)'}")
+
+
 def train_slice(dev, card: str, k4_bwd: dict, k6_res: dict) -> dict:
     """The diffusion training slice at flagship width: `configs/config.yaml`
     through the port's entry point, f32, B=48, the k-means snap on."""
@@ -1407,6 +1830,7 @@ def train_slice(dev, card: str, k4_bwd: dict, k6_res: dict) -> dict:
         q1, q3 = (float(v) for v in np.percentile(steady, [25, 75]))
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         shares = step_breakdown(trainer, loader, dev)
+        check_native_checkpoint(cfg, dev)
 
     kern = k4_bwd["rows"]
     est = {
@@ -1488,6 +1912,12 @@ def main() -> int:
     check_slice_against_plain(dev)
     check_general_against_plain(dev)
     check_trajectory(dev)
+    torch.cuda.empty_cache()
+    entry = serve_entry(dev, card)
+    for name, n in entry.items():
+        launches[name] += n
+    print(f"launches with serve_entry's: {launches}")
+    torch.cuda.empty_cache()
     train = train_slice(dev, card, k4_bwd, k6)
     print(f"attention_fwd launches: {launches['attention_fwd']} serving + "
           f"{train['launches']['attention_fwd']} training")

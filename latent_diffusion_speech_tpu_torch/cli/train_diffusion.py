@@ -14,12 +14,11 @@ loader, and trains, printing one JSON line of metrics every
 
 from __future__ import annotations
 
-import argparse
 import json
-from pathlib import Path
 from typing import Optional, Sequence
 
-from latent_diffusion_speech_tpu_torch.config import Config, load_config
+from latent_diffusion_speech_tpu_torch.cli._common import config_parser, load
+from latent_diffusion_speech_tpu_torch.config import Config
 
 __all__ = ["build", "main"]
 
@@ -70,14 +69,10 @@ def build(cfg: Config, device=None):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    p = argparse.ArgumentParser(description="train the latent diffusion model (stage 20) on one CUDA device")
-    p.add_argument("-c", "--config", type=str, default="configs/config.yaml")
+    p = config_parser("train the latent diffusion model (stage 20) on one CUDA device")
     p.add_argument("--max-steps", type=int, default=None)
     args = p.parse_args(argv)
-    path = Path(args.config)
-    if not path.exists():
-        raise SystemExit(f"[x] config not found: {path}")
-    trainer, loader = build(load_config(path))
+    trainer, loader = build(load(args))
     trainer.train(loader, max_steps=args.max_steps, logger=PrintLogger())
 
 

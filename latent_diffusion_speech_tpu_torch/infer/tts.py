@@ -3,14 +3,15 @@ k-means centroid units -> 20-step DPM-Solver++ diffusion -> HiFi-VAEGAN
 waveform.
 
 Counterpart of `latent_diffusion_speech_tpu/infer/tts.py::TTSPipeline` (the
-serve path: `tts`, `tts_from_phones`, `tts_batch` and the stages under
-them), with the same signatures except that `rng` keys become
-`torch.Generator`s.  `tts_batch` keeps the phone, length and batch buckets
-and the per-item crops, so the server's batching loop can drive it.  It runs
-eagerly; the LM decode is one K1 kernel launch on the card and every UNet
-attention one K4 launch, or one K5 launch with `attn_impl="pallas"` (the
-flagship or the general denoiser: it takes any `Unit2MelSystem`).  `tts_long_text` and `infer_from_long_audio`
-are not ported yet (ROADMAP.md).
+serve path: `tts`, `tts_from_phones`, `tts_batch`, `tts_long_text`,
+`mel2wav` and the stages under them), with the same signatures except that
+`rng` keys become `torch.Generator`s.  `tts_batch` keeps the phone, length
+and batch buckets and the per-item crops, so the server's batching loop
+(`infer/server.py`) can drive it.  It runs eagerly; the LM decode is one K1
+kernel launch on the card and every UNet attention one K4 launch, or one K5
+launch with `attn_impl="pallas"` (the flagship or the general denoiser: it
+takes any `Unit2MelSystem`).  `infer_from_long_audio` (SVC) is not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -123,6 +124,10 @@ class TTSPipeline:
         wav = self.vocoder.infer(mel)
         return wav[:, : T * self.vocoder.vocoder_hop_size]
 
+    @torch.no_grad()
+    def mel2wav(self, mel: torch.Tensor) -> torch.Tensor:
+        return self.vocoder.infer(mel)
+
     # -- full TTS ------------------------------------------------------------
 
     def tts(
@@ -145,6 +150,7 @@ class TTSPipeline:
             seed=seed,
         )
 
+    @torch.no_grad()
     def tts_from_phones(
         self, phones, tones, spk_id=1, method="dpm-solver", infer_speedup=50,
         max_length=1024, top_k=5, end_gate_threshold=None, seed=0,
@@ -162,6 +168,40 @@ class TTSPipeline:
                          generator=gen)
         return wav[0].float().cpu().numpy(), sr
 
+    def tts_long_text(
+        self,
+        text: str,
+        language: str = "ZH",
+        spk_id: int = 1,
+        pause_ms: float = 180.0,
+        max_chars: int = 60,
+        batched: bool = True,
+        **kw,
+    ) -> Tuple[np.ndarray, int]:
+        """Long-text TTS: split into sentence-sized pieces
+        (`text/segment.py`), synthesize them (as one `tts_batch` call by
+        default, else one `tts` each) and stitch them with `pause_ms` of
+        silence between pieces.  `kw` goes to `tts_batch` / `tts` (method,
+        infer_speedup, top_k, seed, ...)."""
+        from latent_diffusion_speech_tpu_torch.text.segment import split_sentences
+
+        pieces = split_sentences(text, max_chars=max_chars)
+        sr = self.vocoder.vocoder_sample_rate
+        if not pieces:
+            return np.zeros(0, np.float32), sr
+        if batched:
+            results = self.tts_batch(pieces, language=language, spk_ids=[spk_id] * len(pieces), **kw)
+        else:
+            results = [self.tts(p, language=language, spk_id=spk_id, **kw) for p in pieces]
+        gap = np.zeros(int(round(sr * pause_ms / 1000.0)), np.float32)
+        chunks: list = []
+        for i, (wav, _) in enumerate(results):
+            if i:
+                chunks.append(gap)
+            chunks.append(np.asarray(wav, np.float32))
+        return np.concatenate(chunks), sr
+
+    @torch.no_grad()
     def tts_batch(
         self,
         texts,

@@ -4,9 +4,11 @@ Counterpart of `latent_diffusion_speech_tpu/models/diffusion/gaussian.py`:
 spec normalisation by the scalar `acoustic_scale`, the frame axis padded to
 the UNet's downsample grid and cropped back, the eps-prediction loss
 `p_losses` (L2 or L1, t uniform in [0, k_step)), and `sample` from pure
-noise (or a given `x_init`) with UniPC (the default, as in the JAX package)
-or DPM-Solver++.  Shallow diffusion from a ground-truth spec and the other
-samplers are not ported yet (ROADMAP.md).
+noise (or a given `x_init`) with every sampler the JAX package names:
+UniPC (the default), DPM-Solver++ (multistep, singlestep, adaptive),
+UniPC vary-coeff, DDIM, PNDM and DDPM (also for `method=None` or
+`infer_speedup <= 1`).  Shallow diffusion from a ground-truth spec
+(`k_step`/`gt_spec`) is not ported yet (ROADMAP.md).
 
 Layout: condition (B, T, H), spec (B, T, M); the denoiser input is the
 channel concat [x_t ++ cond] -> (B, T, M + H).
@@ -19,7 +21,16 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from latent_diffusion_speech_tpu_torch.models.diffusion.samplers import dpmpp_sample, unipc_sample
+from latent_diffusion_speech_tpu_torch.models.diffusion.samplers import (
+    ddim_sample,
+    ddpm_sample,
+    dpmpp_adaptive_sample,
+    dpmpp_sample,
+    dpmpp_singlestep_sample,
+    plms_sample,
+    unipc_sample,
+    unipc_vary_sample,
+)
 from latent_diffusion_speech_tpu_torch.models.diffusion.schedule import DiffusionSchedule, NoiseSchedule
 
 __all__ = ["GaussianDiffusion"]
@@ -110,13 +121,11 @@ class GaussianDiffusion:
         x_init: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Generate spec (B, T, M) from condition (B, T, H), starting from
-        `x_init` if given, else from N(0, 1) noise drawn with `generator`."""
-        samplers = {"unipc": unipc_sample, "dpm-solver": dpmpp_sample}
-        if method not in samplers or infer_speedup <= 1:
-            raise NotImplementedError(
-                f"sampler {method!r} (speedup {infer_speedup}) is not ported yet; "
-                "only 'unipc' and 'dpm-solver' with infer_speedup > 1 (see ROADMAP.md)"
-            )
+        `x_init` if given, else from N(0, 1) noise drawn with `generator`
+        (which also draws DDPM's per-step noise).  method: 'unipc',
+        'dpm-solver', 'dpm-solver-singlestep', 'dpm-solver-adaptive',
+        'unipc-vary', 'ddim', 'pndm' or 'ddpm'; None or infer_speedup <= 1
+        runs DDPM over all k_step timesteps, as in the JAX package."""
         B, T = cond.shape[:2]
         t_max = self.k_step
         if x_init is not None:
@@ -130,6 +139,27 @@ class GaussianDiffusion:
         def eps_fn(x_t, t):
             return self.denoise_fn(params, torch.cat([x_t, cond_p.to(x_t.dtype)], dim=-1), t)
 
-        ns = NoiseSchedule(self.schedule.betas[:t_max])
-        x = samplers[method](eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
+        if method is None or infer_speedup <= 1 or method == "ddpm":
+            x = ddpm_sample(eps_fn, self.schedule, x, t_max, generator)
+        elif method == "ddim":
+            x = ddim_sample(eps_fn, self.schedule, x, t_max, infer_speedup)
+        elif method == "pndm":
+            x = plms_sample(eps_fn, self.schedule, x, t_max, infer_speedup)
+        elif method == "dpm-solver":
+            ns = NoiseSchedule(self.schedule.betas[:t_max])
+            x = dpmpp_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
+        elif method == "unipc":
+            ns = NoiseSchedule(self.schedule.betas[:t_max])
+            x = unipc_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
+        elif method == "dpm-solver-singlestep":
+            ns = NoiseSchedule(self.schedule.betas[:t_max])
+            x = dpmpp_singlestep_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
+        elif method == "dpm-solver-adaptive":
+            ns = NoiseSchedule(self.schedule.betas[:t_max])
+            x = dpmpp_adaptive_sample(eps_fn, ns, x, order=2)
+        elif method == "unipc-vary":
+            ns = NoiseSchedule(self.schedule.betas[:t_max])
+            x = unipc_vary_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
+        else:
+            raise NotImplementedError(method)
         return self.denorm_spec(x[:, :orig_T])

@@ -2,11 +2,11 @@
 
 Counterpart of `latent_diffusion_speech_tpu/models/diffusion/schedule.py`.
 `DiffusionSchedule` holds the discrete tables (f64 arithmetic, f32 storage).
-`NoiseSchedule` is the continuous-time VP view the DPM-Solver++ sampler
-uses: piecewise-linear interpolation of 0.5*log(alpha_cumprod) over
-t in [1/N, 1].  Its tables and outputs are f32 CPU tensors, as the JAX
-version's are f32 arrays; the sampler reads its per-step coefficients off
-them as Python floats.
+`NoiseSchedule` is the continuous-time VP view the continuous samplers
+use: piecewise-linear interpolation of 0.5*log(alpha_cumprod) over
+t in [1/N, 1], and its inverse from half-logSNR to t.  Its tables and
+outputs are f32 CPU tensors, as the JAX version's are f32 arrays; the
+samplers read their per-step coefficients off them as Python floats.
 """
 
 from __future__ import annotations
@@ -107,3 +107,11 @@ class NoiseSchedule:
     def to_model_t(self, t):
         """Continuous t in [1/N, 1] -> discrete model input in [0, N-1]."""
         return (t - 1.0 / self.total_N) * 1000.0
+
+    def inverse_lambda(self, lamb):
+        """Continuous t for a given half-logSNR: interpolation over the
+        flipped log-alpha table (the singlestep and adaptive solvers' inner
+        times)."""
+        lamb = torch.as_tensor(lamb, dtype=torch.float32)
+        log_alpha = -0.5 * torch.logaddexp(torch.zeros_like(lamb), -2.0 * lamb)
+        return _interp(log_alpha, self.log_alpha_array.flip(0), self.t_array.flip(0))

@@ -249,21 +249,43 @@ def test_k1_bf16_logits_match_plain_at_the_serve_default_n1024(dev):
     sampling = _sampling(lm.cfg, 1024, do_sample=False)
     p, _ = k1.max_active_clusters(lm.module, sampling, kvs, clen)
     assert p.kv_smem and not p.ckv_smem and p.stages == 2
+    _bf16_logits_match_plain(lm, kvs, clen, sampling)
+
+
+def _bf16_logits_match_plain(lm, kvs, clen, sampling):
+    dev = clen.device
     toks, lens, lg = k1.roformer_decode(lm.module, sampling, kvs, clen, debug_logits=True)
     toks_p, _, lg_p = k1.roformer_decode_plain(lm.module, sampling, kvs, clen, debug_logits=True)
     differ = (toks != toks_p).any(dim=0).nonzero()
-    n = int(differ[0]) + 1 if len(differ) else 1024
+    n = int(differ[0]) + 1 if len(differ) else sampling.max_new_tokens
     live = torch.arange(n, device=dev)[None, :] < lens[:, None]
     a, b = lg[:, :n][live].flatten(), lg_p[:, :n][live].flatten()
     assert (a - b).abs().max().item() <= 0.02 * b.abs().max().item()
     assert torch.corrcoef(torch.stack([a, b]))[0, 1].item() >= 0.9999
 
 
+@pytest.mark.parametrize("B", [2, 8])
+def test_k1_bf16_at_the_http_servers_batch_sizes(dev, B):
+    """The HTTP server's batches (2 requests pad to B=2, 5-8 to B=8) at
+    flagship width, N=1024 (the serve default max_length) over 64 encoder
+    rows (the phone bucket of a 60-character EN piece): logits as in the
+    test above, and sampled tokens in the processed support."""
+    lm, kvs, clen = _lm_wide(dev, torch.bfloat16, B=B, L=64)
+    _bf16_logits_match_plain(lm, kvs, clen, _sampling(lm.cfg, 1024, do_sample=False))
+    p, n = k1.max_active_clusters(lm.module, _sampling(lm.cfg, 1024, do_sample=False), kvs, clen)
+    assert p.CL == 8 and n >= 1
+    _sampled_in_support(lm, kvs, clen, 1024)
+
+
 def test_k1_sampled_tokens_in_support_bf16(dev):
     """bf16 sampling: each token has a finite processed logit (the kernel's
     own raw logits through the plain processors); PAD after EOS."""
     lm, kvs, clen = _lm(dev, torch.bfloat16)
-    N = 40
+    _sampled_in_support(lm, kvs, clen, 40)
+
+
+def _sampled_in_support(lm, kvs, clen, N):
+    dev = clen.device
     sampling = _sampling(lm.cfg, N, do_sample=True, top_k=5, top_p=0.8)
     gen = torch.Generator(device=dev).manual_seed(3)
     toks, lens, logits = k1.roformer_decode(lm.module, sampling, kvs, clen, generator=gen,
@@ -527,9 +549,11 @@ def _differing(got, ref):
 
 
 # K4 forward in bf16: the serve path's (B, T, D) at H=8 (tts at B=1, tts_batch
-# at B=4, the 1024-frame bucket) and ragged T
+# at B=4, the 1024-frame bucket), the four resolutions of that bucket at the
+# HTTP server's batch sizes (1, 2, and 5-8 requests padded to 8), and ragged T
 K4_BF16 = [(1, 448, 32), (1, 224, 48), (1, 112, 64), (1, 56, 64), (1, 1024, 64), (4, 448, 32), (4, 56, 64),
            (1, 13, 32), (2, 70, 48), (2, 100, 64), (1, 200, 32)]
+K4_BF16 += [(b, t, d) for b in (1, 2, 8) for t, d in ((1024, 32), (512, 48), (256, 64), (128, 64))]
 
 
 @pytest.mark.parametrize("B,T,D", K4_BF16)

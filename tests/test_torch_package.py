@@ -81,6 +81,8 @@ def test_no_jax_imports_in_the_source():
 
 
 def _default_systems():
+    from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
+    from latent_diffusion_speech_tpu_torch.infer.load import load_native_pipeline
     from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
     from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
     from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer
@@ -93,11 +95,13 @@ def _default_systems():
         "Vocoder": lambda: Vocoder("hifi-vaegan"),
         "EuclideanCodebook": lambda: EuclideanCodebook([[0.0, 1.0]]),
         "DiffusionTrainer": lambda: DiffusionTrainer(config.Config(), model_cfg=tiny),
+        "build_pipeline": lambda: build_pipeline(config.Config()),
+        "load_native_pipeline": lambda: load_native_pipeline(config.Config()),
     }
 
 
 @pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "EuclideanCodebook",
-                                  "DiffusionTrainer"])
+                                  "DiffusionTrainer", "build_pipeline", "load_native_pipeline"])
 def test_entry_points_default_to_the_card(name):
     """A default-constructed entry point asks for `cuda`: without a card it
     raises (never a silent CPU run); with one it lands there."""
