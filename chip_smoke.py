@@ -68,7 +68,20 @@ with nvcc (sm_90a), then:
    sampler the CLIs can name once at T=64 (DDPM through the fused kernel);
    the `infer_tts` CLI as a subprocess, plain and --long; K1 also at the
    server's batch sizes B=2 and B=8 (N=1024) in step 1;
-8. trains the flagship Unit2Mel in f32 at B=48 through the port's training
+8. svc: SVC long-audio inference, `TTSPipeline.infer_from_long_audio`
+   through `cli/infer_tts.py::build_pipeline` (the shipped config) with a
+   `UnitsEncoder` over a seeded full-width Whisper-large-v3 encoder (bf16),
+   on a 32.5 s synthetic 44.1 kHz WAV (three voiced stretches of 6, 9 and
+   14 s between true silences): per-step times (slicing, volume mask,
+   resampling, log-mel, encoder, alignment, diffusion, vocoder, stitch),
+   RTF, the output's rate, length, exact zeros in the silences and
+   finiteness, the units' shape, 32 K4 launches a denoiser evaluation and
+   no other kernel, the encoder in bf16 against f32; the `infer_svc` CLI
+   as a subprocess; stages 10 and 19 over a layout of 8 files (one K6
+   launch a file, ids against the plain version); K4 at the phase's shapes
+   (T up to 1344) and K6 at stage 19's ragged N, against their plain
+   versions and timed;
+9. trains the flagship Unit2Mel in f32 at B=48 through the port's training
    entry point (`cli/train_diffusion.py::build` + `DiffusionTrainer.train`,
    `configs/config.yaml` with the k-means unit snap) on a seeded synthetic
    data layout: one step's loss and gradients against the same step with
@@ -238,66 +251,73 @@ def turns_line(t: dict) -> str:
                      for name, v in t.items())
 
 
-def check_k4(dev) -> dict:
-    """K4 forward at every K4_SHAPES entry: f32 against the plain version
-    (atol 2e-5, LSE 1e-4); bf16 (the tensor-core kernel) against the f32
-    plain version on the same bf16-rounded inputs at atol/rtol 3e-2, its LSE
+def k4_bf16_row(k4, gen, dev, B: int, T: int, D: int) -> dict:
+    """K4 forward at (B, T, H=8, D): f32 against the plain version (atol
+    2e-5, LSE 1e-4); bf16 (the tensor-core kernel) against the f32 plain
+    version on the same bf16-rounded inputs at atol/rtol 3e-2, its LSE
     within 1e-4 of the plain version's on the same bf16 inputs, and at most
     2% of its bf16 outputs differing from that plain version's.  Times the
-    bf16 kernel beside its CUDA-core (SIMT) kernel and F.scaled_dot_product_attention
-    (the yardstick; the port never calls it), back to back and in a CUDA
-    graph, in turns, and the plain version; bound: q, k, v read and out, lse
-    written once, and q.k and p.v (2 * 2 * T * T * D per head)."""
+    bf16 kernel beside its CUDA-core (SIMT) kernel and
+    F.scaled_dot_product_attention (the yardstick; the port never calls
+    it), back to back and in a CUDA graph, in turns, and the plain version;
+    bound: q, k, v read and out, lse written once, and q.k and p.v
+    (2 * 2 * T * T * D per head).  Prints one line; returns its row."""
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (torch.randn((B, T, 8, D), generator=gen, device=dev) for _ in range(3))
+    # f32: the kernel's arithmetic against the plain version
+    out, lse = k4.fused_attention_with_lse(q, k, v)
+    ref, ref_lse = k4.fused_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    e32 = (out - ref).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    if e32 > 2e-5 or lse_err > 1e-4:
+        raise AssertionError(f"K4 f32 B={B} T={T} D={D}: out err {e32}, lse err {lse_err} (atol 2e-5 / 1e-4)")
+    # bf16 (the serve dtype) against the f32 plain version on the same
+    # bf16-rounded inputs; atol/rtol 3e-2 as tests/test_pallas.py holds
+    # the TPU kernel's bf16 output to its f32 reference
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    outb, lseb = k4.fused_attention_with_lse(qb, kb, vb)
+    refb, _ = k4.fused_attention_plain(qb.float(), kb.float(), vb.float())
+    plainb, plain_lse = k4.fused_attention_plain(qb, kb, vb)
+    simtb, _ = k4.attention_fwd_simt(qb, kb, vb)
+    torch.cuda.synchronize()
+    err = (outb.float() - refb).abs()
+    if not bool((err <= 3e-2 + 3e-2 * refb.abs()).all()):
+        raise AssertionError(f"K4 bf16 B={B} T={T} D={D}: max err {err.max().item()} over atol/rtol 3e-2")
+    lse_b = (lseb - plain_lse).abs().max().item()
+    share, share_simt = differing(outb, plainb), differing(simtb, plainb)
+    if lse_b > 1e-4 or share > 0.02:
+        raise AssertionError(f"K4 bf16 B={B} T={T} D={D}: lse err {lse_b} (limit 1e-4), {share:.2%} of outputs "
+                             "differ from the plain version (limit 2%)")
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (qb, kb, vb))
+    t = in_turns({"simt": lambda: k4.attention_fwd_simt(qb, kb, vb),
+                  "new": lambda: k4.fused_attention(qb, kb, vb),
+                  "sdpa": lambda: sdpa(qs, ks, vs)})
+    plain_ms = cuda_time_ms(lambda: k4.fused_attention_plain(qb, kb, vb), iters=50)
+    bound_ms, bound_by = bound(B * (4 * T * 8 * D * 2 + 8 * T * 4), 4 * B * T * T * 8 * D)
+    print(f"K4 attention_fwd B={B} T={T} H=8 D={D}: f32 err {e32:.2e} lse err {lse_err:.2e}; "
+          f"bf16 vs f32 plain max err {err.max().item():.3e}, lse err {lse_b:.2e}, outputs differing from "
+          f"the plain version {share:.3%} (SIMT kernel {share_simt:.3%}); back-to-back / device: "
+          f"{turns_line(t)}; plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    return dict(B=B, T=T, D=D, ms=t["new"]["b2b"], device_ms=t["new"]["device"],
+                simt_ms=t["simt"]["b2b"], simt_device_ms=t["simt"]["device"],
+                library_ms=t["sdpa"]["b2b"], library_device_ms=t["sdpa"]["device"],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err.max().item())
+
+
+def check_k4(dev) -> dict:
+    """K4 forward at every K4_SHAPES entry (`k4_bf16_row`), and the host
+    time a call beside SDPA's."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
 
     gen = torch.Generator(device=dev).manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    worst = 0.0
-    rows = []
-    for B, T, D in K4_SHAPES:
-        q, k, v = (torch.randn((B, T, 8, D), generator=gen, device=dev) for _ in range(3))
-        # f32: the kernel's arithmetic against the plain version
-        out, lse = k4.fused_attention_with_lse(q, k, v)
-        ref, ref_lse = k4.fused_attention_plain(q, k, v)
-        torch.cuda.synchronize()
-        e32 = (out - ref).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        if e32 > 2e-5 or lse_err > 1e-4:
-            raise AssertionError(f"K4 f32 B={B} T={T} D={D}: out err {e32}, lse err {lse_err} (atol 2e-5 / 1e-4)")
-        # bf16 (the serve dtype) against the f32 plain version on the same
-        # bf16-rounded inputs; atol/rtol 3e-2 as tests/test_pallas.py holds
-        # the TPU kernel's bf16 output to its f32 reference
-        qb, kb, vb = (x.bfloat16() for x in (q, k, v))
-        outb, lseb = k4.fused_attention_with_lse(qb, kb, vb)
-        refb, _ = k4.fused_attention_plain(qb.float(), kb.float(), vb.float())
-        plainb, plain_lse = k4.fused_attention_plain(qb, kb, vb)
-        simtb, _ = k4.attention_fwd_simt(qb, kb, vb)
-        torch.cuda.synchronize()
-        err = (outb.float() - refb).abs()
-        if not bool((err <= 3e-2 + 3e-2 * refb.abs()).all()):
-            raise AssertionError(f"K4 bf16 B={B} T={T} D={D}: max err {err.max().item()} over atol/rtol 3e-2")
-        lse_b = (lseb - plain_lse).abs().max().item()
-        share, share_simt = differing(outb, plainb), differing(simtb, plainb)
-        if lse_b > 1e-4 or share > 0.02:
-            raise AssertionError(f"K4 bf16 B={B} T={T} D={D}: lse err {lse_b} (limit 1e-4), {share:.2%} of outputs "
-                                 "differ from the plain version (limit 2%)")
-        worst = max(worst, err.max().item())
-        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (qb, kb, vb))
-        t = in_turns({"simt": lambda: k4.attention_fwd_simt(qb, kb, vb),
-                      "new": lambda: k4.fused_attention(qb, kb, vb),
-                      "sdpa": lambda: sdpa(qs, ks, vs)})
-        plain_ms = cuda_time_ms(lambda: k4.fused_attention_plain(qb, kb, vb), iters=50)
-        bound_ms, bound_by = bound(B * (4 * T * 8 * D * 2 + 8 * T * 4), 4 * B * T * T * 8 * D)
-        rows.append(dict(B=B, T=T, D=D, ms=t["new"]["b2b"], device_ms=t["new"]["device"],
-                         simt_ms=t["simt"]["b2b"], simt_device_ms=t["simt"]["device"],
-                         library_ms=t["sdpa"]["b2b"], library_device_ms=t["sdpa"]["device"],
-                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
-        print(f"K4 attention_fwd B={B} T={T} H=8 D={D}: f32 err {e32:.2e} lse err {lse_err:.2e}; "
-              f"bf16 vs f32 plain max err {err.max().item():.3e}, lse err {lse_b:.2e}, outputs differing from "
-              f"the plain version {share:.3%} (SIMT kernel {share_simt:.3%}); back-to-back / device: "
-              f"{turns_line(t)}; plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    rows = [k4_bf16_row(k4, gen, dev, B, T, D) for B, T, D in K4_SHAPES]
+    worst = max(r["max_abs_err"] for r in rows)
     # host time a call at B=1, T=56 (D=64), beside SDPA's
     q, k, v = (torch.randn((1, 56, 8, 64), generator=gen, device=dev).bfloat16() for _ in range(3))
     qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -1466,6 +1486,293 @@ def run_cli(card: str) -> None:
               f"{proc.stdout.strip().splitlines()[-1]}")
 
 
+# input of the svc phase: 44.1 kHz, (seconds, f0) a stretch, f0 None for
+# true silence; three voiced stretches, each longer than the slicer's 5 s
+# min_length_ms so that each is its own segment
+SVC_SR = 44100
+SVC_PARTS = ((0.5, None), (6.0, 110.0), (1.5, None), (9.0, 150.0), (1.5, None), (14.0, 190.0))
+# stage 10 / 19 layout: seconds a file (44.1 kHz), two speakers
+SVC_FILES = (2.0, 3.3, 4.7, 5.9, 7.4, 8.6, 10.3, 12.0)
+# the mask's reach past voice: extract_volume's frames are centred
+# (half a hop), the 9-tap running max dilates by 4 frames and the linear
+# upsampling by one more; a stitch's cross-fade sits at a segment's edge
+SVC_MARGIN_HOPS = 6
+# the Whisper encoder in bf16 against the same weights in f32 (relative
+# Frobenius error of the units)
+WHISPER_BF16_REL = 5e-2
+
+
+def svc_signal(parts=SVC_PARTS, sr: int = SVC_SR) -> tuple:
+    """(audio f32, voiced (start, end) sample spans): harmonic tones (five
+    harmonics, 4 Hz amplitude modulation between 0.3 and 1.0 of the peak)
+    and true silence (zeros)."""
+    out, spans, pos = [], [], 0
+    for sec, f0 in parts:
+        n = int(round(sec * sr))
+        if f0 is None:
+            out.append(np.zeros(n))
+        else:
+            t = np.arange(n) / sr
+            tone = sum(np.sin(2 * np.pi * f0 * h * t + h) / h for h in range(1, 6))
+            out.append(0.15 * tone * (0.65 + 0.35 * np.sin(2 * np.pi * 4 * t)))
+            spans.append((pos, pos + n))
+        pos += n
+    return np.concatenate(out).astype(np.float32), spans
+
+
+def svc(dev, card: str) -> dict:
+    """SVC long-audio inference as a user runs it, on the card at full
+    width with seeded weights (no `pretrain/`): `cli/infer_tts.py::build_pipeline(configs/config.yaml)`
+    (bf16, the flagship UNet with K4, UniPC at speedup 10: 100 steps,
+    HiFi-VAEGAN at 44.1 kHz) with a `UnitsEncoder` over a seeded
+    Whisper-large-v3 encoder (128 mels, 1280 wide, 20 heads, 32 layers,
+    bf16), on `svc_signal()` written as a WAV and read back through
+    `load_audio`.  `TTSPipeline.infer_from_long_audio` once, each step timed
+    with synchronisation: slicing, the volume mask, per segment resampling
+    to 16 kHz, log-mel, the encoder, alignment, diffusion and vocoder, and
+    the stitch; wall and RTF.  Checks: 44.1 kHz out; the input's length
+    within a hop a segment; every sample of each silence further than
+    SVC_MARGIN_HOPS hops from voice exactly 0; all finite; units (1,
+    T_16k // 320, 1280) f32; 32 K4 launches a denoiser evaluation, the same
+    evaluations each segment; no unet_fwd, K5, K1, K4 backward or K6 launch.
+    The encoder in bf16 against the same weights in f32 on one segment's
+    mel (relative error <= WHISPER_BF16_REL).  Then the `infer_svc` CLI as
+    a new process on that WAV, and stages 10 and 19 (`process_units`,
+    `tokenize_units`) over a layout of SVC_FILES: one K6 launch a file, the
+    ids equal to `kmeans_argmin_plain` on the card but for f64 ties.  Last,
+    K4 at every shape the phase launched it at and K6 at every N of stage
+    19, against their plain versions and timed.  Returns the phase's launches."""
+    import shutil
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import preprocess_token, preprocess_unit
+    from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline as cli_build_pipeline
+    from latent_diffusion_speech_tpu_torch.config import load_config
+    from latent_diffusion_speech_tpu_torch.infer import tts
+    from latent_diffusion_speech_tpu_torch.models import units as units_mod
+    from latent_diffusion_speech_tpu_torch.models.diffusion import unet1d
+    from latent_diffusion_speech_tpu_torch.models.units import UnitsEncoder
+    from latent_diffusion_speech_tpu_torch.models.whisper import WhisperDims
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import load_audio, read_wav, write_wav
+    from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+    from latent_diffusion_speech_tpu_torch.ops.kernels import flash_attention as k5
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+    from latent_diffusion_speech_tpu_torch.ops.kernels import unet_fused as k23
+    from latent_diffusion_speech_tpu_torch.ops.stft import whisper_log_mel
+
+    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+    whisper_ckpt = os.path.join(ROOT, "pretrain", "large-v3_encoder.pt")
+    if os.path.exists(whisper_ckpt):
+        raise AssertionError(f"{whisper_ckpt}: this phase expects no pretrained files in the checkout")
+    t0 = time.perf_counter()
+    pipe = cli_build_pipeline(cfg)
+    t_build = time.perf_counter() - t0
+    method, speedup = cfg.common.infer.method, cfg.common.infer.speedup
+    t0 = time.perf_counter()
+    encoder = UnitsEncoder(cfg.data.encoder, cfg.data.encoder_sample_rate, cfg.data.encoder_hop_size,
+                           cfg.data.units_forced_mode, ckpt_path=whisper_ckpt, device=dev)
+    torch.cuda.synchronize()
+    t_whisper = time.perf_counter() - t0
+    whisper = encoder.model.model
+    n_params = sum(p.numel() for p in whisper.parameters())
+    if encoder.model.dims != WhisperDims() or whisper.conv1.weight.dtype != torch.bfloat16:
+        raise AssertionError(f"Whisper {encoder.model.dims}, {whisper.conv1.weight.dtype}: not large-v3 in bf16")
+    pipe.units_encoder = encoder
+    hop, out_sr = pipe.vocoder.vocoder_hop_size, pipe.vocoder.vocoder_sample_rate
+    print(f"svc [{card}]: build_pipeline {t_build:.3f} s; Whisper-large-v3 encoder {encoder.model.dims} "
+          f"seeded on the card in {t_whisper:.3f} s ({n_params / 1e6:.1f} M parameters, bf16); sampler {method} "
+          f"at speedup {speedup}")
+
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    src = os.path.join(ROOT, "exp", "svc_in.wav")
+    signal, spans = svc_signal()
+    write_wav(src, signal, SVC_SR)
+    audio, sr = load_audio(src)
+    if sr != SVC_SR or len(audio) != len(signal):
+        raise AssertionError(f"load_audio: {sr} Hz, {len(audio)} samples")
+
+    # each step's synchronised wall time per call; the units of each
+    # segment; denoiser evaluations; K4's shapes
+    steps: dict = {}
+    units_seen, count, k4_shapes = [], {"evals": 0}, {}
+
+    def each(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            steps.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    real_encode, real_denoise, real_attention = encoder.encode, pipe.diffusion.diffusion.denoise_fn, unet1d.fused_attention
+
+    def encode(seg, rate, *a, **kw):
+        out = real_encode(seg, rate, *a, **kw)
+        units_seen.append((len(seg), tuple(out.shape), out.dtype))
+        return out
+
+    def denoise(*a):
+        count["evals"] += 1
+        return real_denoise(*a)
+
+    def attention(q, *a, **kw):
+        k4_shapes[tuple(q.shape)] = k4_shapes.get(tuple(q.shape), 0) + 1
+        return real_attention(q, *a, **kw)
+
+    patches = [mock.patch.object(tts, name, each(label, getattr(tts, name))) for name, label in (
+        ("split_voiced", "slicing"), ("extract_volume", "volume mask"), ("get_volume_mask", "volume mask"),
+        ("units_forced_alignment", "alignment"), ("_stitch", "stitch"))]
+    patches += [mock.patch.object(units_mod, "resample", each("resample to 16 kHz", units_mod.resample)),
+                mock.patch.object(units_mod, "whisper_log_mel", each("log-mel", units_mod.whisper_log_mel)),
+                mock.patch.object(whisper, "forward", each("Whisper encoder", whisper.forward)),
+                mock.patch.object(encoder, "encode", encode),
+                mock.patch.object(pipe.diffusion, "infer", each("diffusion", pipe.diffusion.infer)),
+                mock.patch.object(pipe.vocoder, "infer", each("vocoder", pipe.vocoder.infer)),
+                mock.patch.object(pipe.diffusion.diffusion, "denoise_fn", denoise),
+                mock.patch.object(unet1d, "fused_attention", attention)]
+    for p in patches:
+        p.start()
+    try:
+        k1.launches = k4.launches = k4.bwd_launches = k23.launches = k5.launches = k5.plain_routes = 0
+        k6.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, got_sr = pipe.infer_from_long_audio(audio, sr, method=method, infer_speedup=speedup)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = dict(ar_decode=k1.launches, attention_fwd=k4.launches, attention_bwd=k4.bwd_launches,
+                        unet_fwd=k23.launches, flash_attention=k5.launches, plain_k5=k5.plain_routes,
+                        kmeans_argmin=k6.launches)
+    finally:
+        for p in reversed(patches):
+            p.stop()
+
+    n_seg = len(units_seen)
+    if got_sr != 44100 or out.ndim != 1 or not np.isfinite(out).all():
+        raise AssertionError(f"svc output: {got_sr} Hz, shape {out.shape}, finite {np.isfinite(out).all()}")
+    if n_seg != len(spans) or abs(len(out) - len(audio)) > hop * n_seg:
+        raise AssertionError(f"svc output: {len(out)} samples for {len(audio)} in, {n_seg} segments "
+                             f"(within {hop} a segment)")
+    for n_in, shape, dtype in units_seen:
+        t16 = max(400, -(-n_in * 16000 // sr))
+        if shape != (1, t16 // 320, 1280) or dtype != torch.float32:
+            raise AssertionError(f"units for {n_in} samples: {shape} {dtype}, want (1, {t16 // 320}, 1280) f32")
+    margin = SVC_MARGIN_HOPS * hop
+    gaps = [(0, spans[0][0])] + [(a[1], b[0]) for a, b in zip(spans, spans[1:])]
+    zeros = 0
+    for a, b in gaps:
+        lo, hi = (a + margin if a else 0), b - margin
+        if np.any(out[lo:hi]):
+            raise AssertionError(f"svc output: nonzero samples in silence [{lo}, {hi})")
+        zeros += hi - lo
+    evals = count["evals"]
+    if (evals % n_seg or launched["attention_fwd"] != 32 * evals
+            or any(launched[k] for k in ("ar_decode", "attention_bwd", "unet_fwd", "flash_attention", "plain_k5",
+                                         "kmeans_argmin"))):
+        raise AssertionError(f"svc launches {launched} for {evals} denoiser evaluations over {n_seg} segments "
+                             "(want 32 K4 launches an evaluation, the same evaluations each segment, no other)")
+    seconds = len(audio) / sr
+    print(f"svc infer_from_long_audio [{card}]: {seconds:.3f} s of 44.1 kHz audio in, {len(out) / got_sr:.3f} s "
+          f"out, {n_seg} segments (units {[s for _, s, _ in units_seen]}), wall {wall:.3f} s, RTF "
+          f"{wall / seconds:.4f}; {evals} denoiser evaluations ({evals // n_seg} a segment), launches {launched}; "
+          f"{zeros} silent samples exactly 0; finite")
+    for name in ("slicing", "volume mask", "resample to 16 kHz", "log-mel", "Whisper encoder", "alignment",
+                 "diffusion", "vocoder", "stitch"):
+        t = steps.get(name, [])
+        print(f"  svc step {name}: {sum(t) * 1e3:.3f} ms in all, per call {[round(x * 1e3, 3) for x in t]} ms")
+    steps_sum = sum(sum(t) for t in steps.values())
+    print(f"  svc other (host copies, mask gating, unmeasured): {(wall - steps_sum) * 1e3:.3f} ms")
+
+    # the encoder in bf16 against the same weights in f32, on the first segment's mel
+    with torch.no_grad():
+        audio16 = units_mod.resample(torch.from_numpy(audio[: spans[0][1]]).to(dev)[None], sr, 16000)
+        mel = whisper_log_mel(audio16, n_mels=encoder.model.dims.n_mels)
+        got = whisper(mel)
+        f32 = copy.deepcopy(whisper).float()
+        ref = f32(mel)
+        torch.cuda.synchronize()
+        rel = ((got - ref).norm() / ref.norm()).item()
+        max_err = (got - ref).abs().max().item()
+        del f32
+    torch.cuda.empty_cache()
+    if not rel <= WHISPER_BF16_REL:
+        raise AssertionError(f"Whisper bf16 vs f32: relative error {rel} over {WHISPER_BF16_REL}")
+    print(f"svc Whisper encoder bf16 vs the same weights in f32 on the card, units {tuple(ref.shape)}: relative "
+          f"error {rel:.4e} (limit {WHISPER_BF16_REL}), max abs error {max_err:.4f} at max |units| "
+          f"{ref.abs().max().item():.3f}")
+
+    # the CLI as a user runs it, a new process
+    dst = os.path.join("exp", "svc_out.wav")
+    cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.infer_svc", "-c", "configs/config.yaml",
+           "-i", os.path.join("exp", "svc_in.wav"), "-o", dst]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    took = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\\n{proc.stdout[-2000:]}\\n{proc.stderr[-4000:]}")
+    wav, wav_sr = read_wav(os.path.join(ROOT, dst))
+    os.remove(os.path.join(ROOT, dst))
+    os.remove(src)
+    if wav_sr != 44100 or wav.ndim != 1 or abs(len(wav) - len(audio)) > hop * n_seg or not np.isfinite(wav).all():
+        raise AssertionError(f"{dst}: {wav_sr} Hz, shape {wav.shape}")
+    print(f"CLI infer_svc [{card}]: exit 0 in {took:.1f} s (a new process: imports, the kernel library, "
+          f"build_pipeline, the Whisper init, {n_seg} segments); {dst}: {len(wav) / wav_sr:.3f} s at {wav_sr} Hz; "
+          f"{proc.stdout.strip().splitlines()[-1]}")
+
+    # stages 10 and 19 over a written layout
+    root = os.path.join(ROOT, "exp", "svc_layout")
+    shutil.rmtree(root, ignore_errors=True)
+    for i, sec in enumerate(SVC_FILES):
+        path = os.path.join(root, "audio", f"spk{i % 2}", f"f{i}.wav")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_wav(path, svc_signal(((sec, 120.0 + 10 * i),))[0], SVC_SR)
+    codebook = pipe.codebook.codebook.float().cpu().numpy()
+    try:
+        for stage, it in (("10 (units)", preprocess_unit.process_units(root, encoder, SVC_SR,
+                                                                       device_sr=cfg.data.encoder_sample_rate)),
+                          ("19 (tokens)", preprocess_token.tokenize_units(root, codebook, device=dev))):
+            k6.launches = 0
+            times, shapes = [], []
+            t0 = time.perf_counter()
+            for name, shape in it:
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                shapes.append(shape)
+                t0 = time.perf_counter()
+            want_k6 = len(SVC_FILES) if stage.startswith("19") else 0
+            if len(shapes) != len(SVC_FILES) or k6.launches != want_k6:
+                raise AssertionError(f"stage {stage}: {len(shapes)} files, {k6.launches} K6 launches")
+            print(f"stage {stage} [{card}]: {len(shapes)} files, shapes {shapes}, K6 launches {k6.launches}; "
+                  f"per file {[round(t * 1e3, 1) for t in times]} ms (the first with the warm-up)")
+        cb = torch.from_numpy(codebook).to(dev)
+        differ, rows_total = 0, 0
+        for dirpath, _, files in sorted(os.walk(os.path.join(root, "units"))):
+            for fn in sorted(files):
+                x = torch.from_numpy(np.load(os.path.join(dirpath, fn))).to(dev)
+                ids = np.load(os.path.join(dirpath.replace("units", "semantic_token", 1), fn))
+                row = k6_row(k6, x, cb, "stage 19")
+                if not np.array_equal(ids, row["ids"].cpu().numpy()):
+                    raise AssertionError(f"stage 19 {fn}: saved ids differ from the kernel's")
+                differ, rows_total = differ + row["differ"], rows_total + row["N"]
+        print(f"stage 19 ids against kmeans_argmin_plain on the card: {differ} of {rows_total} rows differ "
+              f"({differ / rows_total:.4%}, each an f64 tie)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # K4 at every shape the svc call launched it at
+    gen = torch.Generator(device=dev).manual_seed(5)
+    print(f"svc K4 shapes (B, T, H, D): calls {dict(sorted(k4_shapes.items()))}")
+    for B, T, H, D in sorted(k4_shapes):
+        k4_bf16_row(k4, gen, dev, B, T, D)
+    del pipe, encoder, whisper
+    torch.cuda.empty_cache()
+    return {"attention_fwd": launched["attention_fwd"], "kmeans_argmin": len(SVC_FILES)}
+
+
 def check_k4_bwd(dev) -> dict:
     """K4 at the training shapes, B=48, H=8: the f32 forward kernel's out
     and lse against the plain forward (atol 2e-5 / 1e-4, as check_k4); the
@@ -1564,14 +1871,44 @@ def check_k4_bwd(dev) -> dict:
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
 
+def k6_row(k6, x, cb, what: str) -> dict:
+    """K6 on (x, cb) against its plain version: ids equal, except that a
+    row may differ when its two squared distances, recomputed in f64, are
+    within 1e-6 relative (f32 sums in another order can only flip a tie
+    that close).  Times the kernel, its plain version and the cuBLAS f32
+    product x @ cb.T alone (the yardstick; TF32 off); bound: x and cb read,
+    the ids written, 2 N K D f32 operations.  Prints one line; returns its
+    row with the kernel's ids."""
+    import torch
+
+    (N, D), K = x.shape, cb.shape[0]
+    got, ref = k6.kmeans_argmin(x, cb), k6.kmeans_argmin_plain(x, cb)
+    differ = (got != ref).nonzero()[:, 0]
+    dist_err = 0.0  # largest f64 squared-distance gap between the two choices of a differing row
+    if len(differ):
+        x64, cb64 = x[differ].double(), cb.double()
+        d_got = ((x64 - cb64[got[differ].long()]) ** 2).sum(-1)
+        d_ref = ((x64 - cb64[ref[differ].long()]) ** 2).sum(-1)
+        if not bool(((d_got - d_ref).abs() <= 1e-6 * torch.maximum(d_got, d_ref)).all()):
+            raise AssertionError(f"K6 {what} ({N}, {K}, {D}): {len(differ)} rows differ, not all f64 ties")
+        dist_err = (d_got - d_ref).abs().max().item()
+    ms = cuda_time_ms(lambda: k6.kmeans_argmin(x, cb), iters=20)
+    plain_ms = cuda_time_ms(lambda: k6.kmeans_argmin_plain(x, cb), iters=10)
+    library_ms = cuda_time_ms(lambda: x @ cb.T, iters=20)
+    bound_ms, bound_by = bound((N * D + K * D) * 4 + N * 4, 2 * N * K * D, F32_FLOPS)
+    print(f"K6 kmeans_argmin {what} N={N} K={K} D={D}: {len(differ)} of {N} rows differ from the plain version "
+          f"({len(differ) / N:.3%}; each an f64 tie within 1e-6; largest distance gap {dist_err:.3e}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS x @ codebook.T {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {2 * N * K * D / 1e9:.2f} GFLOP f32)")
+    return dict(N=N, K=K, D=D, ids=got, differ=len(differ), max_abs_err=dist_err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def check_k6(dev) -> dict:
     """K6 against its plain version: exactly equal ids at the contract
     shapes (tests/test_pallas.py:119-131); at the trainer's size with a
-    seeded random codebook, ids equal, except that a row may differ when its
-    two squared distances, recomputed in f64, are within 1e-6 relative (f32
-    sums in another order can only flip a tie that close).  Times the
-    kernel, its plain version and the cuBLAS f32 product x @ codebook.T
-    alone (the yardstick; TF32 off)."""
+    seeded random codebook `k6_row`, and its code-range split against one
+    block per row tile."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
@@ -1583,35 +1920,18 @@ def check_k6(dev) -> dict:
             raise AssertionError(f"K6 at ({n}, {k}, {d}): ids differ from the plain version")
     N, K, D = K6_TRAIN
     x, cb = torch.randn((N, D), generator=gen, device=dev), torch.randn((K, D), generator=gen, device=dev)
-    got, ref = k6.kmeans_argmin(x, cb), k6.kmeans_argmin_plain(x, cb)
-    differ = (got != ref).nonzero()[:, 0]
-    dist_err = 0.0  # largest f64 squared-distance gap between the two choices of a differing row
-    if len(differ):
-        x64, cb64 = x[differ].double(), cb.double()
-        d_got = ((x64 - cb64[got[differ].long()]) ** 2).sum(-1)
-        d_ref = ((x64 - cb64[ref[differ].long()]) ** 2).sum(-1)
-        if not bool(((d_got - d_ref).abs() <= 1e-6 * torch.maximum(d_got, d_ref)).all()):
-            raise AssertionError(f"K6 at ({N}, {K}, {D}): {len(differ)} rows differ, not all f64 ties")
-        dist_err = (d_got - d_ref).abs().max().item()
-    ms = cuda_time_ms(lambda: k6.kmeans_argmin(x, cb), iters=20)
+    row = k6_row(k6, x, cb, "training (contract shapes: ids identical)")
     # the code-range split against one block per row tile (no merge kernel)
     splits = k6.split_codes(N, K, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
     chosen, k6.split_codes = k6.split_codes, lambda n, k, sms: (1, -(-k // k6.BLOCK_CODES) * k6.BLOCK_CODES)
     try:
-        if not torch.equal(k6.kmeans_argmin(x, cb), got):
+        if not torch.equal(k6.kmeans_argmin(x, cb), row["ids"]):
             raise AssertionError(f"K6 at ({N}, {K}, {D}): ids with one split differ from {splits} splits")
         ms_1 = cuda_time_ms(lambda: k6.kmeans_argmin(x, cb), iters=20)
     finally:
         k6.split_codes = chosen
-    plain_ms = cuda_time_ms(lambda: k6.kmeans_argmin_plain(x, cb), iters=10)
-    library_ms = cuda_time_ms(lambda: x @ cb.T, iters=20)
-    bound_ms, bound_by = bound((N * D + K * D) * 4 + N * 4, 2 * N * K * D, F32_FLOPS)
-    print(f"K6 kmeans_argmin contract shapes: ids identical; N={N} K={K} D={D}: {len(differ)} rows differ "
-          f"(each an f64 tie within 1e-6; largest distance gap {dist_err:.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cuBLAS x @ codebook.T "
-          f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: {2 * N * K * D / 1e9:.1f} GFLOP f32); "
-          f"{splits} code splits {ms:.3f} ms vs 1 split {ms_1:.3f} ms")
-    return dict(max_abs_err=dist_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    print(f"K6 at N={N}: {splits} code splits {row['ms']:.3f} ms vs 1 split {ms_1:.3f} ms")
+    return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
 
 
 def write_train_layout(root: str, codebook: np.ndarray, seed: int = 0) -> None:
@@ -1918,9 +2238,14 @@ def main() -> int:
         launches[name] += n
     print(f"launches with serve_entry's: {launches}")
     torch.cuda.empty_cache()
+    svc_launches = svc(dev, card)
+    launches["attention_fwd"] += svc_launches["attention_fwd"]
+    print(f"launches with svc's: {launches}, kmeans_argmin {svc_launches['kmeans_argmin']} (stage 19)")
+    torch.cuda.empty_cache()
     train = train_slice(dev, card, k4_bwd, k6)
-    print(f"attention_fwd launches: {launches['attention_fwd']} serving + "
-          f"{train['launches']['attention_fwd']} training")
+    print(f"attention_fwd launches: {launches['attention_fwd']} serving (svc {svc_launches['attention_fwd']}) "
+          f"+ {train['launches']['attention_fwd']} training; kmeans_argmin launches: "
+          f"{svc_launches['kmeans_argmin']} stage 19 + {train['launches']['kmeans_argmin']} training")
     launches["attention_fwd"] += train["launches"]["attention_fwd"]
 
     src = "latent_diffusion_speech_tpu_torch/csrc/"
@@ -1955,7 +2280,8 @@ def main() -> int:
              simt_device_ms=k5["simt_device_ms"], host_us=k5["host_us"]),
         dict(name="kmeans_argmin", route="cuda", source=src + "kmeans_argmin.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/kmeans.py:54",
-             launches=train["launches"]["kmeans_argmin"], max_abs_err=k6["max_abs_err"],
+             launches=train["launches"]["kmeans_argmin"] + svc_launches["kmeans_argmin"],
+             max_abs_err=k6["max_abs_err"],
              ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"], bound_by=k6["bound_by"],
              library_ms=k6["library_ms"]),
     ]

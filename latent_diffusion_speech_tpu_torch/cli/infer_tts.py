@@ -58,11 +58,11 @@ def build_pipeline(cfg, diffusion_ckpt=None, lm_ckpt=None, dtype=None, device=No
     from latent_diffusion_speech_tpu_torch.infer.tts import TTSPipeline
     from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
     from latent_diffusion_speech_tpu_torch.models.lm.registry import get_language_model
+    from latent_diffusion_speech_tpu_torch.models.units import get_encoder_out_channels
     from latent_diffusion_speech_tpu_torch.models.vaegan.config import VAEGANConfig
     from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
     from latent_diffusion_speech_tpu_torch.ops.layers import resolve_device
     from latent_diffusion_speech_tpu_torch.quantize.kmeans import load_codebook
-    from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import ENCODER_OUT_CHANNELS
 
     if getattr(cfg.common.infer, "weight_quant", ""):
         raise NotImplementedError(
@@ -89,7 +89,7 @@ def build_pipeline(cfg, diffusion_ckpt=None, lm_ckpt=None, dtype=None, device=No
     except FileNotFoundError:
         print(f"[!] no semantic codebook at {mcfg.codebook_path}; using random centroids")
         codebook = np.random.default_rng(0).standard_normal(
-            (mcfg.semantic_kmeans_num, ENCODER_OUT_CHANNELS[cfg.data.encoder])
+            (mcfg.semantic_kmeans_num, get_encoder_out_channels(cfg.data.encoder))
         ).astype(np.float32)
 
     m = cfg.diffusion.model

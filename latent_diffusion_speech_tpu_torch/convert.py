@@ -17,10 +17,12 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Mapping
 
+import re
+
 import numpy as np
 import torch
 
-__all__ = ["roformer_from_jax", "unit2mel_from_jax", "generator_from_jax"]
+__all__ = ["roformer_from_jax", "unit2mel_from_jax", "generator_from_jax", "whisper_encoder_from_jax"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -73,3 +75,11 @@ def generator_from_jax(params: Mapping) -> dict:
     """flax HiFi-VAEGAN `Generator` params -> state dict of the port's
     `Generator` (the `up_*` layers are transposed convolutions)."""
     return _convert(params, is_transposed_conv=lambda m: m.startswith("up_") and "." not in m)
+
+
+def whisper_encoder_from_jax(params: Mapping) -> dict:
+    """flax `WhisperEncoder` params -> state dict of the port's
+    `WhisperEncoder`, whose names are the reference checkpoint's:
+    `block_{i}` -> `blocks.{i}`, `mlp_0` / `mlp_2` -> `mlp.0` / `mlp.2`."""
+    return {re.sub(r"block_(\d+)\.", r"blocks.\1.", k).replace(".mlp_0.", ".mlp.0.").replace(".mlp_2.", ".mlp.2."): v
+            for k, v in _convert(params).items()}

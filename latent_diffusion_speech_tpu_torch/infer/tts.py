@@ -10,8 +10,10 @@ and batch buckets and the per-item crops, so the server's batching loop
 (`infer/server.py`) can drive it.  It runs eagerly; the LM decode is one K1
 kernel launch on the card and every UNet attention one K4 launch, or one K5
 launch with `attn_impl="pallas"` (the flagship or the general denoiser: it
-takes any `Unit2MelSystem`).  `infer_from_long_audio` (SVC) is not ported
-yet (ROADMAP.md).
+takes any `Unit2MelSystem`).  `infer_from_long_audio` is the SVC path:
+audio in, RMS-sliced at silences, each voiced segment through the units
+encoder (`models/units.py`), diffusion and the vocoder, gated by the
+source's volume mask and stitched with silence or cross-fades.
 """
 
 from __future__ import annotations
@@ -24,6 +26,10 @@ import torch
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelSystem
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerSystem
 from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
+from latent_diffusion_speech_tpu_torch.ops.alignment import cross_fade, units_forced_alignment
+from latent_diffusion_speech_tpu_torch.ops.resample import resample
+from latent_diffusion_speech_tpu_torch.ops.slicer import split_voiced
+from latent_diffusion_speech_tpu_torch.ops.volume import extract_volume, get_volume_mask
 from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
 
 __all__ = ["TTSPipeline"]
@@ -33,6 +39,14 @@ def _bucket(n: int, multiple: int = 64) -> int:
     return max(multiple, ((n + multiple - 1) // multiple) * multiple)
 
 
+def _stitch(result: np.ndarray, wav: np.ndarray, left: int) -> np.ndarray:
+    """`wav` placed at output sample `left`: after silence up to `left` when
+    `result` ends there or before, else cross-faded into `result`'s tail."""
+    if left >= len(result):
+        return np.concatenate([result, np.zeros(left - len(result), np.float32), wav])
+    return cross_fade(result, wav, left)
+
+
 class TTSPipeline:
     def __init__(
         self,
@@ -40,10 +54,13 @@ class TTSPipeline:
         vocoder: Vocoder,
         lm: Optional[RoformerSystem] = None,
         codebook: Optional[np.ndarray] = None,
+        units_encoder=None,
         device=None,
     ):
-        """device: where the pipeline's tensors live (default: the diffusion
-        model's device); every stage must be on it."""
+        """units_encoder: a `models/units.py::UnitsEncoder` for the SVC path
+        (`infer_from_long_audio`), or None.  device: where the pipeline's
+        tensors live (default: the diffusion model's device); every stage
+        must be on it."""
         self.device = torch.device(device) if device is not None else diffusion.device
         for part in (diffusion, vocoder, lm):
             if part is not None and part.device != self.device:
@@ -52,6 +69,7 @@ class TTSPipeline:
         self.vocoder = vocoder
         self.lm = lm
         self.codebook = EuclideanCodebook(codebook, self.device) if codebook is not None else None
+        self.units_encoder = units_encoder
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -282,3 +300,52 @@ class TTSPipeline:
             for j, (b, toks) in enumerate(items):
                 out[b] = (wavs[j, : len(toks) * hop], sr)
         return out
+
+    # -- long audio (SVC) ----------------------------------------------------
+
+    @torch.no_grad()
+    def infer_from_long_audio(
+        self,
+        audio: np.ndarray,
+        sample_rate: int,
+        spk_id: int = 1,
+        method: str = "dpm-solver",
+        infer_speedup: int = 50,
+        threshold_db: float = -40.0,
+        mask_threshold_db: float = -60.0,
+        seed: int = 0,
+    ) -> Tuple[np.ndarray, int]:
+        """Slice long audio (T,) at silences, synthesize each voiced segment
+        (units -> diffusion -> vocoder), gate it by the source's volume
+        mask and stitch (`infer_tools.py:84-117`).  Returns (waveform,
+        output sample rate).  One generator seeded with `seed` draws every
+        segment's noise, in order."""
+        if self.units_encoder is None:
+            raise ValueError("the long-audio path needs a units encoder")
+        hop = self.vocoder.vocoder_hop_size
+        out_sr = self.vocoder.vocoder_sample_rate
+        audio = np.asarray(audio, np.float32)
+        segments = split_voiced(audio, sample_rate, hop, threshold_db=threshold_db)
+        gen = self._generator(seed)
+
+        # the source's volume mask on the output-rate grid (ref infer_tools.py:89,106)
+        src = torch.from_numpy(audio).to(self.device)
+        if sample_rate != out_sr:
+            src = resample(src, sample_rate, out_sr)
+        mask = get_volume_mask(extract_volume(src, hop), hop, mask_threshold_db)[0].cpu().numpy()
+
+        result = np.zeros(0, np.float32)
+        for start_frame, seg in segments:
+            units = self.units_encoder.encode(seg, sample_rate)
+            # re-timed onto this segment's latent grid
+            n_frames = len(seg) * out_sr // sample_rate // hop
+            units = units_forced_alignment(units.float().cpu().numpy(), n_frames=max(n_frames, 1))
+            wav = self.infer(units, spk_id=spk_id, method=method, infer_speedup=infer_speedup,
+                             generator=gen)[0].float().cpu().numpy()
+            # the mask lives on the output-rate grid: the source-rate frame
+            # offset is rescaled by out_sr / sample_rate to index it
+            left = round(start_frame * hop * out_sr / sample_rate)
+            win = mask[left : left + len(wav)]
+            wav[: len(win)] *= win
+            result = _stitch(result, wav, left)
+        return result, out_sr

@@ -7,8 +7,9 @@ the UNet's downsample grid and cropped back, the eps-prediction loss
 noise (or a given `x_init`) with every sampler the JAX package names:
 UniPC (the default), DPM-Solver++ (multistep, singlestep, adaptive),
 UniPC vary-coeff, DDIM, PNDM and DDPM (also for `method=None` or
-`infer_speedup <= 1`).  Shallow diffusion from a ground-truth spec
-(`k_step`/`gt_spec`) is not ported yet (ROADMAP.md).
+`infer_speedup <= 1`), or shallow diffusion from a ground-truth spec
+(`k_step` with `gt_spec`: from q_sample(gt, k_step - 1) over k_step
+timesteps).
 
 Layout: condition (B, T, H), spec (B, T, M); the denoiser input is the
 channel concat [x_t ++ cond] -> (B, T, M + H).
@@ -21,6 +22,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from latent_diffusion_speech_tpu_torch.models.diffusion import samplers
 from latent_diffusion_speech_tpu_torch.models.diffusion.samplers import (
     ddim_sample,
     ddpm_sample,
@@ -118,6 +120,8 @@ class GaussianDiffusion:
         generator: Optional[torch.Generator] = None,
         method: str = "unipc",
         infer_speedup: int = 10,
+        k_step: Optional[int] = None,
+        gt_spec: Optional[torch.Tensor] = None,
         x_init: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Generate spec (B, T, M) from condition (B, T, H), starting from
@@ -125,11 +129,22 @@ class GaussianDiffusion:
         (which also draws DDPM's per-step noise).  method: 'unipc',
         'dpm-solver', 'dpm-solver-singlestep', 'dpm-solver-adaptive',
         'unipc-vary', 'ddim', 'pndm' or 'ddpm'; None or infer_speedup <= 1
-        runs DDPM over all k_step timesteps, as in the JAX package."""
+        runs DDPM over all k_step timesteps, as in the JAX package.
+
+        Shallow diffusion (gt_spec (B, T, M) and k_step both given): the
+        sampler runs over the first k_step timesteps, from
+        q_sample(norm_spec(gt_spec), k_step - 1) with noise drawn from
+        `generator` (ref diffusion.py:205-212); x_init still overrides the
+        start."""
         B, T = cond.shape[:2]
-        t_max = self.k_step
+        shallow = gt_spec is not None and k_step is not None
+        t_max = k_step if shallow else self.k_step
         if x_init is not None:
             x = x_init.to(device=cond.device, dtype=cond.dtype)
+        elif shallow:
+            norm = self.norm_spec(gt_spec.to(cond.device))
+            t0 = torch.full((B,), t_max - 1, dtype=torch.long, device=cond.device)
+            x = self.q_sample(norm, t0, samplers._normal(norm, generator)).to(cond.dtype)
         else:
             x = torch.randn((B, T, self.out_dims), generator=generator, device=cond.device,
                             dtype=torch.float32).to(cond.dtype)

@@ -218,9 +218,12 @@ class Unit2MelSystem:
         aug_shift=None,
         method: str = "unipc",
         infer_speedup: int = 10,
+        gt_spec=None,
+        k_step=None,
         x_init=None,
     ) -> torch.Tensor:
         cond = self.condition(units, volume, spk_id, aug_shift)
         return self.diffusion.sample(
-            cond, generator, method=method, infer_speedup=infer_speedup, x_init=x_init
+            cond, generator, method=method, infer_speedup=infer_speedup, k_step=k_step, gt_spec=gt_spec,
+            x_init=x_init,
         )

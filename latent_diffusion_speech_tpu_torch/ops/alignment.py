@@ -6,13 +6,16 @@ rate (16 kHz / 320) are re-timed onto the vocoder latent grid (44.1 kHz /
 512) by 'nearest' or 'linear' interpolation over the frame axis (torch
 F.interpolate semantics) or by the 'left' gather.  Positions are computed in
 f32, as the JAX version computes them, so both pick the same frames.
+
+`cross_fade` is the long-audio stitcher (`tools/tools.py:231-238`), a copy
+of the JAX package's numpy function.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["units_forced_alignment"]
+__all__ = ["units_forced_alignment", "cross_fade"]
 
 
 def _interp_nearest(units: np.ndarray, n_frames: int) -> np.ndarray:
@@ -69,3 +72,15 @@ def units_forced_alignment(
     else:
         raise ValueError(f"unknown units_forced_mode: {mode!r}")
     return out[0] if squeezed else out
+
+
+def cross_fade(a: np.ndarray, b: np.ndarray, idx: int) -> np.ndarray:
+    """Linear cross-fade of segment b into a starting at sample idx
+    (reference `tools/tools.py:231-238`)."""
+    result = np.zeros(idx + b.shape[0], dtype=np.result_type(a, b))
+    fade_len = a.shape[0] - idx
+    result[:idx] = a[:idx]
+    k = np.linspace(0, 1.0, num=fade_len, endpoint=True)
+    result[idx : a.shape[0]] = (1 - k) * a[idx:] + k * b[:fade_len]
+    result[a.shape[0] :] = b[fade_len:]
+    return result

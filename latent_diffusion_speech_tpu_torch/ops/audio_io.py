@@ -3,8 +3,9 @@
 Counterpart of the numpy-only side of `latent_diffusion_speech_tpu/ops/audio_io.py`
 (the port's own copy): a minimal RIFF WAVE codec, PCM 16/24/32-bit and IEEE
 float32, mono or multi-channel; integer data normalised by -int_min, float
-data passed through.  `load_audio` (ffmpeg decode and resampling) is not
-ported yet (ROADMAP.md, preprocessing).
+data passed through.  `load_audio` resamples through the port's polyphase
+resampler (`ops/resample.py`, on the CPU) and decodes other formats
+through an `ffmpeg` subprocess when one is on PATH.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["read_wav", "write_wav", "wav_bytes", "wav_stream_header", "pcm16_bytes"]
+__all__ = ["read_wav", "write_wav", "wav_bytes", "wav_stream_header", "pcm16_bytes", "load_audio"]
 
 
 def read_wav(path: str | Path) -> Tuple[np.ndarray, int]:
@@ -128,3 +129,56 @@ def wav_bytes(samples: np.ndarray, sample_rate: int, subtype: str = "pcm16") -> 
 
 def write_wav(path: str | Path, samples: np.ndarray, sample_rate: int, subtype: str = "pcm16") -> None:
     Path(path).write_bytes(wav_bytes(samples, sample_rate, subtype))
+
+
+def _ffmpeg_decode(path: str | Path, sample_rate: int) -> np.ndarray:
+    """Decode any ffmpeg-supported format to mono float32 at `sample_rate`
+    (the reference whisper loader's subprocess pipeline, `whisper/audio.py:15-32`)."""
+    import subprocess
+
+    cmd = [
+        "ffmpeg", "-nostdin", "-threads", "0", "-i", str(path),
+        "-f", "f32le", "-ac", "1", "-acodec", "pcm_f32le",
+        "-ar", str(sample_rate), "-",
+    ]
+    try:
+        out = subprocess.run(cmd, capture_output=True, check=True).stdout
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(
+            f"ffmpeg failed to decode {path}: {e.stderr.decode(errors='replace')[-500:]}"
+        ) from None
+    return np.frombuffer(out, np.float32).copy()
+
+
+def load_audio(
+    path: str | Path, target_sr: int | None = None, mono: bool = True
+) -> Tuple[np.ndarray, int]:
+    """Load + normalize (+ optionally resample via the polyphase resampler).
+    Mirrors the load path of `nvSTFT.load_wav_to_torch` (`nvSTFT.py:11-41`).
+
+    Non-WAV formats (mp3/flac/ogg/...) decode through ffmpeg when the binary
+    is on PATH — the reference's own non-WAV path (`whisper/audio.py:15-32`);
+    without ffmpeg they raise with that guidance."""
+    try:
+        samples, sr = read_wav(path)
+    except ValueError:
+        import shutil
+
+        if shutil.which("ffmpeg") is None:
+            raise ValueError(
+                f"{path}: not a RIFF/WAVE file and no `ffmpeg` on PATH to "
+                "decode other formats (the reference uses the same ffmpeg "
+                "subprocess for non-WAV inputs)"
+            ) from None
+        sr = target_sr or 44100
+        return _ffmpeg_decode(path, sr), sr
+    if mono and samples.ndim > 1:
+        samples = samples[:, 0]
+    if target_sr is not None and sr != target_sr:
+        import torch
+
+        from latent_diffusion_speech_tpu_torch.ops.resample import resample
+
+        samples = resample(torch.from_numpy(np.ascontiguousarray(samples, np.float32)), sr, target_sr).numpy()
+        sr = target_sr
+    return samples.astype(np.float32), sr

@@ -34,6 +34,7 @@ import torch
 
 from latent_diffusion_speech_tpu_torch.config import Config
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
+from latent_diffusion_speech_tpu_torch.models.units import get_encoder_out_channels
 from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
 from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_step,
@@ -45,15 +46,7 @@ from latent_diffusion_speech_tpu_torch.train.checkpoint import (
 from latent_diffusion_speech_tpu_torch.train.schedule import warmup_step_decay
 from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
 
-__all__ = ["DiffusionTrainer", "step_generator", "global_norm", "ENCODER_OUT_CHANNELS"]
-
-# unit encoder -> units width (the JAX package's `models/units.py`)
-ENCODER_OUT_CHANNELS = {
-    "whisper_large_v3": 1280,
-    "w2v-bert": 1024,
-    "xlsr_53_56k": 1024,
-    "hubert_soft": 256,
-}
+__all__ = ["DiffusionTrainer", "step_generator", "global_norm"]
 
 
 def step_generator(seed: int, step: int, device, *stream: int) -> torch.Generator:
@@ -86,15 +79,14 @@ class DiffusionTrainer:
         if quantizer is not None and not isinstance(quantizer, EuclideanCodebook):
             raise NotImplementedError("only the k-means EuclideanCodebook snap is ported; "
                                       "the learned VectorQuantize is not (ROADMAP.md)")
-        if cfg.data.encoder not in ENCODER_OUT_CHANNELS:
-            raise ValueError(f"[x] Unknown units encoder: {cfg.data.encoder}")
+        units_width = get_encoder_out_channels(cfg.data.encoder)
         # f32 as the JAX entry point trains: CUDA matmuls and convolutions in
         # full f32, not TF32 (process-wide switches, off for the whole run)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         m = cfg.diffusion.model
         self.model_cfg = model_cfg or Unit2MelConfig(
-            input_channel=ENCODER_OUT_CHANNELS[cfg.data.encoder],
+            input_channel=units_width,
             n_spk=cfg.common.n_spk,
             use_pitch_aug=m.use_pitch_aug,
             out_dims=m.out_dims,

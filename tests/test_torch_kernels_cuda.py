@@ -436,18 +436,20 @@ def test_k4_bwd_two_calls_are_bit_identical(dev, T, D, dtype):
 
 
 # contract shapes, ragged N < 128 and K < 128, D = 33 and 1281 (masked
-# scalar loads), and the trainer's size
+# scalar loads), the trainer's size, and stage 19's ragged N (one file's
+# unit frames) against the 4096 x 1280 codebook
 K6_SHAPES = [(300, 700, 32), (256, 512, 64), (1000, 777, 50), (100, 90, 33), (5, 3, 16), (257, 300, 1281),
-             (4128, 4096, 1280)]
+             (4128, 4096, 1280), (151, 4096, 1280), (377, 4096, 1280), (1003, 4096, 1280)]
 
 
 @pytest.mark.parametrize("n,k,d", K6_SHAPES)
 def test_k6_kernel_matches_plain(dev, n, k, d):
-    """Ids equal to the plain version's; at the trainer's size (units near
-    their centroids, as k-means units are) and at the contract shapes."""
+    """Ids equal to the plain version's; against the 4096-code codebook
+    with units near their centroids (as k-means units are), and at the
+    contract shapes."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cb = torch.randn((k, d), generator=gen, device=dev)
-    if n == 4128:
+    if k == 4096:
         x = cb[torch.randint(0, k, (n,), generator=gen, device=dev)] + 0.3 * torch.randn(
             (n, d), generator=gen, device=dev)
     else:
@@ -554,6 +556,9 @@ def _differing(got, ref):
 K4_BF16 = [(1, 448, 32), (1, 224, 48), (1, 112, 64), (1, 56, 64), (1, 1024, 64), (4, 448, 32), (4, 56, 64),
            (1, 13, 32), (2, 70, 48), (2, 100, 64), (1, 200, 32)]
 K4_BF16 += [(b, t, d) for b in (1, 2, 8) for t, d in ((1024, 32), (512, 48), (256, 64), (128, 64))]
+# the SVC path's (chip_smoke.py's svc input): the four UNet resolutions of
+# its segments' 576-, 960- and 1344-frame buckets at B=1
+K4_BF16 += [(1, t // s, d) for t in (576, 960, 1344) for s, d in ((1, 32), (2, 48), (4, 64), (8, 64))]
 
 
 @pytest.mark.parametrize("B,T,D", K4_BF16)
@@ -645,3 +650,36 @@ def test_bf16_misaligned_views_raise(dev, what):
             k5.flash_attention(q, x, x)
         with pytest.raises(ValueError, match="16-byte"):
             k4.fused_attention(q, x, x)
+
+
+def test_kmeans_predict_runs_k6_on_the_card(dev):
+    """Stage 19's prediction with a codebook on the card: one K6 launch,
+    the plain version's ids, the leading shape kept."""
+    from latent_diffusion_speech_tpu_torch.quantize.kmeans import kmeans_predict
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cb = torch.randn((4096, 1280), generator=gen, device=dev)
+    x = cb[torch.randint(0, 4096, (2, 151), generator=gen, device=dev)] + 0.3 * torch.randn(
+        (2, 151, 1280), generator=gen, device=dev)
+    before = k6.launches
+    ids = kmeans_predict(x, cb)
+    assert k6.launches == before + 1 and ids.shape == (2, 151) and ids.device.type == "cuda"
+    assert torch.equal(ids.reshape(-1), k6.kmeans_argmin_plain(x.reshape(-1, 1280), cb))
+
+
+def test_units_encoder_on_the_card_matches_the_cpu(dev):
+    """A small Whisper seeded on the card (no CPU init) and the same
+    weights on the CPU: the same units from 44.1 kHz audio, f32, at atol
+    2e-4 (the JAX package's Whisper bound)."""
+    from latent_diffusion_speech_tpu_torch.models.units import UnitsEncoder
+    from latent_diffusion_speech_tpu_torch.models.whisper import WhisperDims
+
+    dims = WhisperDims(n_mels=80, n_audio_state=256, n_audio_head=4, n_audio_layer=2)
+    card = UnitsEncoder(dims=dims, dtype=torch.float32, device=dev)
+    assert next(card.model.model.parameters()).device.type == "cuda"
+    cpu = UnitsEncoder(dims=dims, dtype=torch.float32, device="cpu")
+    cpu.model.model.load_state_dict({k: v.cpu() for k, v in card.model.model.state_dict().items()})
+    audio = torch.randn((1, 57330), generator=torch.Generator().manual_seed(0)) * 0.1
+    got, ref = card.encode(audio, 44100), cpu.encode(audio, 44100)
+    assert got.shape == ref.shape == (1, 20800 // 320, 256) and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), ref, atol=2e-4, rtol=0)

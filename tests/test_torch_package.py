@@ -83,6 +83,7 @@ def test_no_jax_imports_in_the_source():
 def _default_systems():
     from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
     from latent_diffusion_speech_tpu_torch.infer.load import load_native_pipeline
+    from latent_diffusion_speech_tpu_torch.models.units import UnitsEncoder, WhisperLargeV3Units
     from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
     from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
     from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer
@@ -97,16 +98,36 @@ def _default_systems():
         "DiffusionTrainer": lambda: DiffusionTrainer(config.Config(), model_cfg=tiny),
         "build_pipeline": lambda: build_pipeline(config.Config()),
         "load_native_pipeline": lambda: load_native_pipeline(config.Config()),
+        "UnitsEncoder": lambda: UnitsEncoder(),
+        "WhisperLargeV3Units": lambda: WhisperLargeV3Units(),
     }
 
 
+# the CLIs without --device, each on the shipped config
+CONFIG = str(PORT_DIR.parent / "configs" / "config.yaml")
+CLIS = {
+    "cli.infer_svc": ["-c", CONFIG, "-i", "no-such-input.wav"],
+    "cli.preprocess_unit": ["-c", CONFIG],
+    "cli.preprocess_token": ["-c", CONFIG],
+}
+
+
 @pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "EuclideanCodebook",
-                                  "DiffusionTrainer", "build_pipeline", "load_native_pipeline"])
+                                  "DiffusionTrainer", "build_pipeline", "load_native_pipeline",
+                                  "UnitsEncoder", "WhisperLargeV3Units", *CLIS])
 def test_entry_points_default_to_the_card(name):
-    """A default-constructed entry point asks for `cuda`: without a card it
-    raises (never a silent CPU run); with one it lands there."""
+    """A default-constructed entry point, or a CLI run without --device,
+    asks for `cuda`: without a card it raises (never a silent CPU run);
+    with one it lands there."""
     import torch
 
+    if name in CLIS:
+        if torch.cuda.is_available():
+            pytest.skip("runs the whole CLI on the card (chip_smoke.py drives it there)")
+        main = importlib.import_module(f"{port.__name__}.{name}").main
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(CLIS[name])
+        return
     make = _default_systems()[name]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -162,6 +183,8 @@ def test_load_config_matches_jax():
 DTYPE_DEFAULTS = {
     ("models.diffusion.unit2mel", "Unit2MelSystem.__init__", "dtype"),
     ("models.lm.roformer", "RoformerSystem.__init__", "dtype"),
+    ("models.units", "WhisperLargeV3Units.__init__", "dtype"),
+    ("ops.stft", "hann_window", "dtype"),
 }
 
 
