@@ -88,7 +88,25 @@ with nvcc (sm_90a), then:
    the plain attention and argmin, 3 steps, a save, a resume and 12 more
    steps, with the launch counts per step (32 K4 forward, 32 K4 backward,
    1 K6), the step time, samples/s and the kernels' share of a step, and
-   loads the saved checkpoint back through `infer/load.py::load_native_pipeline`.
+   loads the saved checkpoint back through `infer/load.py::load_native_pipeline`;
+10. lm_train: trains the shipped RoFormer at full width (4 + 1 layers,
+   C=256, H=8, FF 512, V=4099, B=32, f32, dropout 0.1) through stage 21
+   (`cli/train_lm.py`: `build`, then `main` as a user runs it) on a
+   synthetic EN corpus of 96 + 32 utterances written by the port's stages
+   15 and 16 (tokens in stage 19's format, 150-1022 a sequence: the 448-,
+   672- and 1024-token buckets) with 2 spawn loader workers and
+   length-sorted batches: one step on the card (dropout off) against the
+   same step on the CPU (loss rtol 1e-5, every gradient atol 1e-5 / rtol
+   1e-4), the workers' first batches against the threads', 15 steps
+   uninterrupted against 3, a save, a resume and 12 more (bitwise equal),
+   `evaluate` and `validate_audio` once (1 K1 and 640 K4 launches); then
+   serves the checkpoint through `build_pipeline(lm_ckpt=)` in bf16 (one
+   `tts`: 1 K1, 640 K4; K1's greedy decode at the trained weights against
+   the plain decode, as check_k1 holds it) and the `infer_tts --lm-model`
+   CLI as a process; prints the step time, samples/s, non-pad tokens/s,
+   the device's busy time, launches and largest kernels a step, each
+   bucket's step, the smoke corpus's padding share with and without length
+   sorting, validate_audio's and the serve's times.
 
 Any failure raises (exit code != 0).  The second-to-last line is a JSON
 object with one entry per kernel; the last line is
@@ -425,6 +443,32 @@ def hmma_counts(so_path: str) -> dict:
     return counts
 
 
+def k1_logits_close(m, sg, kvs, clen, what: str) -> tuple:
+    """bf16 greedy: K1's raw logits (the debug-logits path) close to the
+    plain decode's at every step whose inputs agree, i.e. up to and
+    including the first step at which a rounding flips an argmax: max error
+    within 2% of the logits' scale (a few bf16 roundings of C=256 sums
+    apart) and correlation >= 0.9999.  Returns (max error, steps compared,
+    scale, correlation); N = sg.max_new_tokens."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+
+    toks_k, lens, lg = k1.roformer_decode(m, sg, kvs, clen, debug_logits=True)
+    toks_p, _, lg_ref = k1.roformer_decode_plain(m, sg, kvs, clen, debug_logits=True)
+    differ = (toks_k != toks_p).any(dim=0).nonzero()
+    n_cmp = int(differ[0]) + 1 if len(differ) else sg.max_new_tokens
+    # each stream's steps up to its EOS (the kernel writes no logits after it)
+    live = torch.arange(n_cmp, device=lg.device)[None, :] < lens[:, None]
+    a, b = lg[:, :n_cmp][live], lg_ref[:, :n_cmp][live]
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    corr = float(np.corrcoef(a.flatten().cpu().numpy(), b.flatten().cpu().numpy())[0, 1])
+    if err > 0.02 * scale or corr < 0.9999:
+        raise AssertionError(f"K1 bf16 {what} logits over {n_cmp} steps: max err {err} (scale {scale}), corr {corr}")
+    return err, n_cmp, scale, corr
+
+
 def check_k1(dev) -> dict:
     import torch
 
@@ -496,20 +540,7 @@ def check_k1(dev) -> dict:
 
     def logits_close(m, kvs, clen, B, N):
         sg = dataclasses.replace(sampling(False), max_new_tokens=N)
-        toks_k, lens, lg = k1.roformer_decode(m, sg, kvs, clen, debug_logits=True)
-        toks_p, _, lg_ref = k1.roformer_decode_plain(m, sg, kvs, clen, debug_logits=True)
-        differ = (toks_k != toks_p).any(dim=0).nonzero()
-        n_cmp = int(differ[0]) + 1 if len(differ) else N
-        # each stream's steps up to its EOS (the kernel writes no logits after it)
-        live = torch.arange(n_cmp, device=dev)[None, :] < lens[:, None]
-        a, b = lg[:, :n_cmp][live], lg_ref[:, :n_cmp][live]
-        err = (a - b).abs().max().item()
-        scale = b.abs().max().item()
-        corr = float(np.corrcoef(a.flatten().cpu().numpy(), b.flatten().cpu().numpy())[0, 1])
-        # 2% of the logits' scale: a few bf16 roundings of C=256 sums apart
-        if err > 0.02 * scale or corr < 0.9999:
-            raise AssertionError(f"K1 bf16 B={B} N={N} logits over {n_cmp} steps: max err {err} (scale {scale}), "
-                                 f"corr {corr}")
+        err, n_cmp, scale, corr = k1_logits_close(m, sg, kvs, clen, f"B={B} N={N}")
         errs.append(err)
         print(f"K1 ar_decode bf16 greedy B={B} N={N} L={kvs[0][0].shape[1]}: logits of the first {n_cmp} steps "
               f"(tokens agree before the last): max abs err {err:.3e} (scale {scale:.2f}, tolerance 2% of scale), "
@@ -2184,6 +2215,359 @@ def train_slice(dev, card: str, k4_bwd: dict, k6_res: dict) -> dict:
     return dict(launches=launches, median_ms=median * 1e3, shares=shares)
 
 
+# lm_train: the shipped RoFormer at full width (configs/config.yaml: 4 + 1
+# layers, C=256, H=8, FF 512, V=4099, B=32, f32, dropout 0.1) trained through
+# stage 21 on a synthetic corpus written by the port's stages 15 and 16
+LM_B, LM_STEPS, LM_VAL_AT = 32, (3, 12), 10  # batch; steps before / after the resume; the interval_val step
+LM_UTTS = (96, 32)  # train and valid utterances over spk0-spk3
+LM_WORDS = tuple((
+    "the a quick brown fox jumps over lazy dog and then it runs back home we will start meeting soon "
+    "is weather fine today please read following sentence slowly clearly how are you good morning "
+    "everyone here bring book table water music light window garden river mountain city people "
+    "little great small house after before never always very often together between story world").split())
+
+
+def write_lm_corpus(root: str, n: int, seed: int) -> dict:
+    """The LM's training layout through the port's own stages: `n` EN
+    utterances over spk0-spk3 (6-33 seeded words, one `.txt` label and an
+    empty `.wav` each), stage 15 (`merge_labels`), stage 16 (`process_tts`,
+    EN: the card machine has no jieba), then seeded token ids in stage 19's
+    format (`semantic_token/<spk>/<i>.wav.npy`, int32), ~7 a phone, 150-1022
+    of them.  Returns {name: semantic length}."""
+    from latent_diffusion_speech_tpu_torch.cli.preprocess_text import merge_labels
+    from latent_diffusion_speech_tpu_torch.cli.preprocess_tts import process_tts
+
+    rng, tok_rng = np.random.default_rng(seed), np.random.default_rng(seed + 1)
+    for i in range(n):
+        spk_dir = os.path.join(root, "audio", f"spk{i % 4}")
+        os.makedirs(spk_dir, exist_ok=True)
+        words = rng.choice(LM_WORDS, int(rng.integers(6, 34)))
+        open(os.path.join(spk_dir, f"{i // 4}.wav"), "wb").close()
+        with open(os.path.join(spk_dir, f"{i // 4}.txt"), "w", encoding="utf-8") as f:
+            f.write(" ".join(words).capitalize() + ".\n")
+    n_labels = merge_labels(root)
+    phones = dict(process_tts(root, language="EN"))
+    if n_labels != n or len(phones) != n:
+        raise AssertionError(f"stages 15/16: {n_labels} labels, {len(phones)} utt files for {n} utterances")
+    lens = {}
+    for name, n_ph in phones.items():
+        lens[name] = int(np.clip(round(7 * n_ph * rng.uniform(0.9, 1.1)), 150, 1022))
+        path = os.path.join(root, "semantic_token", name + ".npy")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, tok_rng.integers(0, 4096, lens[name]).astype(np.int32))
+    return lens
+
+
+def same_state(a, b) -> bool:
+    """Nested dicts / lists of tensors and numbers, bitwise equal."""
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(same_state(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def lm_batch_stats(loader, epochs) -> list:
+    """(semantic bucket, non-pad semantic tokens, semantic pad share) of
+    every batch of `epochs`, as the trainer sees them."""
+    out = []
+    for epoch in epochs:
+        loader.set_epoch(epoch)
+        for b in loader:
+            mask = b["attention_mask"]
+            out.append((mask.shape[1], int(mask.sum()), 1.0 - mask.sum() / mask.size))
+    return out
+
+
+def compare_lm_step(cfg, batch, dev) -> str:
+    """One LMTrainer step with dropout off on the card (TF32 off) against
+    the same step on the CPU, from the same seeded weights and batch: the
+    loss within rtol 1e-5 and every gradient element within atol 1e-5,
+    rtol 1e-4 (the CPU tests' tolerance against jax.grad)."""
+    from latent_diffusion_speech_tpu_torch.models.lm.registry import roformer_config_from
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
+
+    lm_cfg = roformer_config_from(cfg)
+    off = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    lm_cfg = dataclasses.replace(lm_cfg, encoder=dataclasses.replace(lm_cfg.encoder, **off),
+                                 decoder=dataclasses.replace(lm_cfg.decoder, **off))
+    got = []
+    for device in (dev, "cpu"):
+        trainer = LMTrainer(cfg, lm_cfg=lm_cfg, device=device)
+        t0 = time.perf_counter()
+        loss = trainer.train_step(trainer.device_put_batch(batch))["loss"].item()
+        got.append((loss, {n: p.grad.cpu() for n, p in trainer.system.module.named_parameters()},
+                    time.perf_counter() - t0))
+        del trainer
+    (loss, grads, t_card), (loss_p, grads_p, t_cpu) = got
+    if abs(loss - loss_p) > 1e-5 * abs(loss_p):
+        raise AssertionError(f"LM step: loss {loss} on the card vs {loss_p} on the CPU")
+    worst, worst_name, worst_margin = 0.0, "", -1.0
+    for n, g in grads.items():
+        d = (g - grads_p[n]).abs()
+        margin = (d - 1e-5 - 1e-4 * grads_p[n].abs()).max().item()
+        if margin > 0:
+            raise AssertionError(f"LM step gradient {n}: max err {d.max().item()} beyond atol 1e-5 + rtol 1e-4")
+        if d.max().item() > worst:
+            worst, worst_name = d.max().item(), n
+        worst_margin = max(worst_margin, margin)
+    return (f"loss {loss:.7f} on the card vs {loss_p:.7f} on the CPU; gradients of {len(grads)} tensors within "
+            f"atol 1e-5 + rtol 1e-4, largest error {worst:.3e} ({worst_name}); step {t_card * 1e3:.1f} ms on "
+            f"the card (first call) and {t_cpu:.2f} s on the CPU")
+
+
+def lm_train(dev, card: str) -> dict:
+    """The LM training slice (stages 15, 16, 21) and the serve of its
+    checkpoint through K1, at the shipped config's full LM width."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from latent_diffusion_speech_tpu_torch.cli import train_lm
+    from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
+    from latent_diffusion_speech_tpu_torch.config import load_config, save_config
+    from latent_diffusion_speech_tpu_torch.data.lm_dataset import TextDataset
+    from latent_diffusion_speech_tpu_torch.data.loader import DataLoader
+    from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import read_wav
+    from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.train.checkpoint import load_checkpoint
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
+    from latent_diffusion_speech_tpu_torch.utils.logger import MetricsLogger
+
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        t0 = time.perf_counter()
+        lens = write_lm_corpus(os.path.join(tmp, "train"), LM_UTTS[0], 0)
+        write_lm_corpus(os.path.join(tmp, "val"), LM_UTTS[1], 1)
+        corpus_s = time.perf_counter() - t0
+        cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+        m, tcfg = cfg.text2semantic.model, cfg.text2semantic.train
+        shipped = (tcfg.batch_size, m.encoder.num_hidden_layers, m.decoder.num_hidden_layers, m.encoder.hidden_size,
+                   m.encoder.num_attention_heads, m.encoder.intermediate_size, m.semantic_kmeans_num + 3,
+                   m.encoder.hidden_dropout_prob, m.encoder.attention_probs_dropout_prob, tcfg.length_sorted,
+                   tcfg.gradient_accumulation_steps)
+        if shipped != (LM_B, 4, 1, 256, 8, 512, 4099, 0.1, 0.1, True, 1):
+            raise AssertionError(f"configs/config.yaml no longer trains the LM at this phase's width: {shipped}")
+        cfg.data.train_path, cfg.data.valid_path = os.path.join(tmp, "train"), os.path.join(tmp, "val")
+        cfg.text2semantic.model.codebook_path = os.path.join(tmp, "no-codebook.npz")
+        cfg.diffusion.train.expdir = os.path.join(tmp, "no-diffusion")  # the frozen stack: seeded weights
+        tcfg.loader_processes, tcfg.interval_log, tcfg.interval_val = 2, 1, LM_VAL_AT
+        tcfg.expdir = os.path.join(tmp, "exp_lm")
+        cfg_path = os.path.join(tmp, "config.yaml")
+        save_config(cfg, cfg_path)
+        n = sum(LM_STEPS)
+
+        # the reference run: 15 steps uninterrupted (no validation), through build
+        cfg_a = copy.deepcopy(cfg)
+        cfg_a.text2semantic.train.expdir = os.path.join(tmp, "exp_lm_a")
+        cfg_a.text2semantic.train.interval_val = 10 ** 9
+        trainer_a, loader_a, val_a, logger_a, pipe_a = train_lm.build(cfg_a, device=dev)
+        if pipe_a is None:
+            raise AssertionError("stage 21 built no validation pipeline on the card")
+        del pipe_a
+        threads = DataLoader(loader_a.dataset, LM_B, collate=loader_a.collate, seed=tcfg.seed, length_sorted=True)
+        stats = lm_batch_stats(threads, range(n // len(threads)))
+        unsorted = lm_batch_stats(DataLoader(loader_a.dataset, LM_B, collate=loader_a.collate, seed=tcfg.seed),
+                                  range(n // len(threads)))
+        buckets = sorted({s for s, _, _ in stats[: len(threads)]})
+        if len(stats) != n or not {448, 1024} <= set(buckets):
+            raise AssertionError(f"{len(stats)} batches in {n // len(threads)} epochs; epoch 0 buckets {buckets}")
+        longest = max(range(len(threads)), key=lambda i: stats[i][0])
+        threads.set_epoch(0)
+        step_batch = [b for i, b in zip(range(longest + 1), threads)][-1]
+        print(f"lm_train corpus: {LM_UTTS[0]} + {LM_UTTS[1]} EN utterances through stages 15 and 16 and stage-19 "
+              f"format tokens in {corpus_s:.2f} s; semantic lengths {min(lens.values())}-{max(lens.values())} "
+              f"(with BOS/EOS); epoch 0 buckets {buckets}")
+        print(f"lm_train step, card vs CPU (dropout off, f32, B={LM_B}, S={step_batch['semantic'].shape[1]}) "
+              f"[{card}]: {compare_lm_step(cfg, step_batch, dev)}")
+
+        # spawn workers against the threads: epoch 0's first two batches
+        loader_a.set_epoch(0)
+        threads.set_epoch(0)
+        t0 = time.perf_counter()
+        from_workers = [b for _, b in zip(range(2), loader_a)]
+        workers_s = time.perf_counter() - t0
+        for bw, bt in zip(from_workers, [b for _, b in zip(range(2), threads)], strict=True):
+            if bw.keys() != bt.keys() or not all(np.array_equal(bw[k], bt[k]) for k in bt):
+                raise AssertionError("lm_train: a worker batch differs from the threaded loader's")
+        print(f"lm_train loader: the first 2 batches from {tcfg.loader_processes} spawn workers equal the threaded "
+              f"loader's ({workers_s:.2f} s to the second batch, the pool's start-up included)")
+        trainer_a.train(loader_a, max_steps=n)
+        loader_a.close()
+        val_a.close()
+        logger_a.close()
+        if trainer_a.step != n:
+            raise AssertionError(f"reference run ended at step {trainer_a.step}")
+
+        # the main path: stage 21's main as a user runs it, 3 steps; again:
+        # resume, 12 more (evaluate + validate_audio at step 10); then serve
+        times, losses, val_logs, val = [], [], [], {}
+        real_log, real_validate = MetricsLogger.log, LMTrainer.validate_audio
+
+        def log(self, step, metrics):
+            if "train/loss" in metrics:
+                times[-1].append(time.perf_counter())
+                losses.append(metrics["train/loss"])
+            else:
+                val_logs.append((step, metrics))
+            return real_log(self, step, metrics)
+
+        def validate_audio(self, *a, **kw):
+            torch.cuda.synchronize()
+            before, t0 = k1.launches, time.perf_counter()
+            out = real_validate(self, *a, **kw)
+            torch.cuda.synchronize()
+            val.update(step=self.step, s=time.perf_counter() - t0, k1=k1.launches - before)
+            return out
+
+        k1.launches = 0
+        k4.launches = k4.bwd_launches = 0
+        with mock.patch.object(MetricsLogger, "log", log), mock.patch.object(LMTrainer, "validate_audio",
+                                                                              validate_audio):
+            for steps in (LM_STEPS[0], n):
+                times.append([time.perf_counter()])
+                train_lm.main(["-c", cfg_path, "--max-steps", str(steps)])
+        if len(losses) != n or not all(np.isfinite(losses)):
+            raise AssertionError(f"lm_train losses {losses}")
+        if val.get("step") != LM_VAL_AT or val["k1"] != 1 or [s for s, _ in val_logs] != [LM_VAL_AT]:
+            raise AssertionError(f"lm_train validation: {val}, {val_logs}")
+        audio = os.path.join(tcfg.expdir, "logs", "audio", f"val_audio_0_{LM_VAL_AT}.wav")
+        wav, sr = read_wav(audio)
+        if sr != 44100 or not len(wav) or not np.isfinite(wav).all():
+            raise AssertionError(f"{audio}: {sr} Hz, {wav.shape}")
+
+        # the resumed run bitwise equals the uninterrupted one
+        expdir_a = cfg_a.text2semantic.train.expdir
+        (step_a, params_a, opt_a), (step_b, params_b, opt_b) = (load_checkpoint(e) for e in (expdir_a, tcfg.expdir))
+        differ = [k for k in params_a if not torch.equal(params_a[k], params_b[k])]
+        if (step_a, step_b) != (n, n) or params_a.keys() != params_b.keys() or differ or not same_state(opt_a, opt_b):
+            raise AssertionError(f"resume: steps {step_a} / {step_b}, parameters differ at {differ[:5]}")
+
+        # serve the checkpoint: build_pipeline(lm_ckpt=) in bf16, one tts
+        pipe = build_pipeline(cfg, lm_ckpt=tcfg.expdir)
+        served = pipe.lm.module.state_dict()
+        if any(not torch.equal(served[k].cpu(), v.to(served[k].dtype)) for k, v in params_b.items()):
+            raise AssertionError("build_pipeline(lm_ckpt=): the served LM's weights are not the checkpoint's")
+        stages: dict = {}
+        pipe.lm.generate = timed(stages, "lm_decode", pipe.lm.generate)
+        t0 = time.perf_counter()
+        wav, sr = pipe.tts(TEXT, language="EN", max_length=N_TOKENS)
+        t_tts = time.perf_counter() - t0
+        launches = {"ar_decode": k1.launches, "attention_fwd": k4.launches}
+        if launches != {"ar_decode": 2, "attention_fwd": 2 * 640} or k4.bwd_launches:
+            raise AssertionError(f"lm_train launches {launches} (want 1 K1 and 640 K4 in validate_audio and in the "
+                                 f"serve's tts), K4 backward {k4.bwd_launches}")
+        if sr != 44100 or not len(wav) or not np.isfinite(wav).all():
+            raise AssertionError(f"lm_train serve: {sr} Hz, {wav.shape}")
+
+        # K1 at the trained weights against the plain decode (not counted)
+        vb = next(iter(DataLoader(TextDataset(cfg.data.valid_path, pipe.lm.cfg.semantic_bos, pipe.lm.cfg.semantic_eos,
+                                              n_spk=cfg.common.n_spk), 4, collate=loader_a.collate, shuffle=False)))
+        lm_m = pipe.lm.module
+        with torch.no_grad():
+            enc = lm_m.encode(*(torch.as_tensor(vb[k], device=dev) for k in ("phone", "tone", "spk_id",
+                                                                             "encoder_attention_mask")))
+            kvs = lm_m.compute_cross_kv(enc)
+        clen = torch.as_tensor(vb["encoder_attention_mask"].sum(-1), dtype=torch.int32, device=dev)
+        sg = SamplingConfig(max_new_tokens=N_TOKENS, do_sample=False, eos_token_id=pipe.lm.cfg.semantic_eos,
+                            pad_token_id=pipe.lm.cfg.semantic_pad, bos_token_id=pipe.lm.cfg.semantic_bos)
+        err, n_cmp, scale, corr = k1_logits_close(lm_m, sg, kvs, clen, "trained checkpoint B=4")
+        same = n_cmp == N_TOKENS and torch.equal(k1.roformer_decode(lm_m, sg, kvs, clen)[0],
+                                                 k1.roformer_decode_plain(lm_m, sg, kvs, clen)[0])
+
+        # the device's share of a step: the epoch-0 batches on the card
+        threads.set_epoch(0)
+        batches = [trainer_a.device_put_batch(b) for b in threads]
+        for b in batches:  # warm-up
+            trainer_a.train_step(b)
+
+        def step_ms(b) -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer_a.train_step(b)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        # each bucket's step, as train_step runs it (deterministic backward);
+        # its A/B against the atomic embedding backward: scripts/lm_backward_ab.py
+        per_bucket = np.mean([[step_ms(b) for b in batches] for _ in range(2)], axis=0)
+        alone_ms = float(per_bucket.mean())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for b in batches:
+                trainer_a.train_step(b)
+            torch.cuda.synchronize()
+        busy_us, kernels, by_kernel = 0.0, 0, {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                us = us if us is not None else e.self_cuda_time_total
+                busy_us += us
+                kernels += e.count
+                by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us
+
+        # the infer_tts CLI with --lm-model, as a process
+        out = os.path.join(tmp, "lm_cli.wav")
+        cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.infer_tts", "-c", cfg_path, "-l", "EN",
+               "-i", CLI_TEXT, "-o", out, "--lm-model", tcfg.expdir]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        cli_wav, cli_sr = read_wav(out)
+        if cli_sr != 44100 or not len(cli_wav) or not np.isfinite(cli_wav).all():
+            raise AssertionError(f"{out}: {cli_sr} Hz, {cli_wav.shape}")
+
+    # step times: each leg's first step includes its start-up, and the step
+    # after the validation includes evaluate, validate_audio and a save
+    step_s = [b - a for leg in times for a, b in zip(leg, leg[1:])]
+    skip = {0, LM_STEPS[0], LM_VAL_AT}  # step indices: each leg's first, the one after step 10's validation
+    steady = [s for i, s in enumerate(step_s) if i not in skip]
+    median = float(np.median(steady))
+    q1, q3 = (float(v) for v in np.percentile(steady, [25, 75]))
+    tokens = float(np.mean([t for _, t, _ in stats]))
+    pad_sorted = 1.0 - sum(t for _, t, _ in stats) / sum(s * LM_B for s, _, _ in stats)
+    pad_unsorted = 1.0 - sum(t for _, t, _ in unsorted) / sum(s * LM_B for s, _, _ in unsorted)
+    busy_ms = busy_us / 1e3 / len(batches)
+    print(f"lm_train [{card}]: {n} steps at B={LM_B} f32, dropout 0.1 ({LM_STEPS[0]} through stage 21's main, then "
+          f"main again: resume, {LM_STEPS[1]} more); losses {[round(x, 4) for x in losses]}; the resumed run's "
+          f"{len(params_b)} parameter tensors and AdamW state bitwise equal to the uninterrupted run's")
+    print(f"lm_train step [{card}]: median {median * 1e3:.2f} ms over {len(steady)} steps (quartiles "
+          f"{q1 * 1e3:.2f} / {q3 * 1e3:.2f} ms; all: {[round(s * 1e3, 2) for s in step_s]} ms); "
+          f"{LM_B / median:.1f} samples/s; {tokens / median:.0f} non-pad semantic tokens/s ({tokens:.0f} a batch)")
+    print(f"lm_train step parts [{card}]: train_step on the epoch-0 batches already on the card {alone_ms:.2f} ms a "
+          f"step; device busy {busy_ms:.2f} ms a step (CUDA-only profile, {len(batches)} steps): "
+          f"{1 - busy_ms / alone_ms:.1%} idle of train_step alone, {1 - busy_ms / (median * 1e3):.1%} of the median "
+          f"step through train(); {kernels / len(batches):.0f} kernel launches a step")
+    buckets_ms = ", ".join(f"S={b['semantic'].shape[1]}: {d:.2f} ms" for b, d in zip(batches, per_bucket))
+    print(f"lm_train step by bucket, train_step alone (2 passes) [{card}]: {buckets_ms}")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    print(f"lm_train device time by kernel, ms a step (of {busy_ms:.2f}): "
+          + "; ".join(f"{k[:70]} {us / 1e3 / len(batches):.3f}" for k, us in top))
+    print(f"lm_train padding of this {LM_UTTS[0]}-utterance smoke corpus (semantic side, {len(stats)} batches; "
+          f"a property of the corpus's size, scripts/lm_padding.py measures it at larger ones): {pad_sorted:.1%} "
+          f"with length_sorted, {pad_unsorted:.1%} without")
+    print(f"lm_train validate_audio at step {val['step']} [{card}]: {val['s']:.3f} s wall, {val['k1']} K1 launch; "
+          f"val/loss {val_logs[0][1]['val/loss']:.4f}, val/top5_acc {val_logs[0][1]['val/top5_acc']:.4f}")
+    print(f"lm_train serve of model_{n}.ckpt through build_pipeline(lm_ckpt=) in bf16 [{card}]: tts "
+          f"{len(wav) / sr:.3f} s of audio in {t_tts:.3f} s, lm_decode {stages['lm_decode'] * 1e3:.1f} ms; K1 greedy "
+          f"at the trained weights vs the plain decode (B=4, N={N_TOKENS}): tokens "
+          f"{'identical' if same else f'agree up to step {n_cmp - 1}'}, logits max abs err {err:.3e} over {n_cmp} "
+          f"steps (scale {scale:.2f}, tolerance 2% of scale), corr {corr:.6f}")
+    print(f"lm_train CLI infer_tts --lm-model [{card}]: exit 0 in {cli_s:.1f} s (a new process); "
+          f"{len(cli_wav) / cli_sr:.3f} s at {cli_sr} Hz")
+    print(f"lm_train launches: {launches} (validate_audio and the serve's tts: 1 K1 and 640 K4 each)")
+    return dict(launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -2247,6 +2631,11 @@ def main() -> int:
           f"+ {train['launches']['attention_fwd']} training; kmeans_argmin launches: "
           f"{svc_launches['kmeans_argmin']} stage 19 + {train['launches']['kmeans_argmin']} training")
     launches["attention_fwd"] += train["launches"]["attention_fwd"]
+    torch.cuda.empty_cache()
+    lm = lm_train(dev, card)
+    launches["ar_decode"] += lm["launches"]["ar_decode"]
+    launches["attention_fwd"] += lm["launches"]["attention_fwd"]
+    print(f"launches with lm_train's: {launches}")
 
     src = "latent_diffusion_speech_tpu_torch/csrc/"
     kernels = [

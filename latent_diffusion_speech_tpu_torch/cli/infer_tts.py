@@ -3,7 +3,8 @@
 Counterpart of `latent_diffusion_speech_tpu/cli/infer_tts.py`:
 
     python -m latent_diffusion_speech_tpu_torch.cli.infer_tts -c configs/config.yaml \\
-        -l EN -i "Some text." -o out.wav [--long] [--model exp/diffusion/model_<step>.ckpt]
+        -l EN -i "Some text." -o out.wav [--long] [--model exp/diffusion/model_<step>.ckpt] \
+        [--lm-model exp/lm]
 
 text -> phones -> RoFormer AR decode (K1) -> semantic tokens -> k-means
 centroid units -> latent diffusion (the config's sampler) -> HiFi-VAEGAN
@@ -27,15 +28,27 @@ def _native_state(path) -> dict:
     """The weights of a checkpoint of this package (`train/checkpoint.py`):
     `path` is an experiment directory (its latest step) or one
     `model_<step>.ckpt` file (that step).  The EMA sidecar's parameters
-    replace the trained ones when the trainer saved one."""
-    from latent_diffusion_speech_tpu_torch.train.checkpoint import _STEP_RE, load_checkpoint, load_checkpoint_extra
+    replace the trained ones when the trainer saved one.  A file or
+    directory in another format (the reference's `model_<step>.pt`) raises
+    NotImplementedError."""
+    from latent_diffusion_speech_tpu_torch.train.checkpoint import (
+        _STEP_RE,
+        latest_checkpoint_step,
+        load_checkpoint,
+        load_checkpoint_extra,
+    )
 
     path = Path(path)
-    if path.is_dir():
-        expdir, step = path, None
-    else:
-        m = _STEP_RE.search(path.name)
-        expdir, step = path.parent, int(m.group(1)) if m else None
+    if not path.exists():
+        raise FileNotFoundError(f"{path}: no such checkpoint or experiment directory")
+    m = None if path.is_dir() else _STEP_RE.search(path.name)
+    if (m is None and not path.is_dir()) or (path.is_dir() and latest_checkpoint_step(path) is None
+                                              and any(path.glob("model_*.pt"))):
+        raise NotImplementedError(
+            f"{path}: not a checkpoint of this package (model_<step>.ckpt); reading the reference's checkpoints "
+            "(load_reference_pipeline) is not ported yet (ROADMAP.md Queue 1, item 2)"
+        )
+    expdir, step = (path, None) if m is None else (path.parent, int(m.group(1)))
     step, params, _ = load_checkpoint(expdir, step)
     averaged = load_checkpoint_extra(expdir, "ema", step)
     return {**params, **averaged} if averaged is not None else params
@@ -47,8 +60,8 @@ def build_pipeline(cfg, diffusion_ckpt=None, lm_ckpt=None, dtype=None, device=No
 
     Weights: the diffusion model from `diffusion_ckpt` (an experiment
     directory or a `model_<step>.ckpt`, the EMA weights when saved), else
-    seeded ones; the LM seeded (an `lm_ckpt` raises: no LM trainer or
-    reference importer is ported to write or read one); the k-means centroids from
+    seeded ones; the LM likewise from `lm_ckpt` (the LM trainer's
+    checkpoints, `cli/train_lm.py`), else seeded; the k-means centroids from
     `text2semantic.model.codebook_path`, else `default_rng(0)` centroids;
     the vocoder seeded while `common.vocoder.ckpt` does not exist (importing
     the reference's HiFi-VAEGAN files is not ported: an existing path
@@ -68,11 +81,6 @@ def build_pipeline(cfg, diffusion_ckpt=None, lm_ckpt=None, dtype=None, device=No
         raise NotImplementedError(
             f"weight_quant={cfg.common.infer.weight_quant!r}: int8 serving weights are not ported yet "
             "(ROADMAP.md Queue 1, item 11)"
-        )
-    if lm_ckpt:
-        raise NotImplementedError(
-            f"{lm_ckpt}: loading LM weights is not ported yet (ROADMAP.md Queue 1, item 7 for the LM "
-            "trainer's checkpoints, item 2's load_reference_pipeline for the reference's)"
         )
     vocoder_ckpt = cfg.common.vocoder.ckpt
     if vocoder_ckpt and Path(vocoder_ckpt).exists():
@@ -115,7 +123,9 @@ def build_pipeline(cfg, diffusion_ckpt=None, lm_ckpt=None, dtype=None, device=No
     state = _native_state(diffusion_ckpt) if diffusion_ckpt else None
     diffusion = Unit2MelSystem(model_cfg, state_dict=state, dtype=dtype, device=device)
 
-    lm = get_language_model(cfg, dtype=dtype, device=device)
+    if not lm_ckpt:
+        print("[!] no LM checkpoint given; seeded random weights")
+    lm = get_language_model(cfg, dtype=dtype, device=device, state_dict=_native_state(lm_ckpt) if lm_ckpt else None)
 
     print(f"[!] no vocoder checkpoint at {vocoder_ckpt}; seeded random weights")
     vocoder = Vocoder(cfg.common.vocoder.type, VAEGANConfig(), dtype=dtype, device=device)
@@ -129,7 +139,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("-l", "--language", type=str, default="ZH")
     p.add_argument("-s", "--spk-id", type=int, default=1)
     p.add_argument("--model", type=str, default=None, help="diffusion checkpoint path")
-    p.add_argument("--lm-model", type=str, default=None, help="LM checkpoint path (not ported: raises)")
+    p.add_argument("--lm-model", type=str, default=None,
+                   help="LM checkpoint path (an experiment dir or a model_<step>.ckpt)")
     p.add_argument("--speedup", type=int, default=None)
     p.add_argument("--method", type=str, default=None)
     p.add_argument("--weight-quant", type=str, default=None, choices=["int8"],

@@ -4,7 +4,7 @@ Counterpart of `latent_diffusion_speech_tpu/cli/serve.py`, with the same
 endpoints, status codes, headers, Prometheus names and chunked streaming:
 
     python -m latent_diffusion_speech_tpu_torch.cli.serve -c configs/config.yaml \\
-        --port 8400 [--model exp/diffusion/model_<step>.ckpt]
+        --port 8400 [--model exp/diffusion/model_<step>.ckpt] [--lm-model exp/lm]
 
     POST /tts         {"text": "...", "language": "ZH", "spk_id": 1} -> audio/wav
     POST /tts/stream  same body -> chunked audio/wav, pieces streamed as
@@ -281,7 +281,8 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8400)
     p.add_argument("--model", type=str, default=None, help="diffusion checkpoint path")
-    p.add_argument("--lm-model", type=str, default=None, help="LM checkpoint path (not ported: raises)")
+    p.add_argument("--lm-model", type=str, default=None,
+                   help="LM checkpoint path (an experiment dir or a model_<step>.ckpt)")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-wait-ms", type=float, default=30.0)
     p.add_argument("--max-queue", type=int, default=64,

@@ -8,8 +8,8 @@ reads the config, builds the k-means unit quantizer when
 `text2semantic.train.use_units_quantize` is set and the codebook file
 exists, the trainer (resumed from the latest checkpoint of
 `diffusion.train.expdir`), the dataset over `data.train_path` and its
-loader, and trains, printing one JSON line of metrics every
-`interval_log` steps.  One process, one device: no multi-process setup.
+loader (`loader_processes` spawn workers), and trains, printing one JSON
+line of metrics every `interval_log` steps.  One process, one device: no multi-process setup.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def build(cfg: Config, device=None):
         clamp=cfg.common.vocoder.clamp,
         cache=tcfg.cache_all_data,
     )
-    loader = DataLoader(dataset, tcfg.batch_size, shuffle=True, seed=tcfg.seed)
+    loader = DataLoader(dataset, tcfg.batch_size, shuffle=True, seed=tcfg.seed, num_workers=tcfg.loader_processes)
     return trainer, loader
 
 

@@ -12,8 +12,9 @@ __all__ = ["load_native_pipeline"]
 
 def load_native_pipeline(cfg, diffusion_expdir=None, lm_expdir=None, dtype=None, device=None):
     """A TTSPipeline from this package's checkpoints: the latest step of
-    each experiment directory (or the given `model_<step>.ckpt`), the
-    diffusion model's EMA weights when its trainer saved them.  On `cuda`
+    each experiment directory (or the given `model_<step>.ckpt`): the
+    diffusion trainer's (its EMA weights when it saved them) and the LM
+    trainer's (`lm_expdir`); seeded weights where none is given.  On `cuda`
     unless `device` says otherwise."""
     from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
 

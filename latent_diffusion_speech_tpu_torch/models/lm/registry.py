@@ -1,9 +1,9 @@
 """LM registry: build the configured text->semantic language model.
 
-Counterpart of `latent_diffusion_speech_tpu/models/lm/registry.py`.  It
-keeps its own copy of `roformer_config_from` (JAX
-`train/lm_trainer.py::roformer_config_from`), since the LM trainer is not
-ported.  `type: roformer` builds a `RoformerSystem`; `type: llama` raises
+Counterpart of `latent_diffusion_speech_tpu/models/lm/registry.py`, with
+`roformer_config_from` (JAX `train/lm_trainer.py::roformer_config_from`,
+which the port's LM trainer imports from here).  `type: roformer` builds a
+`RoformerSystem`; `type: llama` raises
 `NotImplementedError` until the Llama LM is ported (ROADMAP.md Queue 1,
 item 8).
 """
@@ -42,14 +42,18 @@ def roformer_config_from(cfg: Config) -> RoformerConfig:
     )
 
 
-def get_language_model(cfg: Config, dtype=None, seed: int = 0, device=None):
-    """The configured LM system with seeded weights (dtype None means f32;
-    device None means `cuda`).  The JAX function's `codebook` warm start of
-    the semantic embeddings and its `mesh` (Llama MoE) are not ported."""
+def get_language_model(cfg: Config, dtype=None, seed: int = 0, device=None, state_dict=None):
+    """The configured LM system (dtype None means f32; device None means
+    `cuda`): the weights of `state_dict` (an f32 state dict of the LM
+    trainer's checkpoint) cast to `dtype`, else seeded ones.  The JAX
+    function's `codebook` warm start of the semantic embeddings (the LM
+    trainer passes it to `RoformerSystem`) and its `mesh` (Llama MoE) are
+    not taken here."""
     dtype = dtype or torch.float32
     mtype = cfg.text2semantic.model.type
     if mtype == "roformer":
-        return RoformerSystem(roformer_config_from(cfg), dtype=dtype, device=device, seed=seed)
+        return RoformerSystem(roformer_config_from(cfg), state_dict=state_dict, dtype=dtype, device=device,
+                              seed=seed)
     if mtype == "llama":
         raise NotImplementedError("the Llama LM is not ported yet (ROADMAP.md Queue 1, item 8)")
     raise ValueError(f"[x] Unknown language model type: {mtype}")

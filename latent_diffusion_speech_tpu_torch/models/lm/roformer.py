@@ -10,6 +10,13 @@ Submodule and parameter names follow the flax tree (`enc_0.self_attn.query`,
 ...), so `convert.roformer_from_jax` maps one onto the other.  Generation runs
 through `ops/kernels/ar_decode.py::roformer_decode`: the K1 kernel for CUDA
 tensors, the plain decode loop for CPU tensors.
+
+Training: `Roformer.forward` is `encode` + the teacher-forced causal
+`decode_train`, and `RoformerSystem.loss` the shifted cross-entropy.  Dropout
+(on the attention probabilities, after the attention and FF output
+projections, and on the embeddings) is drawn from a `torch.Generator` passed
+in; it runs only in `module.train()` with a generator, so a call without one
+is deterministic, as flax's `deterministic=True`.
 """
 
 from __future__ import annotations
@@ -23,10 +30,12 @@ from torch import nn
 
 from latent_diffusion_speech_tpu_torch.text.symbols import num_tones, symbols
 from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig
-from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention
+from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention, dropout
 from latent_diffusion_speech_tpu_torch.ops.layers import Dense, LayerNorm, cast_compute_dtype, resolve_device, seeded
 
 __all__ = ["StackConfig", "RoformerConfig", "Roformer", "RoformerSystem", "rotary_sin_cos"]
+
+Generator = Optional[torch.Generator]
 
 
 @dataclass(frozen=True)
@@ -117,6 +126,7 @@ class Attention(nn.Module):
         C = cfg.hidden_size
         self.n_heads = cfg.num_attention_heads
         self.use_rotary = use_rotary
+        self.dropout_rate = cfg.attention_probs_dropout_prob
         self.query = Dense(C, C)
         self.key = Dense(C, C)
         self.value = Dense(C, C)
@@ -139,13 +149,16 @@ class Attention(nn.Module):
         cache: Optional[Dict[str, torch.Tensor]] = None,
         cache_index: Optional[int] = None,
         kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        is_causal: bool = False,
+        generator: Generator = None,
     ) -> torch.Tensor:
         """Self-attention (kv_source None) or cross-attention.
 
         cache: {'k', 'v'} (B, max_len, H, D); the step's k/v are written at
         `cache_index` IN PLACE (the JAX version returns a new cache) and the
         attention runs over the prefix [0, cache_index].
-        rotary: precomputed (sin, cos) (T, D) for this call's positions."""
+        rotary: precomputed (sin, cos) (T, D) for this call's positions.
+        generator: attention-probability dropout (None: off)."""
         B, T, C = x.shape
         q = self._heads(self.query(x))
         if kv_override is not None:
@@ -165,16 +178,20 @@ class Attention(nn.Module):
             cache["v"][:, cache_index : cache_index + T] = v
             k = cache["k"][:, : cache_index + T]
             v = cache["v"][:, : cache_index + T]
-        out = dot_product_attention(q, k, v, mask=mask).reshape(B, T, C)
-        return self.out(out)
+        out = dot_product_attention(q, k, v, mask=mask, is_causal=is_causal and cache is None,
+                                    dropout_rate=self.dropout_rate, generator=generator)
+        return self.out(out.reshape(B, T, C))
 
 
 class Layer(nn.Module):
-    """Post-LN transformer layer (HF Bert/RoFormer style), inference only."""
+    """Post-LN transformer layer (HF Bert/RoFormer style) with the
+    reference's hidden-dropout placement: after the attention and FF output
+    projections, before each residual + LayerNorm."""
 
     def __init__(self, cfg: StackConfig, cross_attention: bool = False):
         super().__init__()
         C, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.dropout_rate = cfg.hidden_dropout_prob
         self.self_attn = Attention(cfg)
         self.self_ln = LayerNorm(C, eps)
         self.cross_attention = cross_attention
@@ -196,18 +213,24 @@ class Layer(nn.Module):
         cache=None,
         cache_index: Optional[int] = None,
         cross_kv=None,
+        is_causal: bool = False,
+        generator: Generator = None,
     ) -> torch.Tensor:
+        """generator: dropout (None: off; the caller passes one only in
+        training mode)."""
         dtype = self.ff_in.weight.dtype
+        p = self.dropout_rate
         h = self.self_attn(
             x, mask=self_mask, positions=positions, rotary=rotary,
-            cache=cache, cache_index=cache_index,
+            cache=cache, cache_index=cache_index, is_causal=is_causal, generator=generator,
         )
-        x = self.self_ln(x + h).to(dtype)
+        x = self.self_ln(x + dropout(h, p, generator)).to(dtype)
         if self.cross_attention and (enc_states is not None or cross_kv is not None):
-            h = self.cross_attn(x, kv_source=enc_states, mask=cross_mask, kv_override=cross_kv)
-            x = self.cross_ln(x + h).to(dtype)
+            h = self.cross_attn(x, kv_source=enc_states, mask=cross_mask, kv_override=cross_kv,
+                                generator=generator)
+            x = self.cross_ln(x + dropout(h, p, generator)).to(dtype)
         h = self.ff_out(F.gelu(self.ff_in(x)))
-        return self.ff_ln(x + h).to(dtype)
+        return self.ff_ln(x + dropout(h, p, generator)).to(dtype)
 
 
 class Roformer(nn.Module):
@@ -244,16 +267,43 @@ class Roformer(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.head_transform.weight.dtype
 
-    def encode(self, phone, tone, spk_id=None, attention_mask=None) -> torch.Tensor:
+    def _generator(self, generator: Generator) -> Generator:
+        """The dropout generator: only in training mode."""
+        return generator if self.training else None
+
+    def encode(self, phone, tone, spk_id=None, attention_mask=None, generator: Generator = None) -> torch.Tensor:
         """phone/tone (B, L) -> encoder states (B, L, C)."""
+        gen = self._generator(generator)
         x = self.phone_embed(phone) + self.tone_embed(tone)
         x = self.enc_emb_ln(x).to(self.dtype)
         if self.has_spk and spk_id is not None:
             x = x + self.spk_embed(spk_id)
+        x = dropout(x, self.cfg.encoder.hidden_dropout_prob, gen)
         mask = attention_mask[:, None, None, :].bool() if attention_mask is not None else None
         for layer in self.encoder_layers:
-            x = layer(x, self_mask=mask)
+            x = layer(x, self_mask=mask, generator=gen)
         return x
+
+    def decode_train(self, semantic, enc_states, self_mask=None, cross_mask=None,
+                     generator: Generator = None) -> torch.Tensor:
+        """Teacher-forced causal decode: semantic (B, S) ids -> logits
+        (B, S, V). self_mask (B, S) / cross_mask (B, L): 1 = attend."""
+        gen = self._generator(generator)
+        x = self.semantic_embed(semantic) + self.dec_type_embed(torch.zeros_like(semantic))
+        x = self.dec_emb_ln(x).to(self.dtype)
+        x = dropout(x, self.cfg.decoder.hidden_dropout_prob, gen)
+        sm = self_mask[:, None, None, :].bool() if self_mask is not None else None
+        cm = cross_mask[:, None, None, :].bool() if cross_mask is not None else None
+        for layer in self.decoder_layers:
+            x = layer(x, enc_states=enc_states, self_mask=sm, cross_mask=cm, is_causal=True, generator=gen)
+        return self._lm_head(x)
+
+    def forward(self, phone, tone, semantic, spk_id=None, encoder_attention_mask=None,
+                attention_mask=None, generator: Generator = None) -> torch.Tensor:
+        """encode + decode_train -> logits (B, S, V)."""
+        enc = self.encode(phone, tone, spk_id, encoder_attention_mask, generator=generator)
+        return self.decode_train(semantic, enc, self_mask=attention_mask, cross_mask=encoder_attention_mask,
+                                 generator=generator)
 
     def _lm_head(self, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(self.head_transform(x))
@@ -303,7 +353,7 @@ class Roformer(nn.Module):
 
 
 class RoformerSystem:
-    """Owns the module on a device; exposes `generate`."""
+    """Owns the module on a device; exposes `loss` and `generate`."""
 
     def __init__(
         self,
@@ -312,14 +362,47 @@ class RoformerSystem:
         dtype: torch.dtype = torch.float32,
         device=None,
         seed: int = 0,
+        codebook=None,
+        training: bool = False,
     ):
-        """device: None means `cuda` (raises without a card)."""
+        """device: None means `cuda` (raises without a card).  codebook: a
+        (K, C) k-means centroid array that warm-starts the first K semantic
+        embedding rows when C is the decoder width (seeded weights only).
+        training: the module in `train()` mode (dropout with a generator),
+        else `eval()`."""
         self.cfg = cfg
         self.device = resolve_device(device)
         module = seeded(lambda: Roformer(cfg), seed)
         if state_dict is not None:
             module.load_state_dict(state_dict)
-        self.module = cast_compute_dtype(module, dtype).to(self.device).eval()
+        elif codebook is not None and codebook.shape[1] == cfg.decoder.hidden_size:
+            with torch.no_grad():
+                module.semantic_embed.weight[: cfg.semantic_kmeans_num] = torch.as_tensor(codebook)
+        self.module = cast_compute_dtype(module, dtype).to(self.device).train(training)
+
+    @staticmethod
+    def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Shifted next-token CE (logits[:, :-1] against labels[:, 1:]) in
+        f32 over the positions whose label is not -100."""
+        logits, targets = logits[:, :-1], labels[:, 1:]
+        valid = targets != -100
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, torch.where(valid, targets, 0).long()[..., None])[..., 0]
+        return (nll * valid).sum() / valid.sum().clamp_min(1)
+
+    def logits(self, batch: Dict[str, torch.Tensor], generator: Generator = None) -> torch.Tensor:
+        """The teacher-forced logits (B, S, V) of a collated device batch
+        (`data/lm_dataset.py::collate_text_batch`)."""
+        return self.module(
+            batch["phone"], batch["tone"], batch["semantic"], batch.get("spk_id"),
+            batch.get("encoder_attention_mask"), batch.get("attention_mask"), generator=generator,
+        )
+
+    def loss(self, batch: Dict[str, torch.Tensor], generator: Generator = None) -> torch.Tensor:
+        """Causal CE with -100 ignored (HF convention).  generator: dropout
+        when the module is in training mode; None is deterministic, as the
+        JAX loss with dropout_rng=None."""
+        return self._ce(self.logits(batch, generator), batch["labels"])
 
     @torch.no_grad()
     def generate(

@@ -12,13 +12,15 @@ point runs it (TF32 off for CUDA matmuls and convolutions):
   update count (0 for the first update, as optax counts);
 * an optional EMA of the parameters (`ema_decay > 0`) for evaluation;
 * checkpoint save / scan-resume with retention, and the data-stream
-  position in the meta sidecar.
+  position in the meta sidecar;
+* the `Config.debug` switches (`train/debug.py`): anomaly detection and the
+  periodic finiteness check with its batch dump.
 The per-step generator is a pure function of (seed, step), the counterpart
 of `fold_in(PRNGKey(seed), step)`, so an interrupted and resumed run gives
 the same parameters as an uninterrupted one.
 
 Not ported yet (ROADMAP.md): the learned `VectorQuantize`,
-`gradient_accumulation_steps > 1`, `train/debug.py`, the sharded checkpoint,
+`gradient_accumulation_steps > 1`, the sharded checkpoint,
 mixed-precision training, and `validate_full`'s spectrogram / vocoder
 logging and cost-analysis MFU.
 """
@@ -43,26 +45,14 @@ from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     load_checkpoint_meta,
     save_checkpoint,
 )
-from latent_diffusion_speech_tpu_torch.train.schedule import warmup_step_decay
+from latent_diffusion_speech_tpu_torch.train.debug import check_step, install
+from latent_diffusion_speech_tpu_torch.train.optim import AdamWUpdates, global_norm, step_generator
 from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
 
 __all__ = ["DiffusionTrainer", "step_generator", "global_norm"]
 
 
-def step_generator(seed: int, step: int, device, *stream: int) -> torch.Generator:
-    """A generator on `device` seeded by a pure function of (seed, step,
-    *stream): the counterpart of `fold_in(PRNGKey(seed), step)`."""
-    hi, lo = np.random.SeedSequence([seed, step, *stream]).generate_state(2)
-    return torch.Generator(device=device).manual_seed(int(hi) << 32 | int(lo))
-
-
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of every element's square (optax.global_norm), from
-    per-tensor norms taken by one multi-tensor launch."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
-
-
-class DiffusionTrainer:
+class DiffusionTrainer(AdamWUpdates):
     def __init__(
         self,
         cfg: Config,
@@ -107,9 +97,7 @@ class DiffusionTrainer:
         self.device = self.system.device
         self.quantizer = quantizer
         self._params = list(self.system.module.parameters())
-        self.schedule = warmup_step_decay(tcfg.lr, tcfg.start_lr, tcfg.warm_up_steps, tcfg.decay_step, tcfg.gamma)
-        self.clip = tcfg.clip_grad_norm if tcfg.clip_grad_norm and tcfg.clip_grad_norm > 0 else None
-        self._reset_optimizer()
+        self._init_optimizer()
         self.step = 0
         # data-stream position for deterministic resume (the meta sidecar)
         self._epoch = 0
@@ -117,11 +105,8 @@ class DiffusionTrainer:
         self.ema_decay = tcfg.ema_decay or 0.0
         self.ema = self._param_copy() if self.ema_decay > 0 else None
 
-    def _reset_optimizer(self) -> None:
-        tcfg = self.cfg.diffusion.train
-        self.optimizer = torch.optim.AdamW(self._params, lr=tcfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                                           weight_decay=tcfg.weight_decay)
-        self.opt_count = 0  # updates since the optimizer was made: the schedule's step
+    def _train_cfg(self):
+        return self.cfg.diffusion.train
 
     def _param_copy(self) -> Dict[str, torch.Tensor]:
         return {n: p.detach().clone() for n, p in self.system.module.named_parameters()}
@@ -153,23 +138,9 @@ class DiffusionTrainer:
         return {"loss": loss.detach(), "grad_norm": gnorm}
 
     def apply_update(self) -> torch.Tensor:
-        """Clip the parameters' `.grad` by their global norm, take one AdamW
-        step at the schedule's rate and update the EMA; returns the global
-        norm before clipping."""
-        for p in self._params:
-            # a parameter the batch does not reach gets a zero gradient, as
-            # under jax.grad, so AdamW updates every parameter the same way
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self._params]
-        gnorm = global_norm(grads)
-        if self.clip is not None:
-            # g * min(1, max / |g|), on the device: no host sync
-            torch._foreach_mul_(grads, torch.clamp(self.clip / gnorm, max=1.0))
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.opt_count)
-        self.optimizer.step()
-        self.opt_count += 1
+        """Clip, take one AdamW step (`AdamWUpdates.apply_update`) and
+        update the EMA; returns the global norm before clipping."""
+        gnorm = super().apply_update()
         if self.ema is not None:
             with torch.no_grad():
                 for n, p in self.system.module.named_parameters():
@@ -232,7 +203,7 @@ class DiffusionTrainer:
 
     def save(self) -> None:
         tcfg = self.cfg.diffusion.train
-        opt_state = {"optimizer": self.optimizer.state_dict(), "count": self.opt_count} if tcfg.save_opt else None
+        opt_state = self._opt_state() if tcfg.save_opt else None
         save_checkpoint(
             tcfg.expdir,
             self.step,
@@ -254,8 +225,7 @@ class DiffusionTrainer:
         self.step = step
         self._reset_optimizer()
         if tcfg.save_opt and opt_state is not None:
-            self.optimizer.load_state_dict(opt_state["optimizer"])
-            self.opt_count = int(opt_state["count"])
+            self._load_opt_state(opt_state)
         if self.ema_decay > 0:
             # a checkpoint without the EMA sidecar restarts it from the weights
             ema = load_checkpoint_extra(tcfg.expdir, "ema", step)
@@ -271,10 +241,11 @@ class DiffusionTrainer:
     def train(self, loader, val_loader=None, max_steps: Optional[int] = None, logger=None, shutdown=None):
         """Epoch loop: SIGTERM/SIGINT checkpoints once and returns
         (train/signals.py); a save every `interval_val` steps and at
-        `max_steps`."""
+        `max_steps`; the `Config.debug` checks after each step."""
         tcfg = self.cfg.diffusion.train
+        dcfg = self.cfg.debug
         last_t = time.time()
-        with (shutdown or GracefulShutdown()) as stop:
+        with (shutdown or GracefulShutdown()) as stop, install(dcfg):
             start_epoch = self._epoch
             for epoch in range(start_epoch, tcfg.epochs):
                 resuming_mid_epoch = epoch == start_epoch and self._batch_in_epoch > 0
@@ -293,6 +264,8 @@ class DiffusionTrainer:
                     batch_size = int(next(iter(device_batch.values())).shape[0])
                     metrics = self.train_step(device_batch, step_generator(tcfg.seed, self.step, self.device))
                     self._batch_in_epoch += 1
+                    check_step(dcfg, self.step, dict(self.system.module.named_parameters()), metrics["loss"],
+                               batch=device_batch, expdir=tcfg.expdir)
                     if self.step % tcfg.interval_log == 0 and logger is not None:
                         dt = time.time() - last_t
                         last_t = time.time()

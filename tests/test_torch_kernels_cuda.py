@@ -215,6 +215,79 @@ def test_k1_cluster_greedy_matches_plain_f32_other_heads(dev, C, H):
     _k1_equals_plain(*_lm_wide(dev, torch.float32, C=C, H=H), N=200)
 
 
+def test_lm_train_step_gradients_are_bitwise_repeatable(dev):
+    """The LM trainer's backward on the card: with more than 3072 token
+    positions, most of them a few repeated phones, two backward passes of
+    the same step give bitwise-equal gradients (CUDA's embedding backward
+    accumulates with atomics there outside PyTorch's deterministic mode,
+    which `LMTrainer.train_step` turns on around the backward)."""
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer, deterministic_algorithms
+
+    stack = dict(hidden_size=64, num_attention_heads=4, intermediate_size=128, num_hidden_layers=1)
+    cfg = RoformerConfig(encoder=StackConfig(**stack), decoder=StackConfig(**stack), semantic_kmeans_num=300, n_spk=4)
+    trainer = LMTrainer(Config(), lm_cfg=cfg, device=dev)
+    gen = torch.Generator().manual_seed(3)
+    B, L, S = 16, 256, 320
+    batch = {"phone": torch.randint(1, 6, (B, L), generator=gen), "tone": torch.randint(0, 3, (B, L), generator=gen),
+             "semantic": torch.randint(0, 300, (B, S), generator=gen), "spk_id": torch.ones((B, L), dtype=torch.long),
+             "encoder_attention_mask": torch.ones((B, L), dtype=torch.long),
+             "attention_mask": torch.ones((B, S), dtype=torch.long)}
+    batch["labels"] = batch["semantic"].clone()
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    grads = []
+    for _ in range(3):
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss = trainer.system.loss(batch, step_generator(0, 0, dev))
+        with deterministic_algorithms():
+            loss.backward()
+        grads.append({n: p.grad.clone() for n, p in trainer.system.module.named_parameters()})
+    for name in grads[0]:
+        assert torch.equal(grads[0][name], grads[1][name]) and torch.equal(grads[0][name], grads[2][name]), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_follows_weights_copied_in_with_load_state_dict(dev, dtype):
+    """K1's packed-weight cache under a weight swap, as the LM trainer's
+    `validate_audio` makes one: new f32 weights copied into a served LM with
+    `load_state_dict` (cast to its dtype) move the parameters' version
+    counters, so the next decode packs them again.  f32: K1's greedy tokens
+    equal the plain decode's at the new weights (and differ from the old
+    weights' tokens); bf16: equal to the plain decode's up to the first step
+    a rounding flips an argmax, as chip_smoke.py's check_k1 holds them."""
+    lm, _, clen = _lm_wide(dev, dtype)
+    sampling = _sampling(lm.cfg, 200, do_sample=False)
+    gen = torch.Generator().manual_seed(2)
+    B, L = clen.shape[0], int(clen.max())
+    phones = torch.randint(1, 60, (B, L), generator=gen).to(dev)
+    tones = torch.randint(0, 5, (B, L), generator=gen).to(dev)
+    mask = (torch.arange(L, device=dev)[None] < clen[:, None]).long()
+
+    def decode(fn, **kw):
+        with torch.no_grad():
+            kvs = lm.module.compute_cross_kv(lm.module.encode(phones, tones, torch.ones_like(phones), mask))
+        return fn(lm.module, sampling, kvs, clen, **kw)
+
+    old = decode(k1.roformer_decode)
+    trained = RoformerSystem(lm.cfg, device=dev, seed=1)  # f32, as the trainer holds it
+    lm.module.load_state_dict(trained.module.state_dict())
+    before = k1.launches
+    got = decode(k1.roformer_decode)
+    assert k1.launches == before + 1
+    ref = decode(k1.roformer_decode_plain)
+    assert not torch.equal(got[0], old[0])
+    if dtype == torch.float32:
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r.cpu())
+    else:
+        toks, lens, lg = decode(k1.roformer_decode, debug_logits=True)
+        _, _, lg_ref = decode(k1.roformer_decode_plain, debug_logits=True)
+        differ = (toks != ref[0]).any(dim=0).nonzero()
+        n_cmp = int(differ[0]) + 1 if len(differ) else sampling.max_new_tokens
+        live = torch.arange(n_cmp, device=dev)[None, :] < lens[:, None]
+        a, b = lg[:, :n_cmp][live], lg_ref[:, :n_cmp][live]
+        assert (a - b).abs().max().item() <= 0.02 * b.abs().max().item()
+
+
 def test_k1_cluster_greedy_matches_plain_f32_n1024(dev):
     """N=1024, the serve default max_length: the f32 KV cache no longer
     fits in shared memory and lives in device memory (the encoder K/V of

@@ -87,6 +87,7 @@ def _default_systems():
     from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
     from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
     from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
 
     tiny = unit2mel.Unit2MelConfig(input_channel=8, n_spk=4, out_dims=4, n_hidden=8, block_out_channels=(8, 8),
                                    n_heads=2, timesteps=20, k_step=20)
@@ -96,6 +97,7 @@ def _default_systems():
         "Vocoder": lambda: Vocoder("hifi-vaegan"),
         "EuclideanCodebook": lambda: EuclideanCodebook([[0.0, 1.0]]),
         "DiffusionTrainer": lambda: DiffusionTrainer(config.Config(), model_cfg=tiny),
+        "LMTrainer": lambda: LMTrainer(config.Config()),
         "build_pipeline": lambda: build_pipeline(config.Config()),
         "load_native_pipeline": lambda: load_native_pipeline(config.Config()),
         "UnitsEncoder": lambda: UnitsEncoder(),
@@ -109,11 +111,12 @@ CLIS = {
     "cli.infer_svc": ["-c", CONFIG, "-i", "no-such-input.wav"],
     "cli.preprocess_unit": ["-c", CONFIG],
     "cli.preprocess_token": ["-c", CONFIG],
+    "cli.train_lm": ["-c", CONFIG],
 }
 
 
 @pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "EuclideanCodebook",
-                                  "DiffusionTrainer", "build_pipeline", "load_native_pipeline",
+                                  "DiffusionTrainer", "LMTrainer", "build_pipeline", "load_native_pipeline",
                                   "UnitsEncoder", "WhisperLargeV3Units", *CLIS])
 def test_entry_points_default_to_the_card(name):
     """A default-constructed entry point, or a CLI run without --device,

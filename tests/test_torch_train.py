@@ -385,3 +385,23 @@ def test_entry_point_builds_and_trains_with_the_kmeans_snap(tmp_path, rng):
     snapped = trainer.quantizer(trainer.device_put_batch(next(iter(loader)))["units"])
     rows = snapped.reshape(-1, 1, units) == torch.from_numpy(codebook)[None]
     assert bool(rows.all(-1).any(-1).all())  # every frame is a codebook row
+
+
+def test_debug_check_runs_in_the_training_loop(tmp_path):
+    """`Config.debug` in `DiffusionTrainer.train` (as the JAX trainer wires
+    `train/debug.py`): with check_interval 1 a non-finite parameter stops
+    the run at the step it is found, naming it and dumping the batch."""
+    from latent_diffusion_speech_tpu_torch.train.debug import NonFiniteError
+
+    cfg = _tiny_config(tmp_path)
+    cfg.debug.check_interval, cfg.debug.dump_on_nan = 1, True
+    trainer = DiffusionTrainer(cfg, model_cfg=TINY_MODEL, device="cpu")
+    trainer.train(DataLoader(_DetDataset(), batch_size=4, seed=9), max_steps=1)  # finite: no raise
+    name, param = next(iter(trainer.system.module.named_parameters()))
+    with torch.no_grad():
+        param.fill_(float("nan"))
+    with pytest.raises(NonFiniteError, match="sanity check failed at step 2") as err:
+        trainer.train(DataLoader(_DetDataset(), batch_size=4, seed=9), max_steps=3)
+    assert name in err.value.paths
+    dumped = np.load(tmp_path / "exp_diff" / "nan_dump_2.npz")
+    assert {"units", "mel", "__loss__"} <= set(dumped.files) and not np.isfinite(dumped["__loss__"])
