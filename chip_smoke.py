@@ -106,7 +106,23 @@ with nvcc (sm_90a), then:
    CLI as a process; prints the step time, samples/s, non-pad tokens/s,
    the device's busy time, launches and largest kernels a step, each
    bucket's step, the smoke corpus's padding share with and without length
-   sorting, validate_audio's and the serve's times.
+   sorting, validate_audio's and the serve's times;
+11. data_path: the shipped config's data stages, each through its `main`
+   on the card, on a synthetic voiced corpus written as 44.1 kHz WAVs (4
+   speakers, one with a non-numeric name, 64 files of 6-8 s and one of
+   31 s): stages 00-02 (the long file dropped, speakers renumbered, 12
+   files moved to the validation set), 15, 10 (seeded Whisper-large-v3,
+   bf16), 11 (the full-width 44.1 kHz codec encoder, f32: ms a file), 17
+   (the 4096 x 1280 codebook over >= 16384 unit frames: minibatches of
+   8192, 4 epochs, one K6 launch a step; inertia and ms a step), 18 (EN),
+   19 with the fitted codebook, 3 diffusion training steps on the stage-11
+   latents (K4 forward and backward, K6), then a reference-layout
+   `encoder.pth` / `decoder.pth` pair at full width served with the
+   trained checkpoint and the codebook through `build_pipeline` (one EN
+   `tts`); then the card against the CPU: one file's stage-11 latents, one
+   stage-17 step (ids and counts equal, centroids within 1e-5 of their
+   scale), a second fit bitwise equal to the first, and K6 at N = 8192
+   against its plain version, timed beside cuBLAS's product and its bound.
 
 Any failure raises (exit code != 0).  The second-to-last line is a JSON
 object with one entry per kernel; the last line is
@@ -169,6 +185,9 @@ K6_TRAIN = (TRAIN_B * 86, 4096, 1280)
 # commit, NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's: K1 bf16
 # sampled at N=430 by B (ms), the K4 backward in f32 at B=48 by T (µs)
 EARLIER_K1_MS = {1: 49.55, 4: 47.56}
+# K1 in f32 against its plain decode: raw logits within this share of their
+# scale (f32 sums of C=256 and 512 terms in other orders), correlation
+K1_F32_REL, K1_F32_CORR = 1e-4, 0.999999
 EARLIER_K4_BWD_US = {88: 163.0, 44: 105.3, 22: 76.2, 11: 48.4}
 # H100 SXM peaks (NVIDIA datasheet, dense): HBM bytes/s, bf16 tensor FLOP/s,
 # f32 FLOP/s outside the tensor cores
@@ -443,13 +462,14 @@ def hmma_counts(so_path: str) -> dict:
     return counts
 
 
-def k1_logits_close(m, sg, kvs, clen, what: str) -> tuple:
-    """bf16 greedy: K1's raw logits (the debug-logits path) close to the
-    plain decode's at every step whose inputs agree, i.e. up to and
-    including the first step at which a rounding flips an argmax: max error
-    within 2% of the logits' scale (a few bf16 roundings of C=256 sums
-    apart) and correlation >= 0.9999.  Returns (max error, steps compared,
-    scale, correlation); N = sg.max_new_tokens."""
+def k1_logits_close(m, sg, kvs, clen, what: str, rel: float = 0.02, min_corr: float = 0.9999) -> tuple:
+    """Greedy: K1's raw logits (the debug-logits path) close to the plain
+    decode's at every step whose inputs agree, i.e. up to and including the
+    first step at which a rounding flips an argmax: max error within `rel`
+    of the logits' scale and correlation >= `min_corr` (bf16: 2% and
+    0.9999, a few bf16 roundings of C=256 sums apart; f32: K1_F32_REL and
+    K1_F32_CORR).  Returns (max error, steps compared, scale, correlation);
+    N = sg.max_new_tokens."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
@@ -464,8 +484,8 @@ def k1_logits_close(m, sg, kvs, clen, what: str) -> tuple:
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
     corr = float(np.corrcoef(a.flatten().cpu().numpy(), b.flatten().cpu().numpy())[0, 1])
-    if err > 0.02 * scale or corr < 0.9999:
-        raise AssertionError(f"K1 bf16 {what} logits over {n_cmp} steps: max err {err} (scale {scale}), corr {corr}")
+    if err > rel * scale or corr < min_corr:
+        raise AssertionError(f"K1 {what} logits over {n_cmp} steps: max err {err} (scale {scale}), corr {corr}")
     return err, n_cmp, scale, corr
 
 
@@ -514,19 +534,21 @@ def check_k1(dev) -> dict:
                 f"{'shared' if p.ckv_smem else 'device'} memory, weight ring {p.stages} slots")
 
     out = {}
-    # f32 greedy: tokens and lengths identical, also with the end gate
+    # f32 greedy, also with the end gate: tokens identical up to the first
+    # step at which a rounding flips an argmax (the seeded weights draw
+    # flax's initialisers, so the logits are of unit scale and top-2 gaps
+    # come within reach of f32 summation order), the raw logits close up to
+    # and including that step
     lm32 = RoformerSystem(cfg, dtype=torch.float32, device=dev, seed=0)
     for B, gate in ((1, None), (4, None), (4, 1e-9)):
         m, kvs, clen = prepare(lm32, B)
         sg = dataclasses.replace(sampling(False), end_gate_threshold=gate)
-        got = k1.roformer_decode(m, sg, kvs, clen)
-        ref = k1.roformer_decode_plain(m, sg, kvs, clen)
-        for g, r, what in zip(got, ref, ("tokens", "lengths")):
-            if not torch.equal(g.cpu(), r.cpu()):
-                bad = (g.cpu() != r.cpu()).nonzero()[:5].tolist()
-                raise AssertionError(f"K1 f32 greedy B={B} end gate {gate}: {what} differ at {bad}")
-        print(f"K1 ar_decode f32 greedy B={B} N={N_TOKENS} end gate {gate}: tokens and lengths identical "
-              f"(lengths {got[1].tolist()}; {placement(m, sg, kvs, clen)})")
+        err, n_cmp, scale, corr = k1_logits_close(m, sg, kvs, clen, f"f32 B={B} end gate {gate}",
+                                                  K1_F32_REL, K1_F32_CORR)
+        print(f"K1 ar_decode f32 greedy B={B} N={N_TOKENS} end gate {gate}: tokens identical for "
+              f"{n_cmp if n_cmp == N_TOKENS else n_cmp - 1} of {N_TOKENS} steps, logits up to the first differing "
+              f"step max abs err {err:.3e} (scale {scale:.3f}, limit {K1_F32_REL} of scale), corr {corr:.8f}; "
+              f"{placement(m, sg, kvs, clen)}")
 
     # bf16 greedy: the raw logits (debug-logits path) close at every step
     # whose inputs agree, i.e. up to and including the first step at which
@@ -582,18 +604,24 @@ def check_k1(dev) -> dict:
 
     # timing at the serve setting (bf16, sampled), per generated token, at
     # N=430 and at the serve default max_length=1024; the cluster plan and
-    # how many clusters the card holds at once; the wrapper's host time
+    # how many clusters the card holds at once; the wrapper's host time.
+    # Every timed call draws from a generator seeded alike, so each decodes
+    # the same tokens and stops at the same step (seeded weights can emit
+    # EOS before N): the time is of `n` steps
+    def seed0():
+        return torch.Generator(device=dev).manual_seed(0)
+
     for N, B in [(n, b) for n in (N_TOKENS, 1024) for b in (1, 4)] + [(1024, b) for b in SERVE_K1_B]:
         sn = dataclasses.replace(sc, max_new_tokens=N)
         m, kvs, clen = prepare(lm16, B) if B in (1, 4) else prepare_serve(lm16, B)
-        t_k = cuda_time_ms(lambda: k1.roformer_decode(m, sn, kvs, clen, generator=gen), iters=5, warmup=1)
-        n = int(k1.roformer_decode(m, sn, kvs, clen, generator=gen)[1].max())
+        t_k = cuda_time_ms(lambda: k1.roformer_decode(m, sn, kvs, clen, generator=seed0()), iters=5, warmup=1)
+        n = int(k1.roformer_decode(m, sn, kvs, clen, generator=seed0())[1].max())
         plan, clusters = k1.max_active_clusters(m, sn, kvs, clen)
         host = host_us(lambda: k1._prepare(m, sn, kvs, clen, gen, False), calls=50)
         was = EARLIER_K1_MS.get(B) if N == N_TOKENS else None
         beside = f" (earlier kernel {was:.2f} ms, {was * 1e3 / N:.1f} us/step)" if was else ""
-        print(f"K1 ar_decode bf16 B={B} N={N}: kernel {t_k:.3f} ms ({t_k * 1e3 / N:.2f} us/step){beside}; "
-              f"longest stream {n} tokens; cluster of CL={plan.CL} blocks a stream, {plan.smem_bytes} bytes "
+        print(f"K1 ar_decode bf16 B={B} N={N}: kernel {t_k:.3f} ms for {n} steps ({t_k * 1e3 / n:.2f} us/step)"
+              f"{beside}; longest stream {n} tokens; cluster of CL={plan.CL} blocks a stream, {plan.smem_bytes} bytes "
               f"of shared memory a block (KV cache there: {plan.kv_smem}, encoder K/V there: "
               f"{plan.ckv_smem}, weight ring {plan.stages} x {plan.chunk} bytes), "
               f"cudaOccupancyMaxActiveClusters {clusters}; wrapper host time (checks, packing, seed) "
@@ -606,12 +634,12 @@ def check_k1(dev) -> dict:
             for where in ("shared", "device", "device", "shared"):
                 with mock.patch.object(k1, "plan", k1.plan if where == "shared" else device_kv):
                     turns[where].append(cuda_time_ms(
-                        lambda: k1.roformer_decode(m, sn, kvs, clen, generator=gen), iters=5, warmup=1))
+                        lambda: k1.roformer_decode(m, sn, kvs, clen, generator=seed0()), iters=5, warmup=1))
             print(f"K1 ar_decode bf16 B={B} N={N}: encoder K/V in shared memory "
                   f"{[round(x, 3) for x in turns['shared']]} ms against device memory "
                   f"{[round(x, 3) for x in turns['device']]} ms (in turns)")
         if N == N_TOKENS and B == 1:
-            t_p = cuda_time_ms(lambda: k1.roformer_decode_plain(m, sn, kvs, clen, generator=gen), iters=2,
+            t_p = cuda_time_ms(lambda: k1.roformer_decode_plain(m, sn, kvs, clen, generator=seed0()), iters=2,
                                warmup=1)
             out.update(ms=t_k, plain_ms=t_p)
             out["bound_ms"], out["bound_by"] = k1_bound(m, kvs, cfg, B, n)
@@ -920,9 +948,10 @@ def serve(dev, card: str) -> dict:
 def serve_fused(dev, card: str, eager: dict) -> int:
     """The serve path in the fused configuration: `tts` sends its 20
     denoiser forwards through unet_fwd (and no K4); `tts_batch` of 4 keeps
-    B>1 on the eager module (K4, no unet_fwd); one more `tts` with UniPC
+    B>1 on the eager module (K4, no unet_fwd) and runs a latent-length
+    bucket of one request at B=1 (unet_fwd); one more `tts` with UniPC
     (method="unipc", infer_speedup=50): 20 unet_fwd launches, no K4.
-    Returns the unet_fwd launches of the three calls (40)."""
+    Returns the unet_fwd launches of the three calls."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
@@ -947,13 +976,18 @@ def serve_fused(dev, card: str, eager: dict) -> int:
     n = len(wav) // hop
     if sr != 44100 or wav.ndim != 1 or n == 0 or len(wav) != n * hop or not np.isfinite(wav).all():
         raise AssertionError(f"fused tts: bad output: sr {sr}, shape {wav.shape}")
+    # tts_batch runs one diffusion call a latent-length bucket: a bucket
+    # of one request runs at B=1 (unet_fwd), the others at B>1 (eager, K4)
+    sizes, timed_infer = [], pipe.diffusion.infer
+    pipe.diffusion.infer = lambda units, *a, **kw: sizes.append(units.shape[0]) or timed_infer(units, *a, **kw)
     t0 = time.perf_counter()
     outs = pipe.tts_batch(BATCH_TEXTS, language="EN", spk_ids=[1, 2, 3, 4], max_length=N_TOKENS)
     t_batch = time.perf_counter() - t0
-    n_batch_inf = stages["diffusion_20step_calls"] - 1
-    if k23.launches != 20 or k4.launches != 640 * n_batch_inf:
-        raise AssertionError(f"fused tts_batch: unet_fwd {k23.launches - 20} (want 0), attention_fwd "
-                             f"{k4.launches} (want {640 * n_batch_inf})")
+    pipe.diffusion.infer = timed_infer
+    n_one, n_batch_inf = sizes.count(1), len(sizes) - sizes.count(1)
+    if not n_batch_inf or k23.launches != 20 + 20 * n_one or k4.launches != 640 * n_batch_inf:
+        raise AssertionError(f"fused tts_batch (diffusion batch sizes {sizes}): unet_fwd {k23.launches - 20} "
+                             f"(want {20 * n_one}), attention_fwd {k4.launches} (want {640 * n_batch_inf})")
     for w, s in outs:
         if s != 44100 or w.ndim != 1 or len(w) == 0 or not np.isfinite(w).all():
             raise AssertionError(f"fused tts_batch: bad output: sr {s}, shape {w.shape}")
@@ -973,8 +1007,9 @@ def serve_fused(dev, card: str, eager: dict) -> int:
     print(f"fused serve tts: {len(wav) / sr:.3f} s of audio in {t_tts:.3f} s (eager {eager['t_tts']:.3f} s); "
           f"20-step diffusion of the tts {diff_tts:.4f} s (eager {eager['diff_tts']:.4f} s); launches "
           f"{tts_launches} [{card}]")
-    print(f"fused serve tts_batch x4: {t_batch:.3f} s (B>1: eager module; unet_fwd +0, attention_fwd "
-          f"+{k4_before} over {n_batch_inf} infer calls); diffusion stage over both calls "
+    print(f"fused serve tts_batch x4: {t_batch:.3f} s (diffusion batch sizes {sizes}: B>1 on the eager module, "
+          f"attention_fwd +{k4_before} over {n_batch_inf} calls; B=1 fused, unet_fwd +{20 * n_one}); diffusion "
+          f"stage over both calls "
           f"{diff_before:.4f} s vs eager {e['diffusion_20step']:.4f} s [{card}]")
     print(f"fused serve tts, UniPC (20 steps): {len(wav_u) / sr_u:.3f} s of audio in {t_unipc:.3f} s; 20-step "
           f"diffusion {diff_unipc:.4f} s; unet_fwd +20 [{card}]")
@@ -1073,7 +1108,9 @@ def compare_flagship_k4_k5(dev, card: str, k4_system, k5_system) -> None:
 def check_general_against_plain(dev):
     """The general denoiser's 20-step diffusion + vocoder with K5 against
     the same run with K5's plain version, f32, same units and x_init
-    (sampler tolerance atol/rtol 2e-3, tests/test_diffusion.py)."""
+    (sampler tolerance atol/rtol 2e-3, tests/test_diffusion.py, the atol
+    taken relative to the waveform's peak: the seeded vocoder's N(0, 0.01)
+    convolutions give a waveform far below 1)."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
@@ -1096,10 +1133,11 @@ def check_general_against_plain(dev):
         ref = pipe.infer(units, spk_id=2, x_init=x_init)
     finally:
         attention.flash_attention = k5.flash_attention
-    err = (got - ref).abs().max().item()
-    if not bool(torch.isfinite(got).all()) or not bool(((got - ref).abs() <= 2e-3 + 2e-3 * ref.abs()).all()):
-        raise AssertionError(f"general f32 wav K5 vs plain attention: max err {err}")
-    print(f"general denoiser f32 (50 tokens, 20 steps + vocoder) with K5 vs plain attention: max wav err {err:.2e}")
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    if not bool(torch.isfinite(got).all()) or not bool(((got - ref).abs() <= 2e-3 * scale + 2e-3 * ref.abs()).all()):
+        raise AssertionError(f"general f32 wav K5 vs plain attention: max err {err} (scale {scale})")
+    print(f"general denoiser f32 (50 tokens, 20 steps + vocoder) with K5 vs plain attention: max wav err {err:.2e} "
+          f"(scale {scale:.2e})")
 
 
 def check_trajectory(dev):
@@ -1143,7 +1181,8 @@ def check_trajectory(dev):
 def check_slice_against_plain(dev):
     """20-step diffusion + vocoder with the K4 kernel against the same run
     with the plain attention, f32, same units and x_init (sampler
-    tolerance atol/rtol 2e-3, tests/test_diffusion.py)."""
+    tolerance atol/rtol 2e-3, tests/test_diffusion.py, the atol relative
+    to the waveform's peak, as in check_general_against_plain)."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.models.diffusion import unet1d
@@ -1159,10 +1198,11 @@ def check_slice_against_plain(dev):
         ref = pipe.infer(units, spk_id=2, x_init=x_init)
     finally:
         unet1d.fused_attention = k4.fused_attention
-    err = (got - ref).abs().max().item()
-    if not bool(((got - ref).abs() <= 2e-3 + 2e-3 * ref.abs()).all()):
-        raise AssertionError(f"slice f32 wav kernel vs plain attention: max err {err}")
-    print(f"slice f32 (50 tokens, 20 steps + vocoder) with K4 vs plain attention: max wav err {err:.2e}")
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    if not bool(((got - ref).abs() <= 2e-3 * scale + 2e-3 * ref.abs()).all()):
+        raise AssertionError(f"slice f32 wav kernel vs plain attention: max err {err} (scale {scale})")
+    print(f"slice f32 (50 tokens, 20 steps + vocoder) with K4 vs plain attention: max wav err {err:.2e} "
+          f"(scale {scale:.2e})")
 
 
 SERVE_TEXTS = [
@@ -2568,6 +2608,272 @@ def lm_train(dev, card: str) -> dict:
     return dict(launches=launches)
 
 
+# data_path: the shipped config's data stages through their `main`
+# functions on a synthetic voiced corpus: 4 speakers x DATA_FILES files of
+# 6-8 s at 44.1 kHz ("alto" has no number: stage 01 renumbers it), one file
+# of DATA_LONG_S for stage 00 to drop; stage 02 moves 3 files of each
+# speaker to the validation set, which leaves >= 2 x 8192 unit frames for
+# stage 17 (two minibatches an epoch, 4 epochs: 8 K6 launches at N = 8192)
+DATA_SPEAKERS = ("1", "2", "4", "alto")
+DATA_FILES, DATA_LONG_S = 16, 31.0
+STAGE17_B, STAGE17_EPOCHS = 8192, 4
+# one stage-17 step on the card against the CPU: centroids within this share
+# of their largest magnitude (f32 sums of 8192 rows in other orders)
+STAGE17_CENTROID_REL = 1e-5
+# one file's stage-11 latents on the card against the CPU (f32, TF32 off):
+# within this share of their largest magnitude
+STAGE11_REL = 1e-4
+
+
+def reference_codec_state(module, cfg, gen, stage: str) -> dict:
+    """A reference-layout HiFi-VAEGAN state dict (`encoder.pth` /
+    `decoder.pth`'s "model") for the port's `VAEEncoder` (stage "down") or
+    `Generator` ("up") of `cfg`: `ups.{i}`, `resblocks.{i * n + j}.convs1.{m}`
+    ..., every weight as weight norm's `weight_v` ~ N(0, 1) and `weight_g`
+    ~ U(0.5, 1.5) (each folded row of unit norm, give or take: activations
+    of unit scale, as in a trained codec), biases N(0, 0.01), drawn from
+    `gen`."""
+    import torch
+
+    n = len(cfg.resblock_kernel_sizes)
+    convs = {"conv1": "convs1", "conv2": "convs2", "conv": "convs"}
+    out = {}
+    for key, t in module.state_dict().items():
+        mod, leaf = key.rsplit(".", 1)
+        if mod.startswith(stage + "_"):
+            mod = "ups." + mod[len(stage) + 1:]
+        elif mod.startswith("res_"):
+            block, conv = mod.split(".")
+            i, j = (int(x) for x in block[4:].split("_"))
+            kind, m = conv.rsplit("_", 1)
+            mod = f"resblocks.{i * n + j}.{convs[kind]}.{m}"
+        if leaf == "bias":
+            out[f"{mod}.bias"] = 0.01 * torch.randn(t.shape, generator=gen)
+            continue
+        out[f"{mod}.weight_v"] = torch.randn(t.shape, generator=gen)
+        out[f"{mod}.weight_g"] = 0.5 + torch.rand((t.shape[0],) + (1,) * (t.dim() - 1), generator=gen)
+    return out
+
+
+def data_path(dev, card: str) -> dict:
+    """The shipped config's data path on the card at full width, each stage
+    through its `main` as a user runs it: stages 00-02, 15, 10 (seeded
+    Whisper-large-v3, bf16), 11 (the 44.1 kHz codec encoder, f32), 17 (the
+    4096 x 1280 codebook, K6 at N = 8192), 18 (EN), 19, three diffusion
+    training steps on the stage-11 latents and the fitted codebook, then a
+    reference-layout `encoder.pth` / `decoder.pth` pair at full width served
+    with the trained checkpoint through `build_pipeline` (one EN `tts`).
+    Then the card against the CPU: one file's stage-11 latents, one stage-17
+    step, a second fit bitwise equal to the first, K6 at N = 8192."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import (
+        prepare_audio, preprocess_cluster, preprocess_mel, preprocess_text, preprocess_token, preprocess_unit,
+        preprocess_val, train_diffusion)
+    from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
+    from latent_diffusion_speech_tpu_torch.config import load_config, save_config
+    from latent_diffusion_speech_tpu_torch.models.vaegan.codec import HifiVAEGAN
+    from latent_diffusion_speech_tpu_torch.models.vaegan.config import VAEGANConfig
+    from latent_diffusion_speech_tpu_torch.models.vaegan.import_torch import generator_state_from_torch
+    from latent_diffusion_speech_tpu_torch.models.vaegan.models import Generator, VAEEncoder
+    from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import load_audio, write_wav
+    from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+    from latent_diffusion_speech_tpu_torch.quantize import kmeans as km
+    from latent_diffusion_speech_tpu_torch.train.checkpoint import latest_checkpoint_step
+
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        raw, val_audio = os.path.join(tmp, "train", "audio"), os.path.join(tmp, "val", "audio")
+        rng = np.random.default_rng(3)
+        t0 = time.perf_counter()
+        for s, spk in enumerate(DATA_SPEAKERS):
+            os.makedirs(os.path.join(raw, spk))
+            for i in range(DATA_FILES):
+                sec = float(rng.uniform(6.0, 8.0))
+                audio = svc_signal(((0.25, None), (sec, 95.0 + 15 * s + 4 * i), (0.25, None)))[0]
+                write_wav(os.path.join(raw, spk, f"{i}.wav"), audio, SVC_SR)
+                with open(os.path.join(raw, spk, f"{i}.txt"), "w", encoding="utf-8") as f:
+                    f.write(" ".join(rng.choice(LM_WORDS, int(rng.integers(6, 14)))).capitalize() + ".\n")
+        write_wav(os.path.join(raw, "2", "long.wav"), svc_signal(((DATA_LONG_S, 130.0),))[0], SVC_SR)
+        corpus_s = time.perf_counter() - t0
+        cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+        vcfg = VAEGANConfig()
+        shipped = (cfg.data.encoder, cfg.data.sampling_rate, cfg.text2semantic.model.semantic_kmeans_num,
+                   vcfg.upsample_initial_channel, vcfg.inter_channels, cfg.common.vocoder.type)
+        if shipped != ("whisper_large_v3", 44100, 4096, 512, 128, "hifi-vaegan"):
+            raise AssertionError(f"the shipped data path changed: {shipped}")
+        cfg.data.train_path, cfg.data.valid_path = os.path.join(tmp, "train"), os.path.join(tmp, "val")
+        cfg.text2semantic.model.codebook_path = os.path.join(tmp, "codebook.npz")
+        cfg.common.vocoder.ckpt = os.path.join(tmp, "hifi-vaegan")  # written in step 5
+        cfg.diffusion.train.expdir = os.path.join(tmp, "exp_diffusion")
+        cfg_path = os.path.join(tmp, "config.yaml")
+        save_config(cfg, cfg_path)
+        print(f"data_path corpus: {len(DATA_SPEAKERS)} speakers x {DATA_FILES} voiced files of 6-8 s + one of "
+              f"{DATA_LONG_S} s at 44.1 kHz, with EN labels, written in {corpus_s:.2f} s")
+
+        walls = {}
+
+        def stage(name: str, fn, *args) -> list:
+            """Runs a stage's main with its standard output captured; returns its lines."""
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                fn(*args)
+            torch.cuda.synchronize()
+            lines = buf.getvalue().splitlines()
+            walls[name] = time.perf_counter() - t
+            print(f"data_path stage {name} [{card}]: {walls[name]:.3f} s; {len(lines)} lines, the last: "
+                  f"{lines[-1] if lines else ''}")
+            return lines
+
+        def files(*parts) -> list:
+            root = os.path.join(tmp, *parts)
+            return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+
+        k1.launches = k4.launches = k4.bwd_launches = k6.launches = 0
+        stage("00-02 (drop >= 30 s, renumber, validation split)", prepare_audio.main,
+              [raw, "--max-sec", "30", "--renumber", "--valset", val_audio, "--seed", "0"])
+        wavs, val_wavs = [f for f in files("train", "audio") if f.endswith(".wav")], files("val", "audio")
+        if (sorted(os.listdir(raw)) != ["1", "2", "3", "4"] or any("long" in f for f in wavs + val_wavs)
+                or len([f for f in val_wavs if f.endswith(".wav")]) != 3 * len(DATA_SPEAKERS)):
+            raise AssertionError(f"stages 00-02: speakers {sorted(os.listdir(raw))}, {len(wavs)} train, val {val_wavs}")
+        stage("15 (labels)", preprocess_text.main, ["-c", cfg_path])
+        stage("10 (units)", preprocess_unit.main, ["-c", cfg_path])
+        frames = sum(np.load(os.path.join(tmp, "train", "units", f), mmap_mode="r").shape[0]
+                     for f in files("train", "units"))
+        if frames < 2 * STAGE17_B:
+            raise AssertionError(f"{frames} unit frames: stage 17 needs >= {2 * STAGE17_B}")
+        lines = stage("11 (latents)", preprocess_mel.main, ["-c", cfg_path])
+        mels = files("train", "mel")
+        if len(mels) != len(wavs) or files("train", "aug_mel") != mels:
+            raise AssertionError(f"stage 11: {len(mels)} mel files for {len(wavs)} wavs")
+        print(f"data_path stage 11 [{card}]: {walls['11 (latents)'] * 1e3 / len(wavs):.1f} ms a file (latents "
+              f"and the volume-augmented copy, f32) over {len(wavs)} files; e.g. {lines[0]}")
+        before = k6.launches
+        lines = stage("17 (codebook)", preprocess_cluster.main, ["-c", cfg_path])
+        k6_17 = k6.launches - before
+        want = STAGE17_EPOCHS * (frames // STAGE17_B)
+        if k6_17 != want:
+            raise AssertionError(f"stage 17: {k6_17} K6 launches, want {want}")
+        for line in lines:
+            print(f"  stage 17: {line}")
+        print(f"data_path stage 17 [{card}]: {frames} unit frames, K6 launches {k6_17} "
+              f"({frames // STAGE17_B} minibatches of {STAGE17_B} an epoch x {STAGE17_EPOCHS} epochs)")
+        stage("18 (validation, EN)", preprocess_val.main, ["-c", cfg_path, "--language", "EN"])
+        for kind in ("mel", "aug_mel", "units", "utt"):
+            if len(files("val", kind)) != 3 * len(DATA_SPEAKERS):
+                raise AssertionError(f"stage 18: {files('val', kind)} under val/{kind}")
+        before = k6.launches
+        stage("19 (tokens)", preprocess_token.main, ["-c", cfg_path])
+        if k6.launches - before != len(wavs) + 3 * len(DATA_SPEAKERS):
+            raise AssertionError(f"stage 19: {k6.launches - before} K6 launches")
+        counts = (k4.launches, k4.bwd_launches, k6.launches)
+        lines = stage("20 (3 diffusion training steps)", train_diffusion.main,
+                      ["-c", cfg_path, "--max-steps", "3"])
+        train_launches = (k4.launches - counts[0], k4.bwd_launches - counts[1], k6.launches - counts[2])
+        if latest_checkpoint_step(cfg.diffusion.train.expdir) != 3:
+            raise AssertionError(f"stage 20: no checkpoint of step 3 in {os.listdir(cfg.diffusion.train.expdir)}")
+        if train_launches != (96, 96, 3):
+            raise AssertionError(f"training launches (K4 fwd, bwd, K6) {train_launches}, want (96, 96, 3)")
+        print(f"data_path training [{card}]: launches K4 forward / backward / K6 {train_launches}; {lines[-3:]}")
+
+        # step 5: a reference-layout pair at full width, then the serve path over it
+        gen = torch.Generator().manual_seed(4)
+        h = {k: (list(map(list, v)) if k == "resblock_dilation_sizes" else list(v) if isinstance(v, tuple) else v)
+             for k, v in dataclasses.asdict(vcfg).items()}
+        os.makedirs(cfg.common.vocoder.ckpt)
+        dec_state = reference_codec_state(Generator(vcfg), vcfg, gen, "up")
+        for name, module, state in (("encoder", VAEEncoder(vcfg), None), ("decoder", None, dec_state)):
+            state = state if state is not None else reference_codec_state(module, vcfg, gen, "down")
+            torch.save({"model": state, "config": h}, os.path.join(cfg.common.vocoder.ckpt, f"{name}.pth"))
+        t = time.perf_counter()
+        pipe = build_pipeline(cfg, diffusion_ckpt=cfg.diffusion.train.expdir, device=dev)
+        built = time.perf_counter() - t
+        want_state = generator_state_from_torch(dec_state, vcfg)
+        for key, val in pipe.vocoder.generator.state_dict().items():
+            if not torch.equal(val.cpu(), want_state[key].to(val.dtype)):
+                raise AssertionError(f"build_pipeline: vocoder {key} is not the checkpoint's")
+        before = (k1.launches, k4.launches)
+        t = time.perf_counter()
+        wav, sr = pipe.tts(TEXT, language="EN", method=cfg.common.infer.method, infer_speedup=cfg.common.infer.speedup)
+        torch.cuda.synchronize()
+        walls["22 (tts)"] = time.perf_counter() - t
+        wav = np.asarray(wav)
+        if sr != 44100 or wav.ndim != 1 or not len(wav) or not np.isfinite(wav).all():
+            raise AssertionError(f"tts over the reference pair: {sr} Hz, shape {wav.shape}")
+        print(f"data_path serve [{card}]: build_pipeline over the written encoder.pth / decoder.pth (full width, "
+              f"vocoder weights equal the checkpoint's) with the trained diffusion checkpoint and the fitted "
+              f"codebook in {built:.2f} s; one EN tts {walls['22 (tts)']:.3f} s for {len(wav) / sr:.3f} s of audio; "
+              f"launches K1 {k1.launches - before[0]}, K4 {k4.launches - before[1]}")
+        launches = {"ar_decode": k1.launches, "attention_fwd": k4.launches, "attention_bwd": k4.bwd_launches,
+                    "kmeans_argmin": k6.launches}
+        print(f"data_path launches (main path) [{card}]: {launches}; stage walls "
+              f"{ {k: round(v, 3) for k, v in walls.items()} }")
+        del pipe
+        torch.cuda.empty_cache()
+
+        # the card against the CPU: one file's stage-11 latents (f32, TF32 off),
+        # with the seeded codec stage 11 ran (its N(0, 0.01) layers shrink the
+        # signal to a small scale) and with the written pair (unit-scale layers)
+        name = wavs[0]
+        audio, _ = load_audio(os.path.join(raw, name), target_sr=44100)
+        saved = torch.from_numpy(np.load(os.path.join(tmp, "train", "mel", name + ".npy")))
+        for what, kw in (("seeded, as stage 11 ran", {}), ("the written pair", {"ckpt": cfg.common.vocoder.ckpt})):
+            got = Vocoder(device=dev, **kw).extract(audio[None], 44100)[0].cpu()
+            ref = Vocoder(device="cpu", **kw).extract(audio[None], 44100)[0]
+            err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+            if not kw:
+                err = max(err, (saved - ref).abs().max().item())
+            if not err <= STAGE11_REL * scale:
+                raise AssertionError(f"stage 11 {name} ({what}): card vs CPU max err {err} (scale {scale})")
+            print(f"data_path stage 11 card vs CPU [{card}], codec {what}: {name} latents {tuple(got.shape)} max abs "
+                  f"err {err:.3e} at scale {scale:.3e} (limit {STAGE11_REL} of scale)")
+
+        # one stage-17 step on the card against the CPU, and a second fit
+        units = np.concatenate([np.load(os.path.join(tmp, "train", "units", f)) for f in files("train", "units")])
+        codebook = km.load_codebook(cfg.text2semantic.model.codebook_path)
+        batch = units[np.random.default_rng(0).permutation(len(units))[:STAGE17_B]]
+        counts = np.random.default_rng(1).integers(0, 8, len(codebook)).astype(np.float32)
+        step = {}
+        for where in ("cpu", dev):
+            c, n_, x = (torch.from_numpy(a).to(where) for a in (codebook, counts, batch))
+            ids = k6.kmeans_argmin(x, c) if where != "cpu" else k6.kmeans_argmin_plain(x, c)
+            step[str(where)] = [ids.cpu()] + [t.cpu() for t in km._assign_update(c, n_, x)]
+        (ids_cpu, c_cpu, n_cpu, i_cpu), (ids_card, c_card, n_card, i_card) = step["cpu"], step[str(dev)]
+        c_err, c_scale = (c_card - c_cpu).abs().max().item(), c_cpu.abs().max().item()
+        if (not torch.equal(ids_card, ids_cpu) or not torch.equal(n_card, n_cpu)
+                or c_err > STAGE17_CENTROID_REL * c_scale):
+            raise AssertionError(f"stage 17 step card vs CPU: ids equal {torch.equal(ids_card, ids_cpu)}, counts "
+                                 f"equal {torch.equal(n_card, n_cpu)}, centroid err {c_err} (scale {c_scale})")
+        print(f"data_path stage 17 step card vs CPU [{card}]: N={STAGE17_B} ids and counts equal; centroids max abs "
+              f"err {c_err:.3e} at scale {c_scale:.3f} (limit {STAGE17_CENTROID_REL} of scale); inertia "
+              f"{i_card.item():.6e} vs {i_cpu.item():.6e}")
+        again, _ = preprocess_cluster.fit_codebook(cfg.data.train_path, k=len(codebook), verbose=False, device=dev)
+        if not np.array_equal(again, codebook):
+            raise AssertionError("stage 17: a second fit with the same seed differs from the first")
+        print(f"data_path stage 17 [{card}]: a second fit with the same seed equals the first bit for bit")
+
+        # K6 at stage 17's N against its plain version, the split covering all codes
+        x, cb = torch.from_numpy(batch).to(dev), torch.from_numpy(codebook).to(dev)
+        splits, per = k6.split_codes(STAGE17_B, len(codebook), torch.cuda.get_device_properties(dev).multi_processor_count)
+        if splits * per < len(codebook) or (splits - 1) * per >= len(codebook):
+            raise AssertionError(f"K6 split_codes at N={STAGE17_B}: {splits} x {per} codes")
+        print(f"K6 at N={STAGE17_B}: {-(-STAGE17_B // k6.BLOCK_ROWS)} row tiles, {splits} code splits of {per} "
+              f"(the last {len(codebook) - (splits - 1) * per} codes): all {len(codebook)} codes covered")
+        row = k6_row(k6, x, cb, "stage 17")
+    print(f"data_path phase [{card}]: {time.perf_counter() - t_phase:.1f} s of wall in all (stages, the serve, "
+          f"the comparisons with the CPU)")
+    return {"launches": launches, "k6_stage17": row, "k6_stage17_launches": k6_17, "walls": walls}
+
+
 def main() -> int:
     import torch
 
@@ -2636,6 +2942,13 @@ def main() -> int:
     launches["ar_decode"] += lm["launches"]["ar_decode"]
     launches["attention_fwd"] += lm["launches"]["attention_fwd"]
     print(f"launches with lm_train's: {launches}")
+    torch.cuda.empty_cache()
+    data = data_path(dev, card)
+    for name in ("ar_decode", "attention_fwd"):
+        launches[name] += data["launches"][name]
+    print(f"launches with data_path's: {launches}, attention_bwd {data['launches']['attention_bwd']}, "
+          f"kmeans_argmin {data['launches']['kmeans_argmin']} (stage 17 {data['k6_stage17_launches']})")
+    s17 = data["k6_stage17"]
 
     src = "latent_diffusion_speech_tpu_torch/csrc/"
     kernels = [
@@ -2658,7 +2971,8 @@ def main() -> int:
              library_ms=None),
         dict(name="attention_bwd", route="cuda", source=src + "attention_bwd.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/fused_attention.py:149",
-             launches=train["launches"]["attention_bwd"], max_abs_err=k4_bwd["max_abs_err"],
+             launches=train["launches"]["attention_bwd"] + data["launches"]["attention_bwd"],
+             max_abs_err=k4_bwd["max_abs_err"],
              ms=k4_bwd["ms"], plain_ms=k4_bwd["plain_ms"], bound_ms=k4_bwd["bound_ms"],
              bound_by=k4_bwd["bound_by"], library_ms=k4_bwd["library_ms"]),
         dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
@@ -2669,10 +2983,12 @@ def main() -> int:
              simt_device_ms=k5["simt_device_ms"], host_us=k5["host_us"]),
         dict(name="kmeans_argmin", route="cuda", source=src + "kmeans_argmin.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/kmeans.py:54",
-             launches=train["launches"]["kmeans_argmin"] + svc_launches["kmeans_argmin"],
+             launches=train["launches"]["kmeans_argmin"] + svc_launches["kmeans_argmin"]
+             + data["launches"]["kmeans_argmin"],
              max_abs_err=k6["max_abs_err"],
              ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"], bound_by=k6["bound_by"],
-             library_ms=k6["library_ms"]),
+             library_ms=k6["library_ms"], stage17_ms=s17["ms"], stage17_plain_ms=s17["plain_ms"],
+             stage17_bound_ms=s17["bound_ms"], stage17_library_ms=s17["library_ms"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -63,9 +63,8 @@ def build_pipeline(cfg, diffusion_ckpt=None, lm_ckpt=None, dtype=None, device=No
     seeded ones; the LM likewise from `lm_ckpt` (the LM trainer's
     checkpoints, `cli/train_lm.py`), else seeded; the k-means centroids from
     `text2semantic.model.codebook_path`, else `default_rng(0)` centroids;
-    the vocoder seeded while `common.vocoder.ckpt` does not exist (importing
-    the reference's HiFi-VAEGAN files is not ported: an existing path
-    raises, so random weights never stand in for real ones)."""
+    the vocoder from the reference's `encoder.pth` / `decoder.pth` in the
+    `common.vocoder.ckpt` directory, else seeded (with a notice)."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.infer.tts import TTSPipeline
@@ -81,12 +80,6 @@ def build_pipeline(cfg, diffusion_ckpt=None, lm_ckpt=None, dtype=None, device=No
         raise NotImplementedError(
             f"weight_quant={cfg.common.infer.weight_quant!r}: int8 serving weights are not ported yet "
             "(ROADMAP.md Queue 1, item 11)"
-        )
-    vocoder_ckpt = cfg.common.vocoder.ckpt
-    if vocoder_ckpt and Path(vocoder_ckpt).exists():
-        raise NotImplementedError(
-            f"{vocoder_ckpt}: loading HiFi-VAEGAN weights from the reference's checkpoint is not ported yet "
-            "(ROADMAP.md Queue 1, load_reference_pipeline)"
         )
     device = resolve_device(device)
     dtype = dtype or torch.bfloat16
@@ -127,8 +120,10 @@ def build_pipeline(cfg, diffusion_ckpt=None, lm_ckpt=None, dtype=None, device=No
         print("[!] no LM checkpoint given; seeded random weights")
     lm = get_language_model(cfg, dtype=dtype, device=device, state_dict=_native_state(lm_ckpt) if lm_ckpt else None)
 
-    print(f"[!] no vocoder checkpoint at {vocoder_ckpt}; seeded random weights")
-    vocoder = Vocoder(cfg.common.vocoder.type, VAEGANConfig(), dtype=dtype, device=device)
+    vocoder_ckpt = cfg.common.vocoder.ckpt
+    if not (vocoder_ckpt and Path(vocoder_ckpt).is_dir()):
+        print(f"[!] no vocoder checkpoint at {vocoder_ckpt}; seeded random weights")
+    vocoder = Vocoder(cfg.common.vocoder.type, VAEGANConfig(), dtype=dtype, device=device, ckpt=vocoder_ckpt)
     return TTSPipeline(diffusion, vocoder, lm=lm, codebook=codebook)
 
 

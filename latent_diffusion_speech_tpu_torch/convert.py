@@ -22,7 +22,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["roformer_from_jax", "unit2mel_from_jax", "generator_from_jax", "whisper_encoder_from_jax"]
+__all__ = ["roformer_from_jax", "unit2mel_from_jax", "encoder_from_jax", "generator_from_jax",
+           "whisper_encoder_from_jax"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -68,6 +69,12 @@ def unit2mel_from_jax(params: Mapping) -> dict:
     `unet.down_blocks_0.downsamplers_0.conv` tree (`UNet1DCondition` with
     the block types of `Unit2MelConfig.general_unet_config`).  The port's
     `Unit2Mel` must be built with the same `denoiser`."""
+    return _convert(params)
+
+
+def encoder_from_jax(params: Mapping) -> dict:
+    """flax HiFi-VAEGAN `VAEEncoder` params -> state dict of the port's
+    `VAEEncoder` (every layer an ordinary convolution, `down_*` strided)."""
     return _convert(params)
 
 

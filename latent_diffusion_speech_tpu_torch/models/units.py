@@ -15,8 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from latent_diffusion_speech_tpu_torch.models.whisper.model import WhisperDims, WhisperEncoder, init_weights
-from latent_diffusion_speech_tpu_torch.ops.layers import cast_compute_dtype, resolve_device
+from latent_diffusion_speech_tpu_torch.models.whisper.model import WhisperDims, WhisperEncoder
+from latent_diffusion_speech_tpu_torch.ops.layers import cast_compute_dtype, init_weights, resolve_device
 from latent_diffusion_speech_tpu_torch.ops.resample import resample
 from latent_diffusion_speech_tpu_torch.ops.stft import whisper_log_mel
 

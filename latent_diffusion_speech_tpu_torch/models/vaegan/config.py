@@ -27,3 +27,17 @@ class VAEGANConfig:
         for u in self.upsample_rates:
             out *= u
         return out
+
+    @classmethod
+    def from_torch_h(cls, h: dict) -> "VAEGANConfig":
+        """Build from the reference's `h` config dict (decoder.pth['config'])."""
+        return cls(
+            sampling_rate=int(h["sampling_rate"]),
+            inter_channels=int(h["inter_channels"]),
+            resblock=str(h["resblock"]),
+            resblock_kernel_sizes=tuple(h["resblock_kernel_sizes"]),
+            resblock_dilation_sizes=tuple(tuple(d) for d in h["resblock_dilation_sizes"]),
+            upsample_rates=tuple(h["upsample_rates"]),
+            upsample_initial_channel=int(h["upsample_initial_channel"]),
+            upsample_kernel_sizes=tuple(h["upsample_kernel_sizes"]),
+        )

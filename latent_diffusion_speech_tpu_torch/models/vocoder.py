@@ -1,19 +1,23 @@
-"""Vocoder facade (counterpart of `latent_diffusion_speech_tpu/models/vocoder.py`).
+"""Vocoder facade (counterpart of `latent_diffusion_speech_tpu/models/vocoder.py`,
+the reference's `diffusion/vocoder.py:5-33`).
 
-Only the decode side of `hifi-vaegan` is ported: `infer(latents)` runs the
-HiFi-GAN generator.  Latent extraction from audio (the VAE encoder) is not
-ported yet (ROADMAP.md).
+`hifi-vaegan` is the one type: `extract(audio, sample_rate)` resamples to
+the codec's rate when it differs and returns the (B, T_frames, 2C) latent
+stats; `infer(latents)` decodes.  The checkpoint rule is the JAX
+registry's: a `ckpt` directory loads the reference's `encoder.pth` +
+`decoder.pth`; anything else builds seeded weights.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
+from latent_diffusion_speech_tpu_torch.models.vaegan.codec import HifiVAEGAN
 from latent_diffusion_speech_tpu_torch.models.vaegan.config import VAEGANConfig
-from latent_diffusion_speech_tpu_torch.models.vaegan.models import Generator
-from latent_diffusion_speech_tpu_torch.ops.layers import cast_compute_dtype, resolve_device, seeded
+from latent_diffusion_speech_tpu_torch.ops.resample import resample
 
 __all__ = ["Vocoder"]
 
@@ -27,19 +31,25 @@ class Vocoder:
         dtype: torch.dtype = torch.float32,
         device=None,
         seed: int = 0,
+        ckpt: Optional[str] = None,
     ):
-        """state_dict: the generator's weights (`convert.generator_from_jax`);
-        None builds seeded random weights.  device: None means `cuda`
-        (raises without a card)."""
+        """ckpt: a directory with the reference's `encoder.pth` and
+        `decoder.pth` (the geometry is theirs; `cfg` and `state_dict` are
+        then not used).  Otherwise `cfg` (default: the 44.1 kHz codec) with
+        `state_dict`, the generator's weights (`convert.generator_from_jax`),
+        or seeded ones where it is None.  device: None means `cuda` (raises
+        without a card)."""
         if vocoder_type != "hifi-vaegan":
             raise ValueError(f"[x] Unknown vocoder: {vocoder_type}")
         self.vocoder_type = vocoder_type
-        self.cfg = cfg if cfg is not None else VAEGANConfig()
-        self.device = resolve_device(device)
-        gen = seeded(lambda: Generator(self.cfg), seed)
-        if state_dict is not None:
-            gen.load_state_dict(state_dict)
-        self.generator = cast_compute_dtype(gen, dtype).to(self.device).eval()
+        if ckpt and os.path.isdir(ckpt):
+            self.vocoder = HifiVAEGAN.from_torch_checkpoint(ckpt, dtype=dtype, device=device)
+        else:
+            self.vocoder = HifiVAEGAN(cfg if cfg is not None else VAEGANConfig(), generator_state=state_dict,
+                                      dtype=dtype, device=device, seed=seed)
+        self.cfg = self.vocoder.cfg
+        self.device = self.vocoder.device
+        self.generator = self.vocoder.generator
 
     @property
     def dimension(self) -> int:
@@ -53,6 +63,13 @@ class Vocoder:
     @property
     def vocoder_hop_size(self) -> int:
         return self.cfg.hop_size
+
+    def extract(self, audio: torch.Tensor, sample_rate: int, **kw) -> torch.Tensor:
+        """Audio (B, T) at any rate -> (B, T_frames, 2*C) latent stats."""
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+        if sample_rate != self.vocoder_sample_rate:
+            audio = resample(audio, sample_rate, self.vocoder_sample_rate)
+        return self.vocoder.extract(audio, **kw)
 
     @torch.no_grad()
     def infer(self, latents: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ from torch import nn
 from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention
 from latent_diffusion_speech_tpu_torch.ops.layers import Dense, LayerNorm
 
-__all__ = ["WhisperDims", "sinusoids", "MHA", "ResidualAttentionBlock", "WhisperEncoder", "init_weights"]
+__all__ = ["WhisperDims", "sinusoids", "MHA", "ResidualAttentionBlock", "WhisperEncoder"]
 
 
 @dataclass(frozen=True)
@@ -108,21 +108,3 @@ class WhisperEncoder(nn.Module):
         for block in self.blocks:
             x = block(x)
         return self.ln_post(x)
-
-
-@torch.no_grad()
-def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """The flax initialisers the JAX module is seeded with: products
-    LeCun-normal (truncated at two standard deviations), biases 0,
-    LayerNorms 1 and 0; drawn on the module's device from `generator`."""
-    for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
-            fan_in = m.weight[0].numel()
-            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978  # flax's truncated_normal correction
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.LayerNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-    return module

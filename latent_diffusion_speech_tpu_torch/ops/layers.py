@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "LayerNorm", "GroupNorm", "cast_compute_dtype", "seeded", "resolve_device"]
+__all__ = ["Dense", "LayerNorm", "GroupNorm", "cast_compute_dtype", "init_weights", "seeded", "no_tf32",
+           "resolve_device"]
 
 
 class Dense(nn.Linear):
@@ -53,12 +54,50 @@ def cast_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
-def seeded(factory, seed: int):
-    """Build modules under a private RNG seeded with `seed` (the caller's
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator, conv_std: float | None = None) -> nn.Module:
+    """The flax initialisers the JAX modules are seeded with, drawn on the
+    module's device from `generator`: products (`nn.Linear`, `nn.Conv1d`)
+    LeCun-normal truncated at two standard deviations (flax's `nn.Dense`
+    default and the JAX UNets' explicit `lecun_normal()`), embeddings
+    N(0, 1/C) (flax's `default_embed_init`: variance scaling 1.0 over
+    fan-in C, a plain normal), biases 0, norm scales 1 and offsets 0.
+    `conv_std` draws every `nn.Conv1d` and `nn.ConvTranspose1d` from
+    N(0, conv_std) instead, as the HiFi-VAEGAN modules do (0.01)."""
+    for m in module.modules():
+        if conv_std is not None and isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+            m.weight.normal_(0.0, conv_std, generator=generator)
+        elif isinstance(m, (nn.Linear, nn.Conv1d)):
+            std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978  # flax's truncated_normal correction
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, m.embedding_dim ** -0.5, generator=generator)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)) and m.weight is not None:
+            m.weight.fill_(1.0)
+        elif isinstance(m, nn.ConvTranspose1d):
+            raise ValueError("init_weights: a transposed convolution needs conv_std (flax has no default for it)")
+        else:
+            continue
+        if getattr(m, "bias", None) is not None:
+            m.bias.zero_()
+    return module
+
+
+def seeded(factory, seed: int) -> nn.Module:
+    """Build modules with `factory` and draw their weights with
+    `init_weights` from a CPU generator seeded with `seed` (the caller's
     global RNG state is left as it was)."""
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        return factory()
+        module = factory()
+    return init_weights(module, torch.Generator().manual_seed(seed))
+
+
+def no_tf32() -> None:
+    """Full f32 products and convolutions on the card, as the JAX package
+    computes in f32: TF32 would round their inputs to 10 mantissa bits.
+    The switches are process-wide and stay off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,10 +1,12 @@
-"""STFT and the Whisper log-mel front-end.
+"""STFT, its inverse, and the two mel front-ends.
 
 Counterpart of `latent_diffusion_speech_tpu/ops/stft.py` (`hann_window`,
-`frame`, `stft`, `whisper_log_mel`): the same framing, window and padding
-arithmetic, with `torch.fft.rfft` in place of `jnp.fft.rfft`.  The
-HiFi-VAEGAN `MelSpectrogram` and `istft` wait for the codec encoder
-(ROADMAP.md).
+`frame`, `stft`, `istft`, `MelSpectrogram`, `whisper_log_mel`): the same
+framing, window and padding arithmetic, with `torch.fft.rfft` /
+`torch.fft.irfft` in place of `jnp.fft`, and `F.fold` as the overlap-add.
+`MelSpectrogram` is the HiFi-VAEGAN log-mel (the reference's `nvSTFT.py`:
+asymmetric (win - hop) // 2 padding, magnitude sqrt(re^2 + im^2 + 1e-9),
+slaney mel, log with a 1e-5 clamp, the keyshift and speed rules).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 
 from latent_diffusion_speech_tpu_torch.ops.mel import mel_filterbank
 
-__all__ = ["hann_window", "frame", "stft", "whisper_log_mel",
+__all__ = ["hann_window", "frame", "stft", "istft", "MelSpectrogram", "whisper_log_mel",
            "WHISPER_SAMPLE_RATE", "WHISPER_N_FFT", "WHISPER_HOP"]
 
 # Whisper front-end constants (`encoder/whisper/audio.py:9-13`)
@@ -56,16 +58,106 @@ def stft(
     """torch.stft-compatible STFT. Input (..., T), output (..., n_freq,
     n_frames) complex64; onesided, not normalised, reflect-padded by
     n_fft // 2 on each side when `center`."""
-    win_length = win_length or n_fft
-    if window is None:
-        window = hann_window(win_length, device=y.device)
-    if win_length < n_fft:
-        lpad = (n_fft - win_length) // 2
-        window = F.pad(window, (lpad, n_fft - win_length - lpad))
+    window = _padded_window(window, win_length or n_fft, n_fft, y.device)
     if center:
         y = _pad_last(y, n_fft // 2, n_fft // 2, "reflect")
     frames = frame(y, n_fft, hop_length) * window.to(y.dtype)
     return torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(-1, -2)
+
+
+def _padded_window(window: Optional[torch.Tensor], win_length: int, n_fft: int, device) -> torch.Tensor:
+    if window is None:
+        window = hann_window(win_length, device=device)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        window = F.pad(window, (lpad, n_fft - win_length - lpad))
+    return window
+
+
+def istft(
+    spec: torch.Tensor,
+    n_fft: int,
+    hop_length: int,
+    win_length: Optional[int] = None,
+    window: Optional[torch.Tensor] = None,
+    center: bool = True,
+    length: Optional[int] = None,
+) -> torch.Tensor:
+    """Inverse STFT by overlap-add with squared-window normalisation
+    (torch.istft semantics). Input (..., n_freq, n_frames) complex; output
+    (..., T) real."""
+    window = _padded_window(window, win_length or n_fft, n_fft, spec.device)
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)
+    frames = frames * window.to(frames.dtype)
+    batch_shape, n_frames = frames.shape[:-2], frames.shape[-2]
+    out_len = n_fft + hop_length * (n_frames - 1)
+
+    def overlap_add(fr: torch.Tensor) -> torch.Tensor:  # (B, n_frames, n_fft) -> (B, out_len)
+        return F.fold(fr.transpose(1, 2), (1, out_len), (1, n_fft), stride=(1, hop_length))[:, 0, 0]
+
+    out = overlap_add(frames.reshape(-1, n_frames, n_fft))
+    wsq = (window.to(frames.dtype) ** 2).expand(1, n_frames, n_fft)
+    out = out / overlap_add(wsq).clamp(min=1e-11)
+    if center:
+        out = out[:, n_fft // 2: out_len - n_fft // 2]
+    if length is not None:
+        out = out[:, :length]
+    return out.reshape(batch_shape + out.shape[1:])
+
+
+class MelSpectrogram:
+    """HiFi-VAEGAN log-mel front-end (reference `nvSTFT.py:55-118`)."""
+
+    def __init__(
+        self,
+        sr: int = 44100,
+        n_mels: int = 128,
+        n_fft: int = 2048,
+        win_size: int = 2048,
+        hop_length: int = 512,
+        fmin: float = 40.0,
+        fmax: float = 16000.0,
+        clip_val: float = 1e-5,
+    ):
+        self.sr = sr
+        self.n_mels = n_mels
+        self.n_fft = n_fft
+        self.win_size = win_size
+        self.hop_length = hop_length
+        self.fmin = fmin
+        self.fmax = fmax
+        self.clip_val = clip_val
+        self.mel_basis = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin=fmin, fmax=fmax))
+
+    def __call__(self, y: torch.Tensor, keyshift: float = 0.0, speed: float = 1.0) -> torch.Tensor:
+        """Input (B, T) in [-1, 1]; output (B, n_mels, n_frames) log-mel, f32."""
+        y = y.float()
+        factor = 2.0 ** (keyshift / 12.0)
+        n_fft_new = int(round(self.n_fft * factor))
+        win_size_new = int(round(self.win_size * factor))
+        hop_new = int(round(self.hop_length * speed))
+
+        pad_left = (win_size_new - hop_new) // 2
+        pad_right = max((win_size_new - hop_new + 1) // 2, win_size_new - y.shape[-1] - pad_left)
+        mode = "reflect" if pad_right < y.shape[-1] else "constant"
+        y = _pad_last(y, pad_left, pad_right, mode)
+
+        window = hann_window(win_size_new, device=y.device)
+        spec = stft(y, n_fft_new, hop_new, win_length=win_size_new, window=window, center=False)
+        mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+        if keyshift != 0:
+            size = self.n_fft // 2 + 1
+            if mag.shape[-2] < size:
+                mag = F.pad(mag, (0, 0, 0, size - mag.shape[-2]))
+            mag = mag[..., :size, :] * (self.win_size / win_size_new)
+        mel = torch.einsum("mf,...ft->...mt", self.mel_basis.to(y.device), mag)
+        return torch.log(mel.clamp(min=self.clip_val))
+
+    def frames_for_length(self, n_samples: int, speed: float = 1.0) -> int:
+        hop_new = int(round(self.hop_length * speed))
+        pad_left = (self.win_size - hop_new) // 2
+        pad_right = max((self.win_size - hop_new + 1) // 2, self.win_size - n_samples - pad_left)
+        return 1 + (n_samples + pad_left + pad_right - self.win_size) // hop_new
 
 
 @lru_cache(maxsize=8)

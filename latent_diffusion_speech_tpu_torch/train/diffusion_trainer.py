@@ -37,6 +37,7 @@ import torch
 from latent_diffusion_speech_tpu_torch.config import Config
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
 from latent_diffusion_speech_tpu_torch.models.units import get_encoder_out_channels
+from latent_diffusion_speech_tpu_torch.ops.layers import no_tf32
 from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
 from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_step,
@@ -70,10 +71,7 @@ class DiffusionTrainer(AdamWUpdates):
             raise NotImplementedError("only the k-means EuclideanCodebook snap is ported; "
                                       "the learned VectorQuantize is not (ROADMAP.md)")
         units_width = get_encoder_out_channels(cfg.data.encoder)
-        # f32 as the JAX entry point trains: CUDA matmuls and convolutions in
-        # full f32, not TF32 (process-wide switches, off for the whole run)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        no_tf32()  # f32 as the JAX entry point trains
         m = cfg.diffusion.model
         self.model_cfg = model_cfg or Unit2MelConfig(
             input_channel=units_width,

@@ -37,6 +37,7 @@ import torch
 from latent_diffusion_speech_tpu_torch.config import Config
 from latent_diffusion_speech_tpu_torch.models.lm.registry import roformer_config_from
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerConfig, RoformerSystem
+from latent_diffusion_speech_tpu_torch.ops.layers import no_tf32
 from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_step,
     load_checkpoint,
@@ -105,10 +106,7 @@ class LMTrainer(AdamWUpdates):
         self.cfg = cfg
         tcfg = cfg.text2semantic.train
         self.lm_type = cfg.text2semantic.model.type
-        # f32 as the JAX entry point trains: CUDA matmuls in full f32, not
-        # TF32 (process-wide switches, off for the whole run)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        no_tf32()  # f32 as the JAX entry point trains
         self.lm_cfg = lm_cfg or roformer_config_from(cfg)
         self.system = RoformerSystem(self.lm_cfg, device=device, seed=tcfg.seed, codebook=codebook, training=True)
         self.device = self.system.device

@@ -84,6 +84,7 @@ def _default_systems():
     from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
     from latent_diffusion_speech_tpu_torch.infer.load import load_native_pipeline
     from latent_diffusion_speech_tpu_torch.models.units import UnitsEncoder, WhisperLargeV3Units
+    from latent_diffusion_speech_tpu_torch.models.vaegan.codec import HifiVAEGAN
     from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
     from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
     from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer
@@ -95,6 +96,7 @@ def _default_systems():
         "RoformerSystem": lambda: roformer.RoformerSystem(roformer.RoformerConfig()),
         "Unit2MelSystem": lambda: unit2mel.Unit2MelSystem(unit2mel.Unit2MelConfig()),
         "Vocoder": lambda: Vocoder("hifi-vaegan"),
+        "HifiVAEGAN": lambda: HifiVAEGAN.random_init(),
         "EuclideanCodebook": lambda: EuclideanCodebook([[0.0, 1.0]]),
         "DiffusionTrainer": lambda: DiffusionTrainer(config.Config(), model_cfg=tiny),
         "LMTrainer": lambda: LMTrainer(config.Config()),
@@ -111,11 +113,14 @@ CLIS = {
     "cli.infer_svc": ["-c", CONFIG, "-i", "no-such-input.wav"],
     "cli.preprocess_unit": ["-c", CONFIG],
     "cli.preprocess_token": ["-c", CONFIG],
+    "cli.preprocess_mel": ["-c", CONFIG],
+    "cli.preprocess_cluster": ["-c", CONFIG],
+    "cli.preprocess_val": ["-c", CONFIG],
     "cli.train_lm": ["-c", CONFIG],
 }
 
 
-@pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "EuclideanCodebook",
+@pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "HifiVAEGAN", "EuclideanCodebook",
                                   "DiffusionTrainer", "LMTrainer", "build_pipeline", "load_native_pipeline",
                                   "UnitsEncoder", "WhisperLargeV3Units", *CLIS])
 def test_entry_points_default_to_the_card(name):
@@ -187,6 +192,9 @@ DTYPE_DEFAULTS = {
     ("models.diffusion.unit2mel", "Unit2MelSystem.__init__", "dtype"),
     ("models.lm.roformer", "RoformerSystem.__init__", "dtype"),
     ("models.units", "WhisperLargeV3Units.__init__", "dtype"),
+    ("models.vaegan.codec", "HifiVAEGAN.__init__", "dtype"),
+    ("models.vaegan.codec", "HifiVAEGAN.random_init", "dtype"),
+    ("models.vaegan.codec", "HifiVAEGAN.from_torch_checkpoint", "dtype"),
     ("ops.stft", "hann_window", "dtype"),
 }
 

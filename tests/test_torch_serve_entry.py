@@ -19,7 +19,8 @@
 * `cli/serve.py::main` serves /tts (behind its bearer token) and /healthz
   on the CPU, and returns when its HTTP server is shut down;
 * what is not ported raises NotImplementedError: `--weight-quant int8`,
-  `type: llama`, an LM checkpoint, a vocoder checkpoint on disk.
+  `type: llama`, a reference-format LM checkpoint; a vocoder checkpoint
+  directory without the reference's files raises FileNotFoundError.
 
 f32 on the CPU.  Tolerance: tokens, codebooks, bytes and configs exact; the
 waveform atol/rtol 2e-3 (the sampler tolerance of tests/test_diffusion.py,
@@ -395,8 +396,11 @@ def test_lm_checkpoint_raises_in_build_pipeline(tmp_path):
 
 
 def test_vocoder_checkpoint_directory_raises(tmp_path):
+    """An existing `common.vocoder.ckpt` directory is loaded (as in JAX),
+    so one without the reference's `decoder.pth` raises instead of serving
+    seeded weights (tests/test_torch_codec.py serves a real pair)."""
     cfg = _tiny(config.load_config(CONFIG), tmp_path)
     (tmp_path / "hifi-vaegan").mkdir()
     cfg.common.vocoder.ckpt = str(tmp_path / "hifi-vaegan")
-    with pytest.raises(NotImplementedError, match="HiFi-VAEGAN"):
+    with pytest.raises(FileNotFoundError, match="decoder.pth"):
         build_pipeline(cfg, device="cpu")
