@@ -122,7 +122,22 @@ with nvcc (sm_90a), then:
    `tts`); then the card against the CPU: one file's stage-11 latents, one
    stage-17 step (ids and counts equal, centroids within 1e-5 of their
    scale), a second fit bitwise equal to the first, and K6 at N = 8192
-   against its plain version, timed beside cuBLAS's product and its bound.
+   against its plain version, timed beside cuBLAS's product and its bound;
+   after stages 10 and 11, `cli/batch_preprocess.py`'s main (B=8) over
+   the same files linked into a second root: its wall and ms a file
+   beside stages 10 + 11's, its batches and buckets, unit frame counts
+   and units against stage 10's, the latents' frame counts and their gap
+   from stage 11's (R7, reported);
+12. migrate: a full-width reference artifact set written by the inverses
+   of the importers (`reference_unit2mel_state`, `reference_roformer_state`,
+   `reference_codec_state`; the sklearn codebook dict; a Whisper-large-v3
+   wrapper cut to 2 layers) served through
+   `infer/load.py::load_reference_pipeline` in bf16 (one EN `tts`: 1 K1
+   launch, 32 K4 launches a denoiser evaluation) and checked by
+   `cli/verify_import.py` (in-process on the codebook: 1 K6 launch); the
+   set in f32 on the card against the CPU (the Unit2Mel forward, K1's
+   greedy logits); `verify_import` as a process for every kind, CPU
+   goldens then the card, each within 1e-3 of its golden.
 
 Any failure raises (exit code != 0).  The second-to-last line is a JSON
 object with one entry per kernel; the last line is
@@ -137,6 +152,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -462,20 +478,24 @@ def hmma_counts(so_path: str) -> dict:
     return counts
 
 
-def k1_logits_close(m, sg, kvs, clen, what: str, rel: float = 0.02, min_corr: float = 0.9999) -> tuple:
+def k1_logits_close(m, sg, kvs, clen, what: str, rel: float = 0.02, min_corr: float = 0.9999,
+                    ref=None) -> tuple:
     """Greedy: K1's raw logits (the debug-logits path) close to the plain
     decode's at every step whose inputs agree, i.e. up to and including the
     first step at which a rounding flips an argmax: max error within `rel`
     of the logits' scale and correlation >= `min_corr` (bf16: 2% and
     0.9999, a few bf16 roundings of C=256 sums apart; f32: K1_F32_REL and
-    K1_F32_CORR).  Returns (max error, steps compared, scale, correlation);
-    N = sg.max_new_tokens."""
+    K1_F32_CORR).  `ref`: (module, cross K/V, lengths) for the plain decode
+    (the same weights on another device, the CPU), else the kernel's own.
+    Returns (max error, steps compared, scale, correlation); N =
+    sg.max_new_tokens."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
 
     toks_k, lens, lg = k1.roformer_decode(m, sg, kvs, clen, debug_logits=True)
-    toks_p, _, lg_ref = k1.roformer_decode_plain(m, sg, kvs, clen, debug_logits=True)
+    rm, rkvs, rclen = ref if ref is not None else (m, kvs, clen)
+    toks_p, _, lg_ref = (t.to(lg.device) for t in k1.roformer_decode_plain(rm, sg, rkvs, rclen, debug_logits=True))
     differ = (toks_k != toks_p).any(dim=0).nonzero()
     n_cmp = int(differ[0]) + 1 if len(differ) else sg.max_new_tokens
     # each stream's steps up to its EOS (the kernel writes no logits after it)
@@ -1942,6 +1962,25 @@ def check_k4_bwd(dev) -> dict:
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
 
+def f64_ties(x, cb, got, ref, what: str) -> tuple:
+    """The rows where two argmins over the same codes (`got`, `ref`)
+    differ, each required to be a tie: its two squared distances,
+    recomputed in f64, within 1e-6 relative (f32 sums in another order
+    can only flip a tie that close).  Returns (the rows, the largest f64
+    distance gap among them)."""
+    import torch
+
+    differ = (got.to(ref.device) != ref).nonzero()[:, 0]
+    if not len(differ):
+        return differ, 0.0
+    x64, cb64 = x[differ.to(x.device)].double(), cb.double()
+    d_got = ((x64 - cb64[got[differ.to(got.device)].long()]) ** 2).sum(-1)
+    d_ref = ((x64 - cb64[ref[differ].long().to(cb.device)]) ** 2).sum(-1)
+    if not bool(((d_got - d_ref).abs() <= 1e-6 * torch.maximum(d_got, d_ref)).all()):
+        raise AssertionError(f"K6 {what} {tuple(x.shape)} x {len(cb)}: {len(differ)} rows differ, not all f64 ties")
+    return differ, (d_got - d_ref).abs().max().item()
+
+
 def k6_row(k6, x, cb, what: str) -> dict:
     """K6 on (x, cb) against its plain version: ids equal, except that a
     row may differ when its two squared distances, recomputed in f64, are
@@ -1953,16 +1992,8 @@ def k6_row(k6, x, cb, what: str) -> dict:
     import torch
 
     (N, D), K = x.shape, cb.shape[0]
-    got, ref = k6.kmeans_argmin(x, cb), k6.kmeans_argmin_plain(x, cb)
-    differ = (got != ref).nonzero()[:, 0]
-    dist_err = 0.0  # largest f64 squared-distance gap between the two choices of a differing row
-    if len(differ):
-        x64, cb64 = x[differ].double(), cb.double()
-        d_got = ((x64 - cb64[got[differ].long()]) ** 2).sum(-1)
-        d_ref = ((x64 - cb64[ref[differ].long()]) ** 2).sum(-1)
-        if not bool(((d_got - d_ref).abs() <= 1e-6 * torch.maximum(d_got, d_ref)).all()):
-            raise AssertionError(f"K6 {what} ({N}, {K}, {D}): {len(differ)} rows differ, not all f64 ties")
-        dist_err = (d_got - d_ref).abs().max().item()
+    got = k6.kmeans_argmin(x, cb)
+    differ, dist_err = f64_ties(x, cb, got, k6.kmeans_argmin_plain(x, cb), what)
     ms = cuda_time_ms(lambda: k6.kmeans_argmin(x, cb), iters=20)
     plain_ms = cuda_time_ms(lambda: k6.kmeans_argmin_plain(x, cb), iters=10)
     library_ms = cuda_time_ms(lambda: x @ cb.T, iters=20)
@@ -2623,6 +2654,7 @@ STAGE17_CENTROID_REL = 1e-5
 # one file's stage-11 latents on the card against the CPU (f32, TF32 off):
 # within this share of their largest magnitude
 STAGE11_REL = 1e-4
+BATCH_B = 8  # cli/batch_preprocess.py's batch size in data_path (its default)
 
 
 def reference_codec_state(module, cfg, gen, stage: str) -> dict:
@@ -2655,6 +2687,170 @@ def reference_codec_state(module, cfg, gen, stage: str) -> dict:
     return out
 
 
+# the port's flagship UNet1D names -> the reference UNet1DConditionModel's
+# (`models/diffusion/import_torch.py` reads these)
+_UNET_TOP = ((r"(down|up)_(\d+)_res_(\d+)", r"\1_blocks.\2.resnets.\3"),
+             (r"(down|up)_(\d+)_attn_(\d+)", r"\1_blocks.\2.attentions.\3"),
+             (r"(down|up)_(\d+)_(downsample|upsample)", r"\1_blocks.\2.\3rs.0"),
+             (r"mid_res_(\d)", r"mid_block.resnets.\1"), (r"mid_attn", "mid_block.attentions.0"),
+             (r"time_mlp1", "time_embedding.linear_1"), (r"time_mlp2", "time_embedding.linear_2"))
+_TRANSFORMER = {"norm1": "transformer_blocks.0.norm1", "norm2": "transformer_blocks.0.norm2",
+                "norm3": "transformer_blocks.0.norm3", "ff_proj": "transformer_blocks.0.ff.net.0.proj",
+                "ff_out": "transformer_blocks.0.ff.net.2"}
+
+
+def reference_unit2mel_state(state: dict) -> dict:
+    """A reference-layout Unit2Mel state dict (`exp/diffusion/model_<step>.pt`'s
+    "model") holding the weights of the port's flagship `Unit2Mel` state dict
+    `state`: the embeddings keep their names, the UNet goes under
+    `decoder.denoise_fn.` with diffusers' names, and `proj_in` / `proj_out`
+    become k=1 convolutions.  The inverse of `unit2mel_state_from_torch`."""
+    out = {}
+    for key, t in state.items():
+        if not key.startswith("unet."):
+            out[key] = t
+            continue
+        top, *rest, leaf = key[len("unet."):].split(".")
+        head = top
+        for pattern, repl in _UNET_TOP:
+            if re.fullmatch(pattern, top):
+                head = re.sub(pattern, repl, top)
+                break
+        if "attn" in top:  # a transformer block
+            sub = rest[0]
+            if sub in ("attn1", "attn2"):
+                rest = ["transformer_blocks.0", sub, "to_out.0" if rest[1] == "to_out" else rest[1]]
+            elif sub in _TRANSFORMER:
+                rest = [_TRANSFORMER[sub]]
+            elif sub in ("proj_in", "proj_out") and leaf == "weight":
+                t = t[:, :, None]
+        out[".".join(["decoder.denoise_fn", head, *rest, leaf])] = t
+    return out
+
+
+_ROFORMER_TOP = {"phone_embed": "text_encoder.embeddings.word_embeddings",
+                 "tone_embed": "text_encoder.embeddings.token_type_embeddings",
+                 "enc_emb_ln": "text_encoder.embeddings.LayerNorm",
+                 "semantic_embed": "semantic_decoder.roformer.embeddings.word_embeddings",
+                 "dec_type_embed": "semantic_decoder.roformer.embeddings.token_type_embeddings",
+                 "dec_emb_ln": "semantic_decoder.roformer.embeddings.LayerNorm",
+                 "head_transform": "semantic_decoder.cls.predictions.transform.dense",
+                 "head_ln": "semantic_decoder.cls.predictions.transform.LayerNorm",
+                 "spk_embed": "spk_emb"}
+_ROFORMER_LAYER = {"self_attn.query": "attention.self.query", "self_attn.key": "attention.self.key",
+                   "self_attn.value": "attention.self.value", "self_attn.out": "attention.output.dense",
+                   "self_ln": "attention.output.LayerNorm", "ff_in": "intermediate.dense",
+                   "ff_out": "output.dense", "ff_ln": "output.LayerNorm",
+                   "cross_attn.query": "crossattention.self.query", "cross_attn.key": "crossattention.self.key",
+                   "cross_attn.value": "crossattention.self.value",
+                   "cross_attn.out": "crossattention.output.dense", "cross_ln": "crossattention.output.LayerNorm"}
+
+
+def reference_roformer_state(state: dict, cfg) -> dict:
+    """A reference-layout RoFormer state dict (`exp/lm/model_<step>.pt`'s
+    "model": HF `RoFormerModel` + `RoFormerForCausalLM` + `spk_emb`, the
+    keys of the HF modules' `state_dict()`) holding the weights of the
+    port's `Roformer` state dict `state`: the tied LM-head decoder repeats
+    the semantic embeddings and the head bias, and each stack has HF's
+    sinusoidal `embed_positions` table.  The inverse of
+    `roformer_state_from_torch`."""
+    import torch
+
+    out = {}
+    for key, t in state.items():
+        if key == "head_bias":
+            out["semantic_decoder.cls.predictions.bias"] = t
+            out["semantic_decoder.cls.predictions.decoder.bias"] = t
+            continue
+        mod, leaf = key.rsplit(".", 1)
+        m = re.fullmatch(r"(enc|dec)_(\d+)\.(.+)", mod)
+        if m:
+            stack = "text_encoder" if m[1] == "enc" else "semantic_decoder.roformer"
+            out[f"{stack}.encoder.layer.{m[2]}.{_ROFORMER_LAYER[m[3]]}.{leaf}"] = t
+        else:
+            out[f"{_ROFORMER_TOP[mod]}.{leaf}"] = t
+    out["semantic_decoder.cls.predictions.decoder.weight"] = state["semantic_embed.weight"]
+    for stack, scfg in (("text_encoder", cfg.encoder), ("semantic_decoder.roformer", cfg.decoder)):
+        dim = scfg.hidden_size // scfg.num_attention_heads
+        pos = np.arange(scfg.max_position_embeddings)[:, None] / np.power(10000, 2 * (np.arange(dim) // 2) / dim)
+        table = np.concatenate([np.sin(pos[:, 0::2]), np.cos(pos[:, 1::2])], axis=1)
+        out[f"{stack}.encoder.embed_positions.weight"] = torch.from_numpy(table.astype(np.float32))
+    return out
+
+
+def batched_preprocessing(tmp: str, cfg, wavs: list, stage, files, walls: dict, card: str) -> None:
+    """`cli/batch_preprocess.py`'s main (B = BATCH_B) over a second root
+    whose `audio/` holds hard links to stage 10's and 11's training files
+    (their outputs stay as they are), against those stages: the same unit
+    frame counts and units within WHISPER_BF16_REL (relative Frobenius
+    error: both bf16 Whisper on the same zero-padded 16 kHz buckets, the
+    batch's log-mel floor (R8) and another batch shape apart); the latents'
+    frame counts are JAX's crop of the 16 kHz length (stage 11's, or one
+    fewer where stage 11 pads to a whole hop) and their difference from
+    stage 11's (R7: the codec reads 16 kHz audio resampled to 44.1 kHz) is
+    reported."""
+    from latent_diffusion_speech_tpu_torch.cli import batch_preprocess
+    from latent_diffusion_speech_tpu_torch.config import save_config
+
+    root = os.path.join(tmp, "batch")
+    for f in wavs:
+        os.makedirs(os.path.dirname(os.path.join(root, "audio", f)), exist_ok=True)
+        os.link(os.path.join(cfg.data.train_path, "audio", f), os.path.join(root, "audio", f))
+    bcfg = copy.deepcopy(cfg)
+    bcfg.data.train_path = root
+    cfg_path = os.path.join(tmp, "config_batch.yaml")
+    save_config(bcfg, cfg_path)
+    seen = []
+
+    def record(lengths, batch_size, step, _buckets=batch_preprocess._buckets):
+        seen.append((lengths, step, _buckets(lengths, batch_size, step)))
+        return seen[-1][2]
+
+    with mock.patch.object(batch_preprocess, "_buckets", record):
+        lines = stage(f"batched units + latents (B={BATCH_B})", batch_preprocess.main,
+                      ["-c", cfg_path, "--batch-size", str(BATCH_B)])
+    lengths, step, batches = seen[0]
+    n_buckets = len({max(step, -(-n // step) * step) for n in lengths.values()})
+    progress = [line for line in lines if line.startswith("batch_preprocess: ")]
+    if len(progress) != len(batches) or files("batch", "units") != files("train", "units") or \
+            files("batch", "mel") != files("train", "mel"):
+        raise AssertionError(f"batch_preprocess: {len(progress)} progress lines for {len(batches)} batches, "
+                             f"{len(files('batch', 'units'))} unit and {len(files('batch', 'mel'))} latent files")
+    hop, ratio = 512, cfg.data.sampling_rate / cfg.data.encoder_sample_rate
+    du = su = dl = sl = 0.0
+    max_u = max_l = scale_u = scale_l = 0.0
+    shorter = 0
+    for name in files("train", "units"):
+        a, b = (np.load(os.path.join(tmp, r, "units", name)) for r in ("batch", "train"))
+        if a.shape != b.shape:
+            raise AssertionError(f"batch_preprocess units {name}: {a.shape}, stage 10 {b.shape}")
+        du, su = du + float(np.sum((a - b) ** 2)), su + float(np.sum(b ** 2))
+        max_u, scale_u = max(max_u, float(np.abs(a - b).max())), max(scale_u, float(np.abs(b).max()))
+        a, b = (np.load(os.path.join(tmp, r, "mel", name)) for r in ("batch", "train"))
+        want = int(lengths[name[:-len(".npy")]] * ratio) // hop
+        if a.shape[0] != want or a.shape[1:] != b.shape[1:] or not b.shape[0] - 1 <= a.shape[0] <= b.shape[0]:
+            raise AssertionError(f"batch_preprocess latents {name}: {a.shape}, stage 11 {b.shape}, crop {want}")
+        shorter += a.shape[0] < b.shape[0]
+        b = b[: a.shape[0]]
+        dl, sl = dl + float(np.sum((a - b) ** 2)), sl + float(np.sum(b ** 2))
+        max_l, scale_l = max(max_l, float(np.abs(a - b).max())), max(scale_l, float(np.abs(b).max()))
+    rel_u, rel_l = (du / su) ** 0.5, (dl / sl) ** 0.5
+    if not rel_u <= WHISPER_BF16_REL:
+        raise AssertionError(f"batch_preprocess units vs stage 10: relative error {rel_u} over {WHISPER_BF16_REL}")
+    n = len(wavs)
+    print(f"data_path batched preprocessing [{card}]: {n} files in {len(batches)} batches of <= {BATCH_B} over "
+          f"{n_buckets} half-second buckets; {walls[f'batched units + latents (B={BATCH_B})']:.3f} s wall, "
+          f"{walls[f'batched units + latents (B={BATCH_B})'] * 1e3 / n:.1f} ms a file, against stage 10 + 11's "
+          f"{walls['10 (units)'] + walls['11 (latents)']:.3f} s "
+          f"({(walls['10 (units)'] + walls['11 (latents)']) * 1e3 / n:.1f} ms a file; stage 11 also writes the "
+          f"augmented copy)")
+    print(f"data_path batched units vs stage 10 [{card}]: frame counts equal; relative error {rel_u:.4e} (limit "
+          f"{WHISPER_BF16_REL}), max abs err {max_u:.4f} at scale {scale_u:.3f}")
+    print(f"data_path batched latents vs stage 11 (R7, reported, not held) [{card}]: {shorter} of {n} files one "
+          f"frame shorter (JAX's crop of the 16 kHz length); over the common frames relative error {rel_l:.4e}, "
+          f"max abs err {max_l:.3e} at scale {scale_l:.3e}")
+
+
 def data_path(dev, card: str) -> dict:
     """The shipped config's data path on the card at full width, each stage
     through its `main` as a user runs it: stages 00-02, 15, 10 (seeded
@@ -2672,8 +2868,8 @@ def data_path(dev, card: str) -> dict:
     import torch
 
     from latent_diffusion_speech_tpu_torch.cli import (
-        prepare_audio, preprocess_cluster, preprocess_mel, preprocess_text, preprocess_token, preprocess_unit,
-        preprocess_val, train_diffusion)
+        batch_preprocess, prepare_audio, preprocess_cluster, preprocess_mel, preprocess_text, preprocess_token,
+        preprocess_unit, preprocess_val, train_diffusion)
     from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
     from latent_diffusion_speech_tpu_torch.config import load_config, save_config
     from latent_diffusion_speech_tpu_torch.models.vaegan.codec import HifiVAEGAN
@@ -2757,6 +2953,7 @@ def data_path(dev, card: str) -> dict:
             raise AssertionError(f"stage 11: {len(mels)} mel files for {len(wavs)} wavs")
         print(f"data_path stage 11 [{card}]: {walls['11 (latents)'] * 1e3 / len(wavs):.1f} ms a file (latents "
               f"and the volume-augmented copy, f32) over {len(wavs)} files; e.g. {lines[0]}")
+        batched_preprocessing(tmp, cfg, wavs, stage, files, walls, card)
         before = k6.launches
         lines = stage("17 (codebook)", preprocess_cluster.main, ["-c", cfg_path])
         k6_17 = k6.launches - before
@@ -2842,19 +3039,24 @@ def data_path(dev, card: str) -> dict:
         codebook = km.load_codebook(cfg.text2semantic.model.codebook_path)
         batch = units[np.random.default_rng(0).permutation(len(units))[:STAGE17_B]]
         counts = np.random.default_rng(1).integers(0, 8, len(codebook)).astype(np.float32)
-        step = {}
-        for where in ("cpu", dev):
-            c, n_, x = (torch.from_numpy(a).to(where) for a in (codebook, counts, batch))
-            ids = k6.kmeans_argmin(x, c) if where != "cpu" else k6.kmeans_argmin_plain(x, c)
-            step[str(where)] = [ids.cpu()] + [t.cpu() for t in km._assign_update(c, n_, x)]
-        (ids_cpu, c_cpu, n_cpu, i_cpu), (ids_card, c_card, n_card, i_card) = step["cpu"], step[str(dev)]
+        # the ids equal but for f64 ties (K6's contract, `f64_ties`: which
+        # ties this corpus holds depends on stage 02's split, and that on
+        # the file system's order of speakers with equal file counts); the
+        # update (counts, one-hot centroid sums, EMA) on the card against
+        # the CPU's from the card's ids
+        c, n_, x = (torch.from_numpy(a) for a in (codebook, counts, batch))
+        c_card, n_card, i_card = (t.cpu() for t in km._assign_update(c.to(dev), n_.to(dev), x.to(dev)))
+        ids_card = k6.kmeans_argmin(x.to(dev), c.to(dev)).cpu()
+        ties, gap = f64_ties(x, c, ids_card, k6.kmeans_argmin_plain(x, c), "stage 17 step")
+        with mock.patch.object(km, "kmeans_argmin", lambda b, cb: ids_card):
+            c_cpu, n_cpu, i_cpu = km._assign_update(c, n_, x)
         c_err, c_scale = (c_card - c_cpu).abs().max().item(), c_cpu.abs().max().item()
-        if (not torch.equal(ids_card, ids_cpu) or not torch.equal(n_card, n_cpu)
-                or c_err > STAGE17_CENTROID_REL * c_scale):
-            raise AssertionError(f"stage 17 step card vs CPU: ids equal {torch.equal(ids_card, ids_cpu)}, counts "
-                                 f"equal {torch.equal(n_card, n_cpu)}, centroid err {c_err} (scale {c_scale})")
-        print(f"data_path stage 17 step card vs CPU [{card}]: N={STAGE17_B} ids and counts equal; centroids max abs "
-              f"err {c_err:.3e} at scale {c_scale:.3f} (limit {STAGE17_CENTROID_REL} of scale); inertia "
+        if not torch.equal(n_card, n_cpu) or c_err > STAGE17_CENTROID_REL * c_scale:
+            raise AssertionError(f"stage 17 step card vs CPU: counts equal {torch.equal(n_card, n_cpu)}, centroid "
+                                 f"err {c_err} (scale {c_scale})")
+        print(f"data_path stage 17 step card vs CPU [{card}]: N={STAGE17_B} ids equal but {len(ties)} f64 ties "
+              f"(largest distance gap {gap:.3e}); from the same ids, counts equal and centroids max abs err "
+              f"{c_err:.3e} at scale {c_scale:.3f} (limit {STAGE17_CENTROID_REL} of scale); inertia "
               f"{i_card.item():.6e} vs {i_cpu.item():.6e}")
         again, _ = preprocess_cluster.fit_codebook(cfg.data.train_path, k=len(codebook), verbose=False, device=dev)
         if not np.array_equal(again, codebook):
@@ -2872,6 +3074,247 @@ def data_path(dev, card: str) -> dict:
     print(f"data_path phase [{card}]: {time.perf_counter() - t_phase:.1f} s of wall in all (stages, the serve, "
           f"the comparisons with the CPU)")
     return {"launches": launches, "k6_stage17": row, "k6_stage17_launches": k6_17, "walls": walls}
+
+
+# migrate: the reference's artifact set at full width (seeded flax-init
+# weights of the port, written in the reference's layouts by the inverses
+# above), served through load_reference_pipeline and checked one by one by
+# cli/verify_import.py as a user runs it
+MIGRATE_STEPS = {"diffusion": 400000, "lm": 200000}  # the step numbers in the checkpoints' names
+WHISPER_MIGRATE_LAYERS = 2  # of large-v3's 32: bounds the checkpoint's size and the phase's time
+# the f32 Unit2Mel forward on the card against the CPU (TF32 off): within
+# this share of the output's largest magnitude
+MIGRATE_U2M_REL = 1e-4
+VERIFY_TOL = 1e-3  # verify_import's default --tol
+
+
+def write_reference_artifacts(tmp: str, cfg) -> dict:
+    """The reference's artifact set under `tmp` for the shipped config, at
+    full width: `exp/diffusion/model_<step>.pt` (the flagship Unit2Mel) with
+    `config.yaml` beside it, `exp/lm/model_<step>.pt` (the RoFormer, HF
+    keys), `pretrain/semantic_codebook.pt` (4096 x 1280, sklearn's dict),
+    `pretrain/hifi-vaegan/{encoder,decoder}.pth` and a Whisper-large-v3
+    `{dims, model_state_dict}` wrapper with WHISPER_MIGRATE_LAYERS layers.
+    `cfg` is pointed at the codebook and the pair.  Returns the paths."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.config import save_config
+    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2Mel, Unit2MelConfig
+    from latent_diffusion_speech_tpu_torch.models.lm.registry import roformer_config_from
+    from latent_diffusion_speech_tpu_torch.models.lm.roformer import Roformer
+    from latent_diffusion_speech_tpu_torch.models.units import get_encoder_out_channels
+    from latent_diffusion_speech_tpu_torch.models.vaegan.config import VAEGANConfig
+    from latent_diffusion_speech_tpu_torch.models.vaegan.models import Generator, VAEEncoder
+    from latent_diffusion_speech_tpu_torch.models.whisper.model import WhisperDims, WhisperEncoder, sinusoids
+    from latent_diffusion_speech_tpu_torch.ops.layers import init_weights, seeded
+
+    paths = {"pair": os.path.join(tmp, "pretrain", "hifi-vaegan"),
+             "codebook": os.path.join(tmp, "pretrain", "semantic_codebook.pt"),
+             "whisper": os.path.join(tmp, "pretrain", "large-v3_encoder.pt"),
+             "diffusion": os.path.join(tmp, "exp", "diffusion"), "lm": os.path.join(tmp, "exp", "lm")}
+    for d in ("pair", "diffusion", "lm"):
+        os.makedirs(paths[d])
+    vcfg = VAEGANConfig()
+    h = {k: (list(map(list, v)) if k == "resblock_dilation_sizes" else list(v) if isinstance(v, tuple) else v)
+         for k, v in dataclasses.asdict(vcfg).items()}
+    gen = torch.Generator().manual_seed(4)
+    for name, module, stage in (("encoder", VAEEncoder(vcfg), "down"), ("decoder", Generator(vcfg), "up")):
+        torch.save({"model": reference_codec_state(module, vcfg, gen, stage), "config": h},
+                   os.path.join(paths["pair"], f"{name}.pth"))
+    K, D = cfg.text2semantic.model.semantic_kmeans_num, get_encoder_out_channels(cfg.data.encoder)
+    centroids = torch.from_numpy(np.random.default_rng(5).standard_normal((K, D)).astype(np.float32))
+    torch.save({"n_features_in_": D, "_n_threads": 8, "cluster_centers_": centroids, "n_clusters": K},
+               paths["codebook"])
+    cfg.common.vocoder.ckpt, cfg.text2semantic.model.codebook_path = paths["pair"], paths["codebook"]
+
+    m = cfg.diffusion.model
+    model_cfg = Unit2MelConfig(input_channel=D, n_spk=cfg.common.n_spk, use_pitch_aug=m.use_pitch_aug,
+                               out_dims=vcfg.inter_channels, n_layers=m.n_layers,
+                               block_out_channels=tuple(m.block_out_channels), n_heads=m.n_heads, n_hidden=m.n_hidden)
+    step = MIGRATE_STEPS["diffusion"]
+    state = reference_unit2mel_state(seeded(lambda: Unit2Mel(model_cfg), 0).state_dict())
+    torch.save({"global_step": step, "model": state}, os.path.join(paths["diffusion"], f"model_{step}.pt"))
+    save_config(cfg, os.path.join(paths["diffusion"], "config.yaml"))
+    lm_cfg = roformer_config_from(cfg)
+    step = MIGRATE_STEPS["lm"]
+    state = reference_roformer_state(seeded(lambda: Roformer(lm_cfg), 0).state_dict(), lm_cfg)
+    torch.save({"global_step": step, "model": state}, os.path.join(paths["lm"], f"model_{step}.pt"))
+
+    dims = WhisperDims(n_audio_layer=WHISPER_MIGRATE_LAYERS)
+    whisper = WhisperEncoder(dims)
+    init_weights(whisper, torch.Generator().manual_seed(0))
+    state = {**whisper.state_dict(), "positional_embedding": sinusoids(dims.n_audio_ctx, dims.n_audio_state)}
+    torch.save({"dims": dataclasses.asdict(dims), "model_state_dict": state}, paths["whisper"])
+    return paths
+
+
+def verify_processes(jobs: dict, device: str, flags) -> dict:
+    """`python -m latent_diffusion_speech_tpu_torch.cli.verify_import <path>
+    --json --device <device> <flags(kind)>` for every kind at once, as
+    processes; returns each kind's (report, wall seconds)."""
+    env = dict(os.environ, **({"OMP_NUM_THREADS": "2"} if device == "cpu" else {}))
+    procs = {}
+    for kind, path in jobs.items():
+        cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.verify_import", path, "--json",
+               "--device", device, *flags(kind)]
+        procs[kind] = (cmd, time.perf_counter(), subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                                                  stderr=subprocess.PIPE, text=True))
+    out = {}
+    for kind, (cmd, t0, proc) in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\n{stdout[-2000:]}\n{stderr[-4000:]}")
+        out[kind] = (json.loads(stdout.strip().splitlines()[-1]), time.perf_counter() - t0)
+    return out
+
+
+def migrate(dev, card: str) -> dict:
+    """The migration path on the card at full width: the reference's
+    artifact set (`write_reference_artifacts`) through
+    `infer/load.py::load_reference_pipeline` in bf16 and one EN `tts` (1 K1
+    launch, 32 K4 launches a denoiser evaluation), and `cli/verify_import.py`'s
+    `verify` on the codebook in-process (1 K6 launch, ids equal to the
+    CPU's).  Then the set in f32 on the card against the CPU: the Unit2Mel
+    forward at verify_import's inputs within MIGRATE_U2M_REL of its scale,
+    K1's greedy logits up to the first flipped argmax (K1_F32_REL); and
+    `verify_import` as a process for every kind, `--device cpu
+    --save-golden`, then `--device cuda --golden` (exit 0, within
+    VERIFY_TOL; the codebook's ids equal).  Returns the launches."""
+    import argparse
+    import tempfile
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import verify_import
+    from latent_diffusion_speech_tpu_torch.config import load_config
+    from latent_diffusion_speech_tpu_torch.infer.load import load_reference_pipeline
+    from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig
+    from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+        t0 = time.perf_counter()
+        paths = write_reference_artifacts(tmp, cfg)
+        ckpt = {k: os.path.join(paths[k], f"model_{MIGRATE_STEPS[k]}.pt") for k in ("diffusion", "lm")}
+        mb = {k: os.path.getsize(p) / 2 ** 20 for k, p in (("diffusion", ckpt["diffusion"]), ("lm", ckpt["lm"]),
+                                                             ("codebook", paths["codebook"]),
+                                                             ("whisper", paths["whisper"]))}
+        mb["pair"] = sum(os.path.getsize(os.path.join(paths["pair"], f)) for f in os.listdir(paths["pair"])) / 2 ** 20
+        print(f"migrate artifacts: the reference's layouts at full width written in {time.perf_counter() - t0:.1f} s "
+              f"(MiB: {', '.join(f'{k} {v:.1f}' for k, v in mb.items())}; Whisper cut to {WHISPER_MIGRATE_LAYERS} "
+              f"of 32 layers)")
+        lm_args = dict(lm_ckpt=paths["lm"], codebook_path=paths["codebook"], vocoder_path=paths["pair"])
+
+        # 1. the serve path over the set, bf16, as a user migrates
+        k1.launches = k4.launches = k4.bwd_launches = k6.launches = 0
+        t = time.perf_counter()
+        pipe = load_reference_pipeline(paths["diffusion"], device=dev, **lm_args)
+        t_load = time.perf_counter() - t
+        geometry = (pipe.diffusion.cfg.out_dims, pipe.diffusion.cfg.block_out_channels, pipe.lm.cfg.decoder.hidden_size,
+                    pipe.lm.cfg.semantic_vocab_size, tuple(pipe.codebook.codebook.shape), pipe.vocoder.cfg.sampling_rate)
+        if geometry != (128, (256, 384, 512, 512), 256, 4099, (4096, 1280), 44100):
+            raise AssertionError(f"load_reference_pipeline geometry {geometry}")
+        evaluations = []
+        denoise = pipe.diffusion.module.denoise
+        pipe.diffusion.module.denoise = lambda x, t_: evaluations.append(1) or denoise(x, t_)
+        t = time.perf_counter()
+        wav, sr = pipe.tts(TEXT, language="EN", method=cfg.common.infer.method, infer_speedup=cfg.common.infer.speedup)
+        torch.cuda.synchronize()
+        t_tts = time.perf_counter() - t
+        wav = np.asarray(wav)
+        n_eval = len(evaluations)
+        if (k1.launches, k4.launches, k4.bwd_launches) != (1, 32 * n_eval, 0) or not n_eval:
+            raise AssertionError(f"migrate tts: K1 {k1.launches}, K4 {k4.launches} for {n_eval} denoiser "
+                                 f"evaluations, K4 backward {k4.bwd_launches}")
+        if sr != 44100 or wav.ndim != 1 or not len(wav) or not np.isfinite(wav).all():
+            raise AssertionError(f"migrate tts: {sr} Hz, shape {wav.shape}")
+        report = verify_import.verify(argparse.Namespace(path=paths["codebook"], kind="auto", heads=0, golden=None,
+                                                         save_golden=os.path.join(tmp, "codebook_card.npz"),
+                                                         tol=VERIFY_TOL, json=True, device=dev))
+        if k6.launches != 1 or report["kind"] != "codebook":
+            raise AssertionError(f"verify_import on the codebook: kind {report['kind']}, K6 launches {k6.launches}")
+        launches = {"ar_decode": k1.launches, "attention_fwd": k4.launches, "kmeans_argmin": k6.launches}
+        print(f"migrate serve [{card}]: load_reference_pipeline (bf16) {t_load:.2f} s; one EN tts {t_tts:.3f} s for "
+              f"{len(wav) / sr:.3f} s of audio ({cfg.common.infer.method}, speedup {cfg.common.infer.speedup}: "
+              f"{n_eval} denoiser evaluations); verify_import's verify on the codebook in-process; launches {launches}")
+        del pipe
+        torch.cuda.empty_cache()
+
+        # 2. the set in f32: the card against the CPU
+        p32 = {str(d): load_reference_pipeline(paths["diffusion"], dtype=torch.float32, device=d, **lm_args)
+               for d in (dev, "cpu")}
+        rng = np.random.default_rng(0)  # verify_import's unit2mel inputs
+        u2m = p32["cpu"].diffusion.cfg
+        units = rng.standard_normal((1, 64, u2m.input_channel)).astype(np.float32)
+        x_t = rng.standard_normal((1, 64, u2m.out_dims)).astype(np.float32)
+        outs = {}
+        for d, p in p32.items():
+            module = p.diffusion.module
+            with torch.no_grad():
+                cond = module.condition(torch.from_numpy(units).to(d), None, torch.ones(1, 1, dtype=torch.long,
+                                                                                         device=d), None)
+                x = torch.cat([torch.from_numpy(x_t).to(d), cond.float()], dim=-1)
+                outs[d] = module.denoise(x, torch.full((1,), 10, device=d)).float().cpu()
+        err, scale = (outs[str(dev)] - outs["cpu"]).abs().max().item(), outs["cpu"].abs().max().item()
+        if not err <= MIGRATE_U2M_REL * scale:
+            raise AssertionError(f"migrate Unit2Mel f32 card vs CPU: max err {err} (scale {scale})")
+        print(f"migrate Unit2Mel f32 card vs CPU [{card}]: verify_import's forward (B=1, T=64, t=10) max abs err "
+              f"{err:.3e} at scale {scale:.3f} (limit {MIGRATE_U2M_REL} of scale)")
+        phones, tones = p32["cpu"].text_to_phones(TEXT, "EN")
+        decode = {}
+        for d, p in p32.items():
+            arrays = (phones[None], tones[None], np.ones((1, len(phones)), np.int64), np.ones((1, len(phones)), np.int64))
+            m = p.lm.module
+            with torch.no_grad():
+                kvs = m.compute_cross_kv(m.encode(*(torch.as_tensor(a, device=d).long() for a in arrays)))
+            decode[d] = (m, kvs, torch.full((1,), len(phones), dtype=torch.int32, device=d))
+        lm_cfg = p32["cpu"].lm.cfg
+        sg = SamplingConfig(max_new_tokens=N_TOKENS, do_sample=False, eos_token_id=lm_cfg.semantic_eos,
+                            pad_token_id=lm_cfg.semantic_pad, bos_token_id=lm_cfg.semantic_bos)
+        m, kvs, clen = decode[str(dev)]
+        err, n_cmp, scale, corr = k1_logits_close(m, sg, kvs, clen, "migrate f32 card vs CPU", K1_F32_REL,
+                                                  K1_F32_CORR, ref=decode["cpu"])
+        print(f"migrate K1 f32 greedy on the card vs the plain decode on the CPU [{card}]: {n_cmp} steps compared "
+              f"(up to the first flipped argmax or N={N_TOKENS}), logits max abs err {err:.3e} at scale {scale:.3f} "
+              f"(limit {K1_F32_REL} of scale), corr {corr:.8f}")
+        del p32, decode
+        torch.cuda.empty_cache()
+
+        # 3. verify_import as a process for every kind: CPU goldens, then the card
+        jobs = {"codebook": paths["codebook"], "unit2mel": ckpt["diffusion"], "roformer": ckpt["lm"],
+                "vaegan-encoder": os.path.join(paths["pair"], "encoder.pth"),
+                "vaegan-decoder": os.path.join(paths["pair"], "decoder.pth"), "whisper": paths["whisper"]}
+
+        def golden(kind, where):
+            return os.path.join(tmp, f"{kind}_{where}.npz")
+
+        cpu = verify_processes(jobs, "cpu", lambda k: ["--save-golden", golden(k, "cpu")])
+        gpu = verify_processes(jobs, "cuda", lambda k: ["--golden", golden(k, "cpu"), "--save-golden",
+                                                        golden(k, "cuda")])
+        for kind in jobs:
+            (want, t_cpu), (got, t_gpu) = cpu[kind], gpu[kind]
+            same = {key: got.get(key) == want.get(key) for key in ("kind", "geometry", "output_shape",
+                                                                    "torch_keys_unused", "imported_elements")}
+            if (got["kind"] != kind or not got["golden_match"] or not got["golden_rel_diff"] <= VERIFY_TOL
+                    or not all(same.values())):
+                raise AssertionError(f"verify_import {kind} on the card against its CPU golden: {got}; same {same}")
+            print(f"migrate verify_import {kind} [{card}]: CPU {t_cpu:.1f} s, card {t_gpu:.1f} s (processes); "
+                  f"golden_rel_diff {got['golden_rel_diff']:.3e} (limit {VERIFY_TOL}); output {got['output_shape']}; "
+                  f"torch elements {got.get('torch_elements')}, imported {got['imported_elements']}; unused keys "
+                  f"{got.get('torch_keys_unused', 'not tracked')}")
+        ids = [np.load(golden("codebook", w))["output"] for w in ("cpu", "cuda")]
+        if not np.array_equal(*ids):
+            raise AssertionError(f"verify_import codebook ids: CPU {ids[0]}, card {ids[1]}")
+        in_process = np.load(os.path.join(tmp, "codebook_card.npz"))["output"]
+        if not np.array_equal(in_process, ids[0]):
+            raise AssertionError(f"verify_import codebook ids in-process {in_process}, CPU process {ids[0]}")
+        print(f"migrate verify_import codebook ids [{card}]: card (K6) equal to the CPU's: {ids[1].tolist()}")
+    print(f"migrate phase [{card}]: {time.perf_counter() - t_phase:.1f} s of wall in all")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -2949,6 +3392,11 @@ def main() -> int:
     print(f"launches with data_path's: {launches}, attention_bwd {data['launches']['attention_bwd']}, "
           f"kmeans_argmin {data['launches']['kmeans_argmin']} (stage 17 {data['k6_stage17_launches']})")
     s17 = data["k6_stage17"]
+    torch.cuda.empty_cache()
+    mig = migrate(dev, card)
+    for name in ("ar_decode", "attention_fwd"):
+        launches[name] += mig["launches"][name]
+    print(f"launches with migrate's: {launches}, kmeans_argmin {mig['launches']['kmeans_argmin']} (verify_import)")
 
     src = "latent_diffusion_speech_tpu_torch/csrc/"
     kernels = [
@@ -2984,7 +3432,7 @@ def main() -> int:
         dict(name="kmeans_argmin", route="cuda", source=src + "kmeans_argmin.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/kmeans.py:54",
              launches=train["launches"]["kmeans_argmin"] + svc_launches["kmeans_argmin"]
-             + data["launches"]["kmeans_argmin"],
+             + data["launches"]["kmeans_argmin"] + mig["launches"]["kmeans_argmin"],
              max_abs_err=k6["max_abs_err"],
              ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"], bound_by=k6["bound_by"],
              library_ms=k6["library_ms"], stage17_ms=s17["ms"], stage17_plain_ms=s17["plain_ms"],

@@ -29,7 +29,8 @@ def _native_state(path) -> dict:
     `path` is an experiment directory (its latest step) or one
     `model_<step>.ckpt` file (that step).  The EMA sidecar's parameters
     replace the trained ones when the trainer saved one.  A file or
-    directory in another format (the reference's `model_<step>.pt`) raises
+    directory in another format (the reference's `model_<step>.pt`, which
+    `infer/load.py::load_reference_pipeline` reads) raises
     NotImplementedError."""
     from latent_diffusion_speech_tpu_torch.train.checkpoint import (
         _STEP_RE,
@@ -45,8 +46,8 @@ def _native_state(path) -> dict:
     if (m is None and not path.is_dir()) or (path.is_dir() and latest_checkpoint_step(path) is None
                                               and any(path.glob("model_*.pt"))):
         raise NotImplementedError(
-            f"{path}: not a checkpoint of this package (model_<step>.ckpt); reading the reference's checkpoints "
-            "(load_reference_pipeline) is not ported yet (ROADMAP.md Queue 1, item 2)"
+            f"{path}: not a checkpoint of this package (model_<step>.ckpt); a reference model_<step>.pt loads "
+            "through infer/load.py::load_reference_pipeline (check it first with cli/verify_import.py)"
         )
     expdir, step = (path, None) if m is None else (path.parent, int(m.group(1)))
     step, params, _ = load_checkpoint(expdir, step)

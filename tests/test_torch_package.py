@@ -82,7 +82,7 @@ def test_no_jax_imports_in_the_source():
 
 def _default_systems():
     from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
-    from latent_diffusion_speech_tpu_torch.infer.load import load_native_pipeline
+    from latent_diffusion_speech_tpu_torch.infer.load import load_native_pipeline, load_reference_pipeline
     from latent_diffusion_speech_tpu_torch.models.units import UnitsEncoder, WhisperLargeV3Units
     from latent_diffusion_speech_tpu_torch.models.vaegan.codec import HifiVAEGAN
     from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
@@ -102,6 +102,7 @@ def _default_systems():
         "LMTrainer": lambda: LMTrainer(config.Config()),
         "build_pipeline": lambda: build_pipeline(config.Config()),
         "load_native_pipeline": lambda: load_native_pipeline(config.Config()),
+        "load_reference_pipeline": lambda: load_reference_pipeline("exp/diffusion"),
         "UnitsEncoder": lambda: UnitsEncoder(),
         "WhisperLargeV3Units": lambda: WhisperLargeV3Units(),
     }
@@ -117,12 +118,14 @@ CLIS = {
     "cli.preprocess_cluster": ["-c", CONFIG],
     "cli.preprocess_val": ["-c", CONFIG],
     "cli.train_lm": ["-c", CONFIG],
+    "cli.batch_preprocess": ["-c", CONFIG],
+    "cli.verify_import": ["no-such-checkpoint.pt"],
 }
 
 
 @pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "HifiVAEGAN", "EuclideanCodebook",
                                   "DiffusionTrainer", "LMTrainer", "build_pipeline", "load_native_pipeline",
-                                  "UnitsEncoder", "WhisperLargeV3Units", *CLIS])
+                                  "load_reference_pipeline", "UnitsEncoder", "WhisperLargeV3Units", *CLIS])
 def test_entry_points_default_to_the_card(name):
     """A default-constructed entry point, or a CLI run without --device,
     asks for `cuda`: without a card it raises (never a silent CPU run);
@@ -139,6 +142,9 @@ def test_entry_points_default_to_the_card(name):
     make = _default_systems()[name]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    elif name == "load_reference_pipeline":
+        with pytest.raises(FileNotFoundError):  # past the device check, no checkpoint to read
             make()
     else:
         obj = make()

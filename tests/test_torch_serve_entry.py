@@ -383,13 +383,15 @@ def test_llama_config_raises_in_build_pipeline(tmp_path):
 def test_lm_checkpoint_raises_in_build_pipeline(tmp_path):
     """The LM trainer's checkpoints load (tests/test_torch_lm_train.py);
     the reference's `model_<step>.pt`, as a file or as the only checkpoint
-    of a directory, raises and names `load_reference_pipeline`, and a path
+    of a directory, raises and names `infer/load.py::load_reference_pipeline`
+    and `cli/verify_import.py`, which read it, and a path
     that does not exist raises FileNotFoundError."""
     cfg = _tiny(config.load_config(CONFIG), tmp_path)
     (tmp_path / "lm").mkdir()
     (tmp_path / "lm" / "model_100.pt").write_bytes(b"")
     for ckpt in (tmp_path / "lm", tmp_path / "lm" / "model_100.pt"):
-        with pytest.raises(NotImplementedError, match="load_reference_pipeline"):
+        with pytest.raises(NotImplementedError,
+                           match=r"infer/load\.py::load_reference_pipeline .*cli/verify_import\.py"):
             build_pipeline(cfg, lm_ckpt=str(ckpt), device="cpu")
     with pytest.raises(FileNotFoundError):
         build_pipeline(cfg, lm_ckpt=str(tmp_path / "no-such-lm"), device="cpu")
