@@ -87,8 +87,16 @@ with nvcc (sm_90a), then:
    data layout: one step's loss and gradients against the same step with
    the plain attention and argmin, 3 steps, a save, a resume and 12 more
    steps, with the launch counts per step (32 K4 forward, 32 K4 backward,
-   1 K6), the step time, samples/s and the kernels' share of a step, and
-   loads the saved checkpoint back through `infer/load.py::load_native_pipeline`;
+   1 K6), the step time, samples/s, `train/mfu` and the kernels' share of a
+   step, and loads the saved checkpoint back through
+   `infer/load.py::load_native_pipeline`; then the trainer's options from
+   the trained weights: gradient_accumulation_steps=2 (two micro-steps
+   against one update from the mean of their gradients, then the loop
+   with `train/mfu` in metrics.jsonl), the learned VectorQuantize(1280,
+   4096) (K4 and no K6; utilisation, the codebook sidecar), bf16 (32 bf16
+   K4 forward and 32 bf16 K4 backward launches a step; loss and step time
+   beside f32), remat (gradients equal, peak memory) and
+   `validate_full(vocoder=)` (a WAV and the spectrogram triptych);
 10. lm_train: trains the shipped RoFormer at full width (4 + 1 layers,
    C=256, H=8, FF 512, V=4099, B=32, f32, dropout 0.1) through stage 21
    (`cli/train_lm.py`: `build`, then `main` as a user runs it) on a
@@ -106,7 +114,9 @@ with nvcc (sm_90a), then:
    CLI as a process; prints the step time, samples/s, non-pad tokens/s,
    the device's busy time, launches and largest kernels a step, each
    bucket's step, the smoke corpus's padding share with and without length
-   sorting, validate_audio's and the serve's times;
+   sorting, validate_audio's and the serve's times, `train/mfu` of every
+   logged step, and gradient_accumulation_steps=2: 5 micro-steps against 3,
+   a save half-way through an update, a resume and 2 more (bitwise equal);
 11. data_path: the shipped config's data stages, each through its `main`
    on the card, on a synthetic voiced corpus written as 44.1 kHz WAVs (4
    speakers, one with a non-numeric name, 64 files of 6-8 s and one of
@@ -137,7 +147,16 @@ with nvcc (sm_90a), then:
    `cli/verify_import.py` (in-process on the codebook: 1 K6 launch); the
    set in f32 on the card against the CPU (the Unit2Mel forward, K1's
    greedy logits); `verify_import` as a process for every kind, CPU
-   goldens then the card, each within 1e-3 of its golden.
+   goldens then the card, each within 1e-3 of its golden;
+13. codec_train: the HiFi-VAEGAN codec GAN through `cli/train_codec.py::main`
+   as a user runs it, at the shipped 44.1 kHz width (hop 512, 128 latent
+   channels; the `CodecTrainer` bank: STFT scales 1024 and 512, periods
+   2-11), B=16 crops of 32256 samples from a synthetic WAV layout: 4
+   steps, a save, a resume and 4 more, then the same with --use-vq; one
+   D + G step on the card against the same step on the CPU (B=2, the same
+   seeded weights and latent noise, TF32 off); the step time, samples/s,
+   the VQ's codebook utilisation and the peak memory.  The codec path runs
+   no custom kernel (the JAX package computes it outside any Pallas kernel).
 
 Any failure raises (exit code != 0).  The second-to-last line is a JSON
 object with one entry per kernel; the last line is
@@ -147,6 +166,7 @@ Without a CUDA device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -2062,11 +2082,12 @@ class StepLog:
     between consecutive steps (the loss read synchronises the card)."""
 
     def __init__(self):
-        self.losses, self.times = [], []
+        self.losses, self.times, self.mfu = [], [], []
 
     def log(self, step: int, metrics: dict) -> None:
         self.losses.append(metrics["train/loss"])
         self.times.append(time.perf_counter())
+        self.mfu.append(metrics.get("train/mfu"))
 
 
 def compare_train_step(trainer, loader, dev):
@@ -2188,6 +2209,212 @@ def check_native_checkpoint(cfg, dev) -> None:
           f"{' with its EMA sidecar' if ema is not None else ' (no EMA sidecar: ema_decay 0)'}")
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block (restored after)."""
+    import torch
+
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+
+class LaunchNames:
+    """Counts the K4 C entries launched (by name) while active: the entry
+    says the dtype (`attention_fwd_bf16`, `attention_bwd_f32`, ...)."""
+
+    def __init__(self):
+        from latent_diffusion_speech_tpu_torch.ops.kernels import build
+
+        self.build, self.names = build, {}
+
+    def __enter__(self):
+        real = self.build.launch_packed
+
+        def launch(name, index, pack):
+            self.names[name] = self.names.get(name, 0) + 1
+            return real(name, index, pack)
+
+        self._patch = mock.patch.object(self.build, "launch_packed", launch)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.__exit__(*exc)
+
+
+def relative_l2(got: dict, ref: dict) -> float:
+    """sqrt(sum |got - ref|^2) / sqrt(sum |ref|^2) over tensors of the same names."""
+    import torch
+
+    num = sum(((got[n].float().cpu() - r.float().cpu()) ** 2).sum() for n, r in ref.items())
+    return (torch.sqrt(num) / torch.sqrt(sum((r.float().cpu() ** 2).sum() for r in ref.values()))).item()
+
+
+def train_options(cfg, trainer, loader, dev, card: str) -> dict:
+    """The trainer's options at flagship width (B=48, the k-means snap),
+    each from the weights of the entry point's trainer: accumulation (k=2:
+    two micro-steps against one update from the mean gradient, then the
+    loop with `train/mfu` in metrics.jsonl), the learned VQ, bf16 (K4's
+    bf16 entries; loss and step time beside f32), remat (gradients equal,
+    peak memory), and `validate_full` with a vocoder.  Returns the K4 and K6
+    launches these runs made."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.data.loader import DataLoader
+    from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import read_wav
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+    from latent_diffusion_speech_tpu_torch.quantize.codebook import VectorQuantize
+    from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer, step_generator
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import deterministic_algorithms
+    from latent_diffusion_speech_tpu_torch.utils.logger import MetricsLogger
+
+    weights = {k: v.clone() for k, v in trainer.system.module.state_dict().items()}
+    expdir = cfg.diffusion.train.expdir
+    k4.launches = k4.bwd_launches = k6.launches = 0
+
+    def make(name, **kw):
+        c = copy.deepcopy(cfg)
+        c.diffusion.train.expdir = os.path.join(expdir + "_options", name)
+        for k, v in kw.pop("train", {}).items():
+            setattr(c.diffusion.train, k, v)
+        t = DiffusionTrainer(c, quantizer=kw.pop("quantizer", trainer.quantizer), device=dev, **kw)
+        t.system.module.load_state_dict(weights)
+        return t
+
+    loader.set_epoch(0)
+    it = iter(loader)
+    b1, b2 = (trainer.device_put_batch(next(it)) for _ in range(2))
+    gen = functools.partial(step_generator, cfg.diffusion.train.seed, device=dev)
+
+    # accumulation: two micro-steps against the mean of the two gradients,
+    # deterministic kernels in both (cuDNN's and the embedding backward's)
+    t_acc = make("accumulate", train={"gradient_accumulation_steps": 2})
+    t_ref = make("reference")
+    with deterministic_cudnn(), deterministic_algorithms():
+        t_acc.train_step(b1, gen(0))
+        t_acc.train_step(b2, gen(1))
+        grads = []
+        for s, b in enumerate((b1, b2)):
+            t_ref.optimizer.zero_grad(set_to_none=True)
+            t_ref.loss(b, gen(s)).backward()
+            grads.append([p.grad.clone() for p in t_ref._params])
+        for p, a, c in zip(t_ref._params, *grads):
+            p.grad = a + (c - a) / 2  # MultiSteps' running mean of two
+        t_ref.apply_update()
+    got = dict(t_acc.system.module.named_parameters())
+    ref = dict(t_ref.system.module.named_parameters())
+    acc_err = max((got[n] - r).abs().max().item() for n, r in ref.items())
+    moved = relative_l2(ref, weights)
+    if t_acc.opt_count != 1 or acc_err > 1e-6:
+        raise AssertionError(f"accumulation: {t_acc.opt_count} updates, parameters differ by {acc_err}")
+    del t_ref
+    logger = MetricsLogger(t_acc.cfg.diffusion.train.expdir, use_tensorboard=False)
+    t_acc.cfg.diffusion.train.interval_log = 1
+    t_acc.train(loader, max_steps=6, logger=logger)
+    logger.close()
+    rows = [json.loads(x) for x in open(os.path.join(t_acc.cfg.diffusion.train.expdir, "logs", "metrics.jsonl"))]
+    mfu = [r["train/mfu"] for r in rows if "train/mfu" in r]
+    if t_acc.opt_count != 3 or len(mfu) != len(rows) or not rows:
+        raise AssertionError(f"accumulation loop: {t_acc.opt_count} updates after 6 micro-steps; metrics {rows}")
+    print(f"train option gradient_accumulation_steps=2 [{card}]: the update after two micro-steps (B={TRAIN_B} each) "
+          f"equals one update from the mean of their gradients within {acc_err:.2e} (limit 1e-6; the update moved "
+          f"the weights by {moved:.2e} of their norm); 6 micro-steps through train() = {t_acc.opt_count} updates; "
+          f"train/mfu in metrics.jsonl: {[round(x, 4) for x in mfu]}")
+    del t_acc
+
+    # the learned VQ: K4 runs, K6 does not
+    before = (k4.launches, k4.bwd_launches, k6.launches)
+    t_vq = make("vq", quantizer=VectorQuantize(1280, 4096))
+    t_vq.train(loader, max_steps=2)
+    vq_launches = (k4.launches - before[0], k4.bwd_launches - before[1], k6.launches - before[2])
+    util = t_vq._vq.utilization(t_vq.vq_state).item()
+    sidecar = os.path.join(t_vq.cfg.diffusion.train.expdir, "model_2_semantic_codebook.ckpt")
+    if vq_launches != (64, 64, 0) or not util > 0 or not os.path.exists(sidecar):
+        raise AssertionError(f"VQ training: launches {vq_launches} (want 64 / 64 / 0 over 2 steps), "
+                             f"utilisation {util}, sidecar {os.path.exists(sidecar)}")
+    print(f"train option quantizer=VectorQuantize(1280, 4096) [{card}]: 2 steps, K4 fwd/bwd/K6 launches {vq_launches}; "
+          f"codebook utilisation {util:.4f}; {os.path.basename(sidecar)} written")
+    del t_vq
+
+    # bf16 against f32 from the same weights, batch and generator
+    losses, step_ms, names = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = make(f"dtype_{dtype}".replace("torch.", ""), dtype=dtype)
+        with LaunchNames() as ln:
+            losses[dtype] = t.train_step(b1, gen(0))["loss"].item()
+        names[dtype] = ln.names
+        for _ in range(2):
+            t.train_step(b1, gen(1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(5):
+            t.train_step(b1, gen(2 + s))
+        torch.cuda.synchronize()
+        step_ms[dtype] = (time.perf_counter() - t0) / 5 * 1e3
+        del t
+    if names[torch.bfloat16] != {"attention_fwd_bf16": 32, "attention_bwd_bf16": 32}:
+        raise AssertionError(f"bf16 step launched {names[torch.bfloat16]}, want 32 bf16 K4 forward and backward")
+    rel = abs(losses[torch.bfloat16] - losses[torch.float32]) / abs(losses[torch.float32])
+    if not np.isfinite(losses[torch.bfloat16]) or rel > 5e-2:
+        raise AssertionError(f"bf16 loss {losses[torch.bfloat16]} vs f32 {losses[torch.float32]}")
+    print(f"train option dtype=torch.bfloat16 [{card}]: one step's entries {names[torch.bfloat16]} (f32: "
+          f"{names[torch.float32]}); loss {losses[torch.bfloat16]:.6f} vs f32 {losses[torch.float32]:.6f} "
+          f"(relative {rel:.2e}, limit 5e-2); train_step {step_ms[torch.bfloat16]:.2f} ms vs f32 "
+          f"{step_ms[torch.float32]:.2f} ms (B={TRAIN_B}, 5 steps each after 2 warm-up, batch on the card)")
+
+    # remat: the same gradients, less memory
+    res = {}
+    for remat in (False, True):
+        t = make(f"remat_{remat}", remat=remat)
+        t.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with LaunchNames() as ln, deterministic_cudnn(), deterministic_algorithms():
+            loss = t.loss(b1, gen(0))
+            loss.backward()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        res[remat] = (loss.item(), {n: p.grad.clone() for n, p in t.system.module.named_parameters()}, peak, ln.names)
+        del t
+    (l0, g0, p0, n0), (l1, g1, p1, n1) = res[False], res[True]
+    worst = max(((g1[n] - g).norm() / g.norm().clamp_min(1e-30)).item() for n, g in g0.items())
+    same = all(torch.equal(g1[n], g) for n, g in g0.items())
+    if abs(l1 - l0) > 1e-6 * abs(l0) or worst > 1e-5:
+        raise AssertionError(f"remat: loss {l1} vs {l0}, gradients' worst relative error {worst}")
+    print(f"train option remat=True [{card}]: loss {l1:.7f} vs {l0:.7f}; gradients {'bitwise equal' if same else ''}"
+          f" (worst relative L2 error {worst:.2e}, limit 1e-5); peak memory of the forward + backward "
+          f"{p1:.2f} GiB vs {p0:.2f} GiB without; launches {n1} vs {n0}")
+
+    # validate_full with a vocoder: the spectrogram triptych and a WAV
+    t = make("validate")
+    vdir = t.cfg.diffusion.train.expdir
+    logger = MetricsLogger(vdir, use_tensorboard=False)
+    voc = Vocoder("hifi-vaegan", device=dev)
+    t0 = time.perf_counter()
+    metrics = t.validate_full(DataLoader(loader.dataset, 4, shuffle=False),
+                              step_generator(cfg.diffusion.train.seed, 0, dev, 1), logger=logger, vocoder=voc,
+                              max_batches=1)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    logger.close()
+    wav, sr = read_wav(os.path.join(vdir, "logs", "audio", "val_audio_0.wav"))
+    spec = np.load(os.path.join(vdir, "logs", "spec", "val_spec_0.npz"))
+    if sr != voc.vocoder_sample_rate or not len(wav) or spec["pred"].shape != spec["gt"].shape or not all(
+            np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"validate_full: {metrics}, {sr} Hz, {len(wav)} samples, spec {spec['pred'].shape}")
+    print(f"validate_full(vocoder=) [{card}]: {metrics} in {val_s:.2f} s (B=4, {cfg.common.infer.method} at speedup "
+          f"{cfg.common.infer.speedup}); val_audio_0.wav {len(wav) / sr:.3f} s at {sr} Hz; val_spec_0.npz "
+          f"{spec['pred'].shape} x 3")
+    return {"attention_fwd": k4.launches, "attention_bwd": k4.bwd_launches, "kmeans_argmin": k6.launches}
+
+
 def train_slice(dev, card: str, k4_bwd: dict, k6_res: dict) -> dict:
     """The diffusion training slice at flagship width: `configs/config.yaml`
     through the port's entry point, f32, B=48, the k-means snap on."""
@@ -2253,6 +2480,10 @@ def train_slice(dev, card: str, k4_bwd: dict, k6_res: dict) -> dict:
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         shares = step_breakdown(trainer, loader, dev)
         check_native_checkpoint(cfg, dev)
+        mfu = [x for log in logs for x in log.mfu]
+        if any(x is None for x in mfu):
+            raise AssertionError(f"train/mfu missing from logged steps: {mfu}")
+        options = train_options(cfg, trainer, loader, dev, card)
 
     kern = k4_bwd["rows"]
     est = {
@@ -2264,8 +2495,9 @@ def train_slice(dev, card: str, k4_bwd: dict, k6_res: dict) -> dict:
     print(f"training step [{card}]: median {median * 1e3:.2f} ms over {len(steady)} steps after the first "
           f"step of each leg (quartiles {q1 * 1e3:.2f} / {q3 * 1e3:.2f} ms; all: "
           f"{[round(s * 1e3, 2) for s in step_s]} ms); {TRAIN_B / median:.1f} samples/s; "
-          f"peak allocated {peak:.2f} GiB")
-    print(f"training launches over {n} steps: {launches} (per step: 32 / 32 / 1)")
+          f"peak allocated {peak:.2f} GiB; train/mfu (products a step x steps/s / bf16 peak) median "
+          f"{float(np.median(mfu)):.4f}")
+    print(f"training launches over {n} steps: {launches} (per step: 32 / 32 / 1); the options' runs: {options}")
     if shares["all"] > 0:
         # idle shares against unprofiled steps: the profiler's own host
         # cost lengthens the profiled ones
@@ -2283,7 +2515,7 @@ def train_slice(dev, card: str, k4_bwd: dict, k6_res: dict) -> dict:
           f"{est['kmeans_argmin']:.3f} ms per step = {(est['attention_bwd'] + est['kmeans_argmin']) / (median * 1e3):.1%} "
           f"of the median step (K4 backward rows: "
           f"{[(r['T'], r['D'], round(r['ms'] * 1e3, 1)) for r in kern]} us)")
-    return dict(launches=launches, median_ms=median * 1e3, shares=shares)
+    return dict(launches=launches, options=options, median_ms=median * 1e3, shares=shares)
 
 
 # lm_train: the shipped RoFormer at full width (configs/config.yaml: 4 + 1
@@ -2521,6 +2753,35 @@ def lm_train(dev, card: str) -> dict:
         if (step_a, step_b) != (n, n) or params_a.keys() != params_b.keys() or differ or not same_state(opt_a, opt_b):
             raise AssertionError(f"resume: steps {step_a} / {step_b}, parameters differ at {differ[:5]}")
 
+        # train/mfu beside every logged step of stage 21's run
+        rows = [json.loads(x) for x in open(os.path.join(tcfg.expdir, "logs", "metrics.jsonl"))]
+        lm_mfu = [r.get("train/mfu") for r in rows if "train/loss" in r]
+        if len(lm_mfu) != n or any(x is None for x in lm_mfu):
+            raise AssertionError(f"lm_train: train/mfu in metrics.jsonl {lm_mfu}")
+
+        # gradient accumulation (k = 2): 5 micro-steps in one go against 3,
+        # a save half-way through an update, a resume and 2 more
+        acc = {}
+        for name in ("c", "d"):
+            cfg_k = copy.deepcopy(cfg)
+            tk = cfg_k.text2semantic.train
+            tk.gradient_accumulation_steps, tk.save_opt, tk.interval_val = 2, True, 10 ** 9
+            tk.expdir = os.path.join(tmp, f"exp_lm_accumulate_{name}")
+            t_k = LMTrainer(cfg_k, device=dev)
+            t_k.train(threads, max_steps=5 if name == "c" else 3)
+            if name == "d":
+                t_k = LMTrainer(cfg_k, device=dev)
+                if not t_k.resume() or (t_k.step, t_k.mini_step, t_k.opt_count) != (3, 1, 1):
+                    raise AssertionError(f"lm accumulation resume: step {t_k.step}, mini-step {t_k.mini_step}")
+                t_k.train(threads, max_steps=5)
+            acc[name] = t_k
+        pc, pd = (dict(acc[k].system.module.named_parameters()) for k in ("c", "d"))
+        acc_differ = [k for k in pc if not torch.equal(pc[k], pd[k])]
+        if acc_differ or acc["c"].opt_count != 2 or not all(torch.equal(a, b) for a, b in zip(acc["c"]._acc,
+                                                                                              acc["d"]._acc)):
+            raise AssertionError(f"lm accumulation: the resumed run differs at {acc_differ[:5]}")
+        del acc, pc, pd
+
         # serve the checkpoint: build_pipeline(lm_ckpt=) in bf16, one tts
         pipe = build_pipeline(cfg, lm_ckpt=tcfg.expdir)
         served = pipe.lm.module.state_dict()
@@ -2635,6 +2896,9 @@ def lm_train(dev, card: str) -> dict:
           f"steps (scale {scale:.2f}, tolerance 2% of scale), corr {corr:.6f}")
     print(f"lm_train CLI infer_tts --lm-model [{card}]: exit 0 in {cli_s:.1f} s (a new process); "
           f"{len(cli_wav) / cli_sr:.3f} s at {cli_sr} Hz")
+    print(f"lm_train gradient_accumulation_steps=2 [{card}]: 5 micro-steps (2 updates) in one go against 3, a save "
+          f"half-way through an update, a resume and 2 more: parameters and accumulator bitwise equal; train/mfu "
+          f"of stage 21's steps (products a step x steps/s / bf16 peak): {[round(x, 4) for x in lm_mfu]}")
     print(f"lm_train launches: {launches} (validate_audio and the serve's tts: 1 K1 and 640 K4 each)")
     return dict(launches=launches)
 
@@ -3317,6 +3581,184 @@ def migrate(dev, card: str) -> dict:
     return {"launches": launches}
 
 
+# codec_train: the HiFi-VAEGAN codec trained through cli/train_codec.py at the
+# shipped 44.1 kHz width (hop 512, 128 latent channels), the CodecTrainer's
+# bank (STFT scales 1024 and 512, periods 2-11), B=16 crops of 0.74 s
+CODEC_B, CODEC_CROP, CODEC_STEPS = 16, 32256, (4, 4)  # batch; samples a crop; steps before and after the resume
+CODEC_FILES = 8  # synthetic voiced WAVs of 2-3.75 s
+
+
+def write_codec_layout(root: str, sr: int, seed: int = 0) -> None:
+    """`<root>/audio/<i>.wav`: vibrato tones with harmonics and a little
+    noise, 2-3.75 s each (every crop of 0.74 s is a real excerpt)."""
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import write_wav
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "audio"), exist_ok=True)
+    for i in range(CODEC_FILES):
+        t = np.arange(int((2.0 + 0.25 * i) * sr)) / sr
+        phase = 2 * np.pi * (110 + 25 * i) * (t + 0.02 * np.sin(2 * np.pi * 5 * t))
+        wav = sum(0.3 / h * np.sin(h * phase) for h in (1, 2, 3)) + 0.01 * rng.standard_normal(len(t))
+        write_wav(os.path.join(root, "audio", f"{i}.wav"), wav.astype(np.float32), sr)
+
+
+def compare_codec_step(vcfg, audio: np.ndarray, dev) -> str:
+    """One D + G step of `CodecTrainer` (seed 0) on the card against the
+    same step on the CPU: the same seeded weights, audio and latent noise
+    (drawn on the CPU), TF32 off.  The losses within rtol 1e-4 (the KL
+    also within atol 1e-5: at the seeded weights logs ~ 0, and each of the
+    128 channels' e^logs - logs - 1 cancels to f32 rounding, ~1e-7); each
+    network's gradients (taken as the optimiser is called) within 1e-3 of
+    their norm (L2); each parameter after the update within 2 lr (1 + 1e-3)
+    of the CPU's: Adam's first step is lr * g / (|g| + eps), about
+    lr * sign(g), so a gradient that rounds to the other sign near 0 moves
+    its element by up to 2 lr, and the share of such elements is reported."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.train.codec_trainer import CodecTrainer
+
+    runs = []
+    for device in (dev, "cpu"):
+        t = CodecTrainer(vcfg, device=device)
+        nets = {"encoder": t.encoder, "generator": t.generator, "disc": t.disc}
+        grads = {}
+
+        def recording(opt, names):
+            real = opt.apply_update
+
+            def apply_update():
+                grads.update({n: p.grad.detach().cpu().clone() for n, p in zip(names, opt._params)})
+                return real()
+            return apply_update
+
+        t.gen_opt.apply_update = recording(t.gen_opt, [f"encoder.{n}" for n, _ in t.encoder.named_parameters()]
+                                           + [f"generator.{n}" for n, _ in t.generator.named_parameters()])
+        t.disc_opt.apply_update = recording(t.disc_opt, [f"disc.{n}" for n, _ in t.disc.named_parameters()])
+        before = {f"{k}.{n}": p.detach().cpu().clone() for k, m in nets.items() for n, p in m.named_parameters()}
+        a = torch.from_numpy(audio).to(t.device)
+        g = torch.Generator().manual_seed(7)
+        eps_d, eps_g = t.latent_noise(a, g), t.latent_noise(a, g)
+        t0 = time.perf_counter()
+        d = t.disc_step(a, eps_d).item()
+        gl, aux = t.gen_step(a, eps_g)
+        losses = {"disc/loss": d, "gen/loss": gl.item(), **{k: v.item() for k, v in aux.items()}}
+        secs = time.perf_counter() - t0
+        after = {f"{k}.{n}": p.detach().cpu().clone() for k, m in nets.items() for n, p in m.named_parameters()}
+        runs.append((losses, grads, before, after, secs))
+        lr = t.gen_opt.schedule(0)
+        del t
+    (lc, gc, bc, ac, sc), (lp, gp, bp, ap, sp) = runs
+    for k, v in lp.items():
+        if abs(lc[k] - v) > 1e-4 * abs(v) + (1e-5 if k == "gen/kl" else 1e-7):
+            raise AssertionError(f"codec step {k}: {lc[k]} on the card vs {v} on the CPU")
+    if not all(torch.equal(bc[n], bp[n]) for n in bp):
+        raise AssertionError("codec step: the card's seeded weights differ from the CPU's")
+    rows = []
+    for net in ("encoder", "generator", "disc"):
+        names = [n for n in gp if n.startswith(net + ".")]
+        g_err = relative_l2({n: gc[n] for n in names}, {n: gp[n] for n in names})
+        gap = max((ac[n] - ap[n]).abs().max().item() for n in names)
+        flips = sum(((ac[n] - bc[n]).sign() != (ap[n] - bp[n]).sign()).sum().item() for n in names)
+        total = sum(ap[n].numel() for n in names)
+        if g_err > 1e-3 or gap > 2 * lr * (1 + 1e-3):
+            raise AssertionError(f"codec step {net}: gradient error {g_err}, parameter gap {gap} (2 lr = {2 * lr})")
+        p_err = relative_l2({n: ac[n] for n in names}, {n: ap[n] for n in names})
+        rows.append(f"{net} gradients {g_err:.2e}, parameters after the update {p_err:.2e} (relative L2), largest "
+                    f"parameter gap {gap:.2e} ({gap / lr:.2f} lr), update signs differing in {flips} of {total}")
+    return (f"losses {', '.join(f'{k} {lc[k]:.6g} vs {v:.6g}' for k, v in lp.items())}; " + "; ".join(rows)
+            + f" (limits: gradients 1e-3 relative L2, parameters 2 lr); the step {sc * 1e3:.1f} ms on the card "
+            f"(first call) and {sp:.2f} s on the CPU")
+
+
+def codec_train(dev, card: str) -> dict:
+    """Codec GAN training through `cli/train_codec.py::main` at the shipped
+    width, on a synthetic WAV layout: 4 steps, a save, a resume and 4 more,
+    then again with --use-vq; one step on the card against the CPU."""
+    import tempfile
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import train_codec
+    from latent_diffusion_speech_tpu_torch.config import load_config, save_config
+    from latent_diffusion_speech_tpu_torch.models.vaegan.config import VAEGANConfig
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import load_audio
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+    from latent_diffusion_speech_tpu_torch.train.checkpoint import latest_checkpoint_step
+    from latent_diffusion_speech_tpu_torch.utils.logger import MetricsLogger
+
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+        vcfg = VAEGANConfig(sampling_rate=cfg.data.sampling_rate)
+        crop = int(0.74 * cfg.data.sampling_rate)
+        crop -= crop % vcfg.hop_size
+        if (vcfg.sampling_rate, vcfg.hop_size, vcfg.inter_channels, crop) != (44100, 512, 128, CODEC_CROP):
+            raise AssertionError(f"the shipped codec geometry changed: {vcfg}, crop {crop}")
+        sr = vcfg.sampling_rate
+        write_codec_layout(os.path.join(tmp, "train"), sr)
+        cfg.data.train_path = os.path.join(tmp, "train")
+        cfg_path = os.path.join(tmp, "config.yaml")
+        save_config(cfg, cfg_path)
+
+        clips = [load_audio(os.path.join(tmp, "train", "audio", f"{i}.wav"), target_sr=vcfg.sampling_rate)[0]
+                 for i in range(2)]
+        audio = np.stack([c[1000:1000 + CODEC_CROP] for c in clips]).astype(np.float32)
+        print(f"codec_train step, card vs CPU (B=2, f32, TF32 off) [{card}]: {compare_codec_step(vcfg, audio, dev)}")
+
+        times, metrics = [], []
+        real_log = MetricsLogger.log
+
+        def log(self, step, m):
+            times[-1].append(time.perf_counter())
+            metrics.append(m)
+            return real_log(self, step, m)
+
+        k4.launches = k4.bwd_launches = k6.launches = 0
+        runs = {}
+        # with a resume after CODEC_STEPS[0] steps, plain and --use-vq; then
+        # plain without the resume (which restarts the optimisers, R9)
+        n = sum(CODEC_STEPS)
+        for name, vq, legs in (("", False, (CODEC_STEPS[0], n)), (" --use-vq", True, (CODEC_STEPS[0], n)),
+                               (" uninterrupted", False, (n,))):
+            expdir = os.path.join(tmp, "codec" + name.strip().replace("-", ""))
+            args = ["-c", cfg_path, "--expdir", expdir, "--interval-log", "1", "--interval-save", "1000"]
+            args += ["--use-vq"] if vq else []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with mock.patch.object(MetricsLogger, "log", log):
+                for steps in legs:
+                    times.append([time.perf_counter()])
+                    trainer = train_codec.main(args + ["--max-steps", str(steps)])
+                    if latest_checkpoint_step(expdir) != steps or trainer.step != steps:
+                        raise AssertionError(f"codec_train: step {trainer.step}, checkpoint "
+                                             f"{latest_checkpoint_step(expdir)}, want {steps}")
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            util = trainer.vq.utilization(trainer.vq_state).item() if vq else None
+            if vq and not util > 0:
+                raise AssertionError(f"codec_train --use-vq: codebook utilisation {util}")
+            runs[name] = (times[-len(legs):], metrics[-n:], peak, util)
+            del trainer
+        if k4.launches or k4.bwd_launches or k6.launches:
+            raise AssertionError("codec_train launched a K4 or K6 kernel: the codec path has none")
+    for name, (legs, ms, peak, util) in runs.items():
+        step_s = [b - a for leg in legs for a, b in zip(leg, leg[1:])]
+        steady = [s for i, s in enumerate(step_s) if i not in (0, CODEC_STEPS[0] if len(legs) > 1 else 0)]
+        med = float(np.median(steady))
+        bad = [m for m in ms if not all(np.isfinite(v) for v in m.values())]
+        if len(ms) != n or bad:
+            raise AssertionError(f"codec_train metrics {ms}")
+        how = f"{CODEC_STEPS[0]}, save, resume, {CODEC_STEPS[1]} more" if len(legs) > 1 else "one run"
+        print(f"codec_train{name} [{card}]: {n} steps at B={CODEC_B} x {CODEC_CROP} samples f32 ({how}) through "
+              f"cli/train_codec.py; step median {med * 1e3:.1f} ms over {len(steady)} steps (all: "
+              f"{[round(s * 1e3, 1) for s in step_s]} ms; each leg's first includes its start-up); "
+              f"{CODEC_B / med:.1f} samples/s, {CODEC_B * CODEC_CROP / med / sr:.1f} s of audio a second; peak "
+              f"allocated {peak:.2f} GiB; gen/loss {[round(m['gen/loss'], 3) for m in ms]}, disc/loss "
+              f"{[round(m['disc/loss'], 3) for m in ms]}"
+              + (f"; VQ codebook utilisation {util:.4f}" if util is not None else ""))
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -3379,7 +3821,7 @@ def main() -> int:
     print(f"attention_fwd launches: {launches['attention_fwd']} serving (svc {svc_launches['attention_fwd']}) "
           f"+ {train['launches']['attention_fwd']} training; kmeans_argmin launches: "
           f"{svc_launches['kmeans_argmin']} stage 19 + {train['launches']['kmeans_argmin']} training")
-    launches["attention_fwd"] += train["launches"]["attention_fwd"]
+    launches["attention_fwd"] += train["launches"]["attention_fwd"] + train["options"]["attention_fwd"]
     torch.cuda.empty_cache()
     lm = lm_train(dev, card)
     launches["ar_decode"] += lm["launches"]["ar_decode"]
@@ -3397,6 +3839,8 @@ def main() -> int:
     for name in ("ar_decode", "attention_fwd"):
         launches[name] += mig["launches"][name]
     print(f"launches with migrate's: {launches}, kmeans_argmin {mig['launches']['kmeans_argmin']} (verify_import)")
+    torch.cuda.empty_cache()
+    codec_train(dev, card)
 
     src = "latent_diffusion_speech_tpu_torch/csrc/"
     kernels = [
@@ -3419,7 +3863,8 @@ def main() -> int:
              library_ms=None),
         dict(name="attention_bwd", route="cuda", source=src + "attention_bwd.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/fused_attention.py:149",
-             launches=train["launches"]["attention_bwd"] + data["launches"]["attention_bwd"],
+             launches=train["launches"]["attention_bwd"] + train["options"]["attention_bwd"]
+             + data["launches"]["attention_bwd"],
              max_abs_err=k4_bwd["max_abs_err"],
              ms=k4_bwd["ms"], plain_ms=k4_bwd["plain_ms"], bound_ms=k4_bwd["bound_ms"],
              bound_by=k4_bwd["bound_by"], library_ms=k4_bwd["library_ms"]),
@@ -3431,7 +3876,8 @@ def main() -> int:
              simt_device_ms=k5["simt_device_ms"], host_us=k5["host_us"]),
         dict(name="kmeans_argmin", route="cuda", source=src + "kmeans_argmin.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/kmeans.py:54",
-             launches=train["launches"]["kmeans_argmin"] + svc_launches["kmeans_argmin"]
+             launches=train["launches"]["kmeans_argmin"] + train["options"]["kmeans_argmin"]
+             + svc_launches["kmeans_argmin"]
              + data["launches"]["kmeans_argmin"] + mig["launches"]["kmeans_argmin"],
              max_abs_err=k6["max_abs_err"],
              ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"], bound_by=k6["bound_by"],

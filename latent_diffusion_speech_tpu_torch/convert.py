@@ -6,11 +6,15 @@ a tree saved with numpy loads on a machine without it.  The port's modules
 name their submodules after the flax tree, so the mapping is by leaf:
 
 * Dense kernel (in, out) -> `weight` (out, in)
-* Conv kernel (k, in, out) -> `weight` (out, in, k)
+* Conv kernel (k, in, out) -> `weight` (out, in, k); a 2-D one
+  (kh, kw, in, out) -> (out, in, kh, kw)
 * ConvTranspose kernel, stored by the JAX package as the flipped
   input-dilated-conv kernel (k, in, out) -> `weight` (in, out, k)
 * LayerNorm / GroupNorm `scale` -> `weight`; Embed `embedding` -> `weight`
 * `bias` and other top-level arrays keep their names.
+
+`vq_state_from_jax` carries a learned VQ's state (a `VQState` or its dict)
+across as the port's `VQState`.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 __all__ = ["roformer_from_jax", "unit2mel_from_jax", "encoder_from_jax", "generator_from_jax",
-           "whisper_encoder_from_jax"]
+           "whisper_encoder_from_jax", "discriminator_bank_from_jax", "vq_state_from_jax"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -44,6 +48,8 @@ def _convert(tree: Mapping, is_transposed_conv: Callable[[str], bool] = lambda p
         if leaf == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 4:
+                arr = np.transpose(arr, (3, 2, 0, 1))
             elif is_transposed_conv(module):
                 arr = np.transpose(arr[::-1], (1, 2, 0))
             else:
@@ -90,3 +96,19 @@ def whisper_encoder_from_jax(params: Mapping) -> dict:
     `block_{i}` -> `blocks.{i}`, `mlp_0` / `mlp_2` -> `mlp.0` / `mlp.2`."""
     return {re.sub(r"block_(\d+)\.", r"blocks.\1.", k).replace(".mlp_0.", ".mlp.0.").replace(".mlp_2.", ".mlp.2."): v
             for k, v in _convert(params).items()}
+
+
+def discriminator_bank_from_jax(params: Mapping) -> dict:
+    """flax `DiscriminatorBank` params -> state dict of the port's
+    `DiscriminatorBank` (the same `Conv_{j}` names; 2-D and grouped 1-D
+    kernels moved to torch's layouts)."""
+    return _convert(params)
+
+
+def vq_state_from_jax(state):
+    """A JAX `VQState` (or its `_asdict()`) -> the port's `VQState`, on the
+    CPU."""
+    from latent_diffusion_speech_tpu_torch.quantize.codebook import VQState
+
+    fields = state if isinstance(state, Mapping) else state._asdict()
+    return VQState(**{k: torch.from_numpy(np.array(fields[k], dtype=np.float32)) for k in VQState._fields})

@@ -19,7 +19,13 @@ and 'fused' paths do, so in f32 all three agree and in bf16 'pallas'
 differs from the other two as it does in the JAX package.  The lowering
 knobs `conv_impl` and `qkv` are kept for field parity with the JAX config
 and do not change the numbers; `gelu='auto'` (tanh GELU iff B >= 128) does,
-and is kept exactly.
+and is kept exactly.  `remat=True` wraps every `ResBlock1D` and
+`TransformerBlock1D` in `torch.utils.checkpoint` when a gradient is taken,
+as the JAX module wraps them in `nn.remat`: their activations are recomputed
+in the backward (K4's forward runs again there) instead of kept, and the
+gradients do not change.  Every product computes in its layer's
+`compute_dtype` (`ops/layers.py`), so `set_compute_dtype` trains the f32
+weights in bf16.
 Submodule names follow the flax tree (`down_0_res_0.conv1`, ...), so
 `convert.unit2mel_from_jax` maps one onto the other.
 """
@@ -33,10 +39,11 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention
 from latent_diffusion_speech_tpu_torch.ops.kernels.fused_attention import fused_attention
-from latent_diffusion_speech_tpu_torch.ops.layers import Dense, GroupNorm, LayerNorm
+from latent_diffusion_speech_tpu_torch.ops.layers import ComputeDtype, Dense, GroupNorm, LayerNorm
 
 __all__ = ["UNet1DConfig", "UNet1D", "timestep_embedding"]
 
@@ -73,15 +80,15 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-class Conv1dSame(nn.Conv1d):
+class Conv1dSame(ComputeDtype, nn.Conv1d):
     """'Same'-padded odd-kernel Conv1d over (B, T, C) inputs."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1, bias: bool = True):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride, padding=(kernel_size - 1) // 2, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv1d(x.to(self.weight.dtype).transpose(1, 2), self.weight, self.bias,
-                     self.stride, self.padding)
+        weight, bias = self.cast_weights()
+        y = F.conv1d(x.to(weight.dtype).transpose(1, 2), weight, bias, self.stride, self.padding)
         return y.transpose(1, 2)
 
 
@@ -98,7 +105,7 @@ class ResBlock1D(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         """x (B, T, C), temb (B, E): 'scale_shift' time conditioning."""
-        dtype = self.conv1.weight.dtype
+        dtype = self.conv1.compute_dtype
         h = F.silu(self.norm1(x).to(dtype))
         h = self.conv1(h)
         scale, shift = self.time_emb_proj(F.silu(temb))[:, None, :].chunk(2, dim=-1)
@@ -131,7 +138,7 @@ class SelfAttention(nn.Module):
         return self.to_out(out.reshape(B, T, C))
 
 
-class GegluFF(nn.Linear):
+class GegluFF(ComputeDtype, nn.Linear):
     """GEGLU feed-forward with the diffusers layout: one (C, 8C) projection,
     value half times GELU (tanh approximation if `approx_gelu`) of the gate
     half."""
@@ -140,7 +147,8 @@ class GegluFF(nn.Linear):
         super().__init__(channels, 8 * channels)
 
     def forward(self, x: torch.Tensor, approx_gelu: bool = False) -> torch.Tensor:
-        a, g = F.linear(x.to(self.weight.dtype), self.weight, self.bias).chunk(2, dim=-1)
+        weight, bias = self.cast_weights()
+        a, g = F.linear(x.to(weight.dtype), weight, bias).chunk(2, dim=-1)
         return a * F.gelu(g, approximate="tanh" if approx_gelu else "none")
 
 
@@ -163,7 +171,7 @@ class TransformerBlock1D(nn.Module):
         self.proj_out = Dense(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.proj_in.weight.dtype
+        dtype = self.proj_in.compute_dtype
         h = self.proj_in(self.norm(x).to(dtype))
         h = h + self.attn1(self.norm1(h).to(dtype))
         h = h + self.attn2(self.norm2(h).to(dtype))
@@ -234,13 +242,19 @@ class UNet1D(nn.Module):
         self.conv_norm_out = GroupNorm(g, ch, eps=1e-5)
         self.conv_out = Conv1dSame(ch, cfg.out_channels, 3)
 
+    def _block(self, name: str, *args) -> torch.Tensor:
+        block = getattr(self, name)
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+        return block(*args)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """x (B, T, in_channels) noisy spec ++ condition; t (B,) steps.
         Returns eps (B, T, out_channels). T must divide by
         2**(n_blocks-1); GaussianDiffusion pads to that grid."""
         cfg = self.cfg
         n = len(cfg.block_out_channels)
-        dtype = self.conv_in.weight.dtype
+        dtype = self.conv_in.compute_dtype
         temb = self.time_mlp1(timestep_embedding(t, cfg.block_out_channels[0]))
         temb = self.time_mlp2(F.silu(temb))
 
@@ -248,25 +262,25 @@ class UNet1D(nn.Module):
         skips = [h]
         for i in range(n):
             for j in range(cfg.layers_per_block):
-                h = getattr(self, f"down_{i}_res_{j}")(h, temb)
+                h = self._block(f"down_{i}_res_{j}", h, temb)
                 if cfg.cross_attn[i]:
-                    h = getattr(self, f"down_{i}_attn_{j}")(h)
+                    h = self._block(f"down_{i}_attn_{j}", h)
                 skips.append(h)
             if i < n - 1:
                 h = getattr(self, f"down_{i}_downsample")(h)
                 skips.append(h)
 
-        h = self.mid_res_0(h, temb)
-        h = self.mid_attn(h)
-        h = self.mid_res_1(h, temb)
+        h = self._block("mid_res_0", h, temb)
+        h = self._block("mid_attn", h)
+        h = self._block("mid_res_1", h, temb)
 
         rev_attn = list(reversed(cfg.cross_attn))
         for i in range(n):
             for j in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=-1)
-                h = getattr(self, f"up_{i}_res_{j}")(h, temb)
+                h = self._block(f"up_{i}_res_{j}", h, temb)
                 if rev_attn[i]:
-                    h = getattr(self, f"up_{i}_attn_{j}")(h)
+                    h = self._block(f"up_{i}_attn_{j}", h)
             if i < n - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)
 

@@ -105,7 +105,7 @@ class Unit2MelConfig:
 
 
 class Unit2Mel(nn.Module):
-    def __init__(self, cfg: Unit2MelConfig):
+    def __init__(self, cfg: Unit2MelConfig, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.unit_embed = Dense(cfg.input_channel, cfg.n_hidden)
@@ -118,7 +118,7 @@ class Unit2Mel(nn.Module):
         if cfg.denoiser == "general":
             self.unet = UNet1DCondition(cfg.general_unet_config(), attn_impl=cfg.attn_impl)
         else:
-            self.unet = UNet1D(cfg.unet_config())
+            self.unet = UNet1D(cfg.unet_config(remat))
 
     def condition(self, units, volume=None, spk_id=None, aug_shift=None) -> torch.Tensor:
         """units (B, T, C_in) -> condition (B, T, n_hidden)."""
@@ -148,8 +148,11 @@ class Unit2MelSystem:
         device=None,
         seed: int = 0,
         unet_impl: str = "auto",
+        remat: bool = False,
     ):
-        """device: None means `cuda` (raises without a card).
+        """device: None means `cuda` (raises without a card).  remat:
+        recompute the flagship UNet's blocks in the backward (as the JAX
+        package's `remat`; the general denoiser has none there either).
 
         unet_impl: how sampling runs the denoiser, with the JAX package's
         values.  'xla' runs the eager module (on the card its attention is
@@ -167,7 +170,7 @@ class Unit2MelSystem:
         self.cfg = cfg
         self.unet_impl = unet_impl
         self.device = resolve_device(device)
-        module = seeded(lambda: Unit2Mel(cfg), seed)
+        module = seeded(lambda: Unit2Mel(cfg, remat), seed)
         if state_dict is not None:
             module.load_state_dict(state_dict)
         self.module = cast_compute_dtype(module, dtype).to(self.device).eval()

@@ -218,7 +218,7 @@ class Layer(nn.Module):
     ) -> torch.Tensor:
         """generator: dropout (None: off; the caller passes one only in
         training mode)."""
-        dtype = self.ff_in.weight.dtype
+        dtype = self.ff_in.compute_dtype
         p = self.dropout_rate
         h = self.self_attn(
             x, mask=self_mask, positions=positions, rotary=rotary,
@@ -265,7 +265,7 @@ class Roformer(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.head_transform.weight.dtype
+        return self.head_transform.compute_dtype
 
     def _generator(self, generator: Generator) -> Generator:
         """The dropout generator: only in training mode."""

@@ -15,8 +15,13 @@ flax-style tree:
 * `resblocks.{i * n + j}.convs1.{m}` / `.convs2.{m}` -> `res_{i}_{j}.conv1_{m}` /
   `.conv2_{m}` (ResBlock1), `.convs.{m}` -> `.conv_{m}` (ResBlock2).
 
-A missing bias becomes zeros, as in the JAX importer.  The discriminators'
-importer waits for codec training (ROADMAP.md Queue 1).
+A missing bias becomes zeros, as in the JAX importer.
+
+`discriminator_bank_params_from_torch` reads a reference
+`MultiPeriodDiscriminator` state dict (`discriminators.0` the multi-scale
+STFT bank, `.1` the scale discriminator, `.{2 + i}` the period ones) onto the
+port's `DiscriminatorBank`, whose layers have the reference's own layouts:
+only the weight norm is folded and the names move.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["fold_weight_norm", "encoder_state_from_torch", "generator_state_from_torch"]
+__all__ = ["fold_weight_norm", "encoder_state_from_torch", "generator_state_from_torch",
+           "discriminator_bank_params_from_torch"]
 
 
 def _np(t) -> np.ndarray:
@@ -80,3 +86,33 @@ def encoder_state_from_torch(state: Dict, cfg) -> dict:
 def generator_state_from_torch(state: Dict, cfg) -> dict:
     """Reference `Generator` state dict -> state dict of the port's `Generator`."""
     return _stack(fold_weight_norm(state), cfg, "up", transposed=True)
+
+
+def _moved(state: Dict[str, np.ndarray], src: str, dst: str) -> Dict[str, torch.Tensor]:
+    out = {dst + ".weight": torch.from_numpy(np.ascontiguousarray(state[src + ".weight"]))}
+    if src + ".bias" in state:
+        out[dst + ".bias"] = torch.from_numpy(state[src + ".bias"])
+    return out
+
+
+def discriminator_bank_params_from_torch(
+    state: Dict, periods=(2, 3, 5, 7, 11, 13, 19, 23, 29), n_stft_scales: int = 3
+) -> dict:
+    """Reference `MultiPeriodDiscriminator` state dict -> state dict of the
+    port's `DiscriminatorBank(periods, stft_scales)` with `n_stft_scales`
+    STFT scales (weight norm folded first)."""
+    state = fold_weight_norm({k: _np(v) for k, v in state.items()})
+    out: dict = {}
+    for s in range(n_stft_scales):
+        base = f"discriminators.0.discriminators.{s}"
+        for j in range(5):  # the first conv, the 3 dilated, the one before the post
+            out.update(_moved(state, f"{base}.convs.{j}.conv", f"stft_{s}.Conv_{j}"))
+        out.update(_moved(state, f"{base}.conv_post.conv", f"stft_{s}.Conv_5"))
+    for j in range(6):
+        out.update(_moved(state, f"discriminators.1.convs.{j}", f"scale.Conv_{j}"))
+    out.update(_moved(state, "discriminators.1.conv_post", "scale.Conv_6"))
+    for i, p in enumerate(periods):
+        for j in range(5):
+            out.update(_moved(state, f"discriminators.{2 + i}.convs.{j}", f"period_{p}.Conv_{j}"))
+        out.update(_moved(state, f"discriminators.{2 + i}.conv_post", f"period_{p}.Conv_5"))
+    return out

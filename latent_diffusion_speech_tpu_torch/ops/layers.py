@@ -7,6 +7,12 @@ f32 and `cast_compute_dtype` casts the weights of every `Dense`, `nn.Conv1d`
 and `nn.ConvTranspose1d` to the compute dtype once; norms and embeddings stay
 f32.  Each layer casts its input to its weight's dtype, so torch's type
 promotion then follows JAX's (bf16 + f32 -> f32, ...).
+
+Training in bf16 keeps the f32 weights, as flax's `dtype` does:
+`set_compute_dtype` makes every `ComputeDtype` layer (`Dense` and the
+UNet's convolutions) cast its weight and bias to the compute dtype at each
+call, so the products run in bf16 and the gradients reach the f32 weights
+through the casts.
 """
 
 from __future__ import annotations
@@ -15,16 +21,35 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "LayerNorm", "GroupNorm", "cast_compute_dtype", "init_weights", "seeded", "no_tf32",
-           "resolve_device"]
+__all__ = ["ComputeDtype", "Dense", "LayerNorm", "GroupNorm", "cast_compute_dtype", "set_compute_dtype",
+           "init_weights", "seeded", "no_tf32", "resolve_device"]
 
 
-class Dense(nn.Linear):
-    """nn.Linear that casts its input to the weight dtype (flax nn.Dense
-    with `dtype`)."""
+class ComputeDtype:
+    """Mixin for a product layer with `weight` and `bias`: the dtype it
+    computes in is its weight's, unless `set_compute_dtype` set another."""
+
+    _compute_dtype = None
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.weight.dtype if self._compute_dtype is None else self._compute_dtype
+
+    def cast_weights(self):
+        """(weight, bias) in the compute dtype (differentiable casts)."""
+        dtype = self._compute_dtype
+        if dtype is None:  # the serve path: no cast a call
+            return self.weight, self.bias
+        return self.weight.to(dtype), None if self.bias is None else self.bias.to(dtype)
+
+
+class Dense(ComputeDtype, nn.Linear):
+    """nn.Linear that casts its input, weight and bias to its compute dtype
+    (flax nn.Dense with `dtype`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        weight, bias = self.cast_weights()
+        return F.linear(x.to(weight.dtype), weight, bias)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -54,12 +79,22 @@ def cast_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
+def set_compute_dtype(module: nn.Module, dtype) -> nn.Module:
+    """Compute every `ComputeDtype` layer of `module` in `dtype` from its
+    own (f32) weights; None computes in the weights' dtype again."""
+    for m in module.modules():
+        if isinstance(m, ComputeDtype):
+            m._compute_dtype = dtype
+    return module
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator, conv_std: float | None = None) -> nn.Module:
     """The flax initialisers the JAX modules are seeded with, drawn on the
-    module's device from `generator`: products (`nn.Linear`, `nn.Conv1d`)
-    LeCun-normal truncated at two standard deviations (flax's `nn.Dense`
-    default and the JAX UNets' explicit `lecun_normal()`), embeddings
+    module's device from `generator`: products (`nn.Linear`, `nn.Conv1d`,
+    `nn.Conv2d`) LeCun-normal truncated at two standard deviations over a
+    fan-in of in / groups x the kernel's taps (flax's `nn.Dense` and
+    `nn.Conv` default and the JAX UNets' explicit `lecun_normal()`), embeddings
     N(0, 1/C) (flax's `default_embed_init`: variance scaling 1.0 over
     fan-in C, a plain normal), biases 0, norm scales 1 and offsets 0.
     `conv_std` draws every `nn.Conv1d` and `nn.ConvTranspose1d` from
@@ -67,7 +102,7 @@ def init_weights(module: nn.Module, generator: torch.Generator, conv_std: float 
     for m in module.modules():
         if conv_std is not None and isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
             m.weight.normal_(0.0, conv_std, generator=generator)
-        elif isinstance(m, (nn.Linear, nn.Conv1d)):
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978  # flax's truncated_normal correction
             nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
         elif isinstance(m, nn.Embedding):

@@ -2,27 +2,40 @@
 
 Counterpart of `latent_diffusion_speech_tpu/train/diffusion_trainer.py`
 for one device (no mesh, no sharding), in f32 as the JAX training entry
-point runs it (TF32 off for CUDA matmuls and convolutions):
+point runs it (TF32 off for CUDA matmuls and convolutions), or with
+`dtype=torch.bfloat16` in bf16 from f32 weights (flax's `dtype`: the
+products run in bf16, the norms' statistics and the loss in f32; K4 takes
+its bf16 entries on the card):
 * the loss is `Unit2MelSystem.loss` on units snapped to a frozen k-means
-  codebook (`EuclideanCodebook`, the K6 kernel on the card) when one is
-  given; the UNet's self-attention runs K4 forward and backward;
+  codebook (`EuclideanCodebook`, the K6 kernel on the card), or quantized
+  by the learned `VectorQuantize`, trained jointly: its commitment loss is
+  added and its EMA codebook steps with every call; the UNet's
+  self-attention runs K4 forward and backward;
 * AdamW (the config's lr and weight_decay, betas (0.9, 0.999), eps 1e-8)
   after global-norm clipping, g * min(1, max / |g|) (optax's
   clip_by_global_norm), at the `warmup_step_decay` rate of the optimizer's
-  update count (0 for the first update, as optax counts);
-* an optional EMA of the parameters (`ema_decay > 0`) for evaluation;
+  update count (0 for the first update, as optax counts), every
+  `gradient_accumulation_steps`-th call on the mean of the calls' gradients
+  (`train/optim.py`, optax.MultiSteps);
+* `remat=True` recomputes the UNet's blocks in the backward;
+* an optional EMA of the parameters (`ema_decay > 0`) for evaluation,
+  updated on every call, as in the JAX trainer;
 * checkpoint save / scan-resume with retention, and the data-stream
-  position in the meta sidecar;
+  position in the meta sidecar; the VQ state as the
+  `model_<step>_semantic_codebook.ckpt` sidecar, which resume does not
+  read, as the JAX trainer does not (ROADMAP.md R9);
+* `train/mfu` beside the step rate when the card's peak is known
+  (`utils/flops.py`);
+* `validate_full`: the validation loss, the sampler's mel error, the
+  spectrogram triptych and, given a vocoder, the audio of the first item;
 * the `Config.debug` switches (`train/debug.py`): anomaly detection and the
   periodic finiteness check with its batch dump.
 The per-step generator is a pure function of (seed, step), the counterpart
 of `fold_in(PRNGKey(seed), step)`, so an interrupted and resumed run gives
 the same parameters as an uninterrupted one.
 
-Not ported yet (ROADMAP.md): the learned `VectorQuantize`,
-`gradient_accumulation_steps > 1`, the sharded checkpoint,
-mixed-precision training, and `validate_full`'s spectrogram / vocoder
-logging and cost-analysis MFU.
+Not ported (ROADMAP.md): the sharded checkpoint, and the device-side
+collation (`units_raw` batches).
 """
 
 from __future__ import annotations
@@ -37,8 +50,8 @@ import torch
 from latent_diffusion_speech_tpu_torch.config import Config
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
 from latent_diffusion_speech_tpu_torch.models.units import get_encoder_out_channels
-from latent_diffusion_speech_tpu_torch.ops.layers import no_tf32
-from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
+from latent_diffusion_speech_tpu_torch.ops.layers import no_tf32, set_compute_dtype
+from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook, VectorQuantize
 from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_step,
     load_checkpoint,
@@ -49,6 +62,7 @@ from latent_diffusion_speech_tpu_torch.train.checkpoint import (
 from latent_diffusion_speech_tpu_torch.train.debug import check_step, install
 from latent_diffusion_speech_tpu_torch.train.optim import AdamWUpdates, global_norm, step_generator
 from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
+from latent_diffusion_speech_tpu_torch.utils.flops import FlopsByShape, step_mfu
 
 __all__ = ["DiffusionTrainer", "step_generator", "global_norm"]
 
@@ -58,18 +72,20 @@ class DiffusionTrainer(AdamWUpdates):
         self,
         cfg: Config,
         model_cfg: Optional[Unit2MelConfig] = None,
-        quantizer: Optional[EuclideanCodebook] = None,
+        quantizer=None,
+        dtype: torch.dtype = torch.float32,
+        remat: bool = False,
         device=None,
     ):
         """device: None means `cuda` (raises without a card).  quantizer: a
-        frozen k-means `EuclideanCodebook` (on the same device) or None."""
+        frozen k-means `EuclideanCodebook` (on the same device), a learned
+        `VectorQuantize` (its state is made here from seed + 1), or None.
+        dtype: the compute dtype (the weights stay f32).  remat: recompute
+        the UNet's blocks in the backward."""
         self.cfg = cfg
         tcfg = cfg.diffusion.train
-        if tcfg.gradient_accumulation_steps > 1:
-            raise NotImplementedError("gradient_accumulation_steps > 1 is not ported yet (ROADMAP.md)")
-        if quantizer is not None and not isinstance(quantizer, EuclideanCodebook):
-            raise NotImplementedError("only the k-means EuclideanCodebook snap is ported; "
-                                      "the learned VectorQuantize is not (ROADMAP.md)")
+        if quantizer is not None and not isinstance(quantizer, (EuclideanCodebook, VectorQuantize)):
+            raise TypeError(f"quantizer must be an EuclideanCodebook or a VectorQuantize, got {type(quantizer)}")
         units_width = get_encoder_out_channels(cfg.data.encoder)
         no_tf32()  # f32 as the JAX entry point trains
         m = cfg.diffusion.model
@@ -90,10 +106,15 @@ class DiffusionTrainer(AdamWUpdates):
             gelu=m.gelu,
             qkv=m.qkv,
         )
-        self.system = Unit2MelSystem(self.model_cfg, device=device, seed=tcfg.seed)
+        self.system = Unit2MelSystem(self.model_cfg, device=device, seed=tcfg.seed, remat=remat)
         self.system.module.train()
         self.device = self.system.device
+        self.dtype = dtype
+        set_compute_dtype(self.system.module, None if dtype == torch.float32 else dtype)
         self.quantizer = quantizer
+        self._vq = quantizer if isinstance(quantizer, VectorQuantize) else None
+        self.vq_state = (self._vq.init(torch.Generator().manual_seed(tcfg.seed + 1), self.device)
+                         if self._vq is not None else None)
         self._params = list(self.system.module.parameters())
         self._init_optimizer()
         self.step = 0
@@ -118,19 +139,37 @@ class DiffusionTrainer(AdamWUpdates):
         return out
 
     def _quantized(self, units: torch.Tensor) -> torch.Tensor:
+        """Units as evaluation sees them: snapped, or through the VQ
+        without its EMA step."""
+        if self._vq is not None:
+            return self._vq(self.vq_state, units, train=False)[0]
         return self.quantizer(units) if self.quantizer is not None else units
+
+    def loss_and_vq_state(self, batch: Dict[str, torch.Tensor], generator: torch.Generator):
+        """(training loss of one device batch (differentiable), the VQ
+        state after its EMA step (None without the learned VQ))."""
+        units, commit, vq_state = batch["units"], 0.0, None
+        if self._vq is not None:
+            units, _, commit, vq_state = self._vq(self.vq_state, units, train=True)
+        elif self.quantizer is not None:
+            units = self.quantizer(units)
+        loss = self.system.loss(units, batch["mel"], generator, spk_id=batch.get("spk_id"),
+                                aug_shift=batch.get("aug_shift"))
+        return loss + commit, vq_state
 
     def loss(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
         """The training loss of one device batch (differentiable)."""
-        return self.system.loss(self._quantized(batch["units"]), batch["mel"], generator,
-                                spk_id=batch.get("spk_id"), aug_shift=batch.get("aug_shift"))
+        return self.loss_and_vq_state(batch, generator)[0]
 
     def train_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """One update from one device batch; returns the loss and the
-        gradients' global norm (before clipping) as device scalars."""
+        """One micro-step from one device batch (an update on every
+        `gradient_accumulation_steps`-th); returns the loss and this
+        batch's gradient global norm (before clipping) as device scalars."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(batch, generator)
+        loss, vq_state = self.loss_and_vq_state(batch, generator)
         loss.backward()
+        if vq_state is not None:
+            self.vq_state = vq_state
         gnorm = self.apply_update()
         self.step += 1
         return {"loss": loss.detach(), "grad_norm": gnorm}
@@ -176,21 +215,33 @@ class DiffusionTrainer(AdamWUpdates):
             return system.infer(units, generator, spk_id=batch.get("spk_id"), method=method,
                                 infer_speedup=speedup)
 
-    def validate_full(self, val_loader, generator, logger=None, max_batches: int = 2) -> Dict[str, float]:
-        """Validation loss on the live weights over `max_batches` batches,
-        and the sampler's mean |mel - gt| on the first (the config's
-        `common.infer.method`; the port's sampler raises for one it has not
-        ported)."""
+    def validate_full(self, val_loader, generator, logger=None, vocoder=None,
+                      max_batches: int = 2) -> Dict[str, float]:
+        """Validation loss on the live weights over `max_batches` batches
+        (the units as evaluation sees them), and on the first the sampler's
+        mean |mel - gt| (the config's `common.infer.method`; the port's
+        sampler raises for one it has not ported); with a logger, the
+        spectrogram triptych of its first item and, given a `vocoder`
+        (`Vocoder`), that item's audio."""
         losses, metrics = [], {}
         for bi, batch in enumerate(val_loader):
             if bi >= max_batches:
                 break
             batch = self.device_put_batch(batch)
             with torch.no_grad():
-                losses.append(float(self.loss(batch, generator)))
+                units = self._quantized(batch["units"])
+                losses.append(float(self.system.loss(units, batch["mel"], generator, spk_id=batch.get("spk_id"))))
             if bi == 0:
                 mel = self.validate(batch, generator)
                 metrics["val/mel_abs_err"] = float((mel - batch["mel"]).abs().mean())
+                if logger is not None:
+                    logger.log_spec_comparison(self.step, "val/spec", mel[0].float().cpu().numpy(),
+                                               batch["mel"][0].float().cpu().numpy())
+                    if vocoder is not None:
+                        with torch.no_grad():
+                            wav = vocoder.infer(mel[:1])
+                        logger.log_audio(self.step, "val/audio", wav[0].float().cpu().numpy(),
+                                         vocoder.vocoder_sample_rate)
         if losses:
             metrics["val/loss"] = float(np.mean(losses))
         if logger is not None and metrics:
@@ -211,6 +262,11 @@ class DiffusionTrainer(AdamWUpdates):
             meta={"epoch": self._epoch, "batch_in_epoch": self._batch_in_epoch},
             extra={"ema": self.ema} if self.ema is not None else None,
         )
+        if self.vq_state is not None:
+            # the learned codebook beside the model, as the reference keeps
+            # `model_<step>_semantic_codebook.pt`
+            torch.save({k: v.cpu() for k, v in self.vq_state._asdict().items()},
+                       f"{tcfg.expdir}/model_{self.step}_semantic_codebook.ckpt")
 
     def resume(self) -> bool:
         """Load the latest checkpoint of `expdir`; False when there is none."""
@@ -234,6 +290,13 @@ class DiffusionTrainer(AdamWUpdates):
         self._batch_in_epoch = int(meta.get("batch_in_epoch", 0))
         return True
 
+    def _snap_flops(self, batch) -> float:
+        """K6's products in a step (the counter cannot see the kernel)."""
+        if isinstance(self.quantizer, EuclideanCodebook) and self.quantizer.codebook.is_cuda:
+            K, D = self.quantizer.codebook.shape
+            return 2.0 * batch["units"][..., 0].numel() * K * D
+        return 0.0
+
     # -- the epoch loop --------------------------------------------------------
 
     def train(self, loader, val_loader=None, max_steps: Optional[int] = None, logger=None, shutdown=None):
@@ -243,6 +306,7 @@ class DiffusionTrainer(AdamWUpdates):
         tcfg = self.cfg.diffusion.train
         dcfg = self.cfg.debug
         last_t = time.time()
+        counter = FlopsByShape(self.system.module)
         with (shutdown or GracefulShutdown()) as stop, install(dcfg):
             start_epoch = self._epoch
             for epoch in range(start_epoch, tcfg.epochs):
@@ -260,7 +324,9 @@ class DiffusionTrainer(AdamWUpdates):
                         return
                     device_batch = self.device_put_batch(batch)
                     batch_size = int(next(iter(device_batch.values())).shape[0])
-                    metrics = self.train_step(device_batch, step_generator(tcfg.seed, self.step, self.device))
+                    generator = step_generator(tcfg.seed, self.step, self.device)
+                    metrics, flops = counter.step(device_batch, lambda: self.train_step(device_batch, generator),
+                                                  self._snap_flops(device_batch))
                     self._batch_in_epoch += 1
                     check_step(dcfg, self.step, dict(self.system.module.named_parameters()), metrics["loss"],
                                batch=device_batch, expdir=tcfg.expdir)
@@ -268,12 +334,16 @@ class DiffusionTrainer(AdamWUpdates):
                         dt = time.time() - last_t
                         last_t = time.time()
                         steps_per_sec = tcfg.interval_log / max(dt, 1e-9)
-                        logger.log(self.step, {
+                        log = {
                             "train/loss": float(metrics["loss"]),
                             "train/grad_norm": float(metrics["grad_norm"]),
                             "train/steps_per_sec": steps_per_sec,
                             "train/samples_per_sec": steps_per_sec * batch_size,
-                        })
+                        }
+                        mfu = step_mfu(flops, steps_per_sec, self.device)
+                        if mfu is not None:
+                            log["train/mfu"] = mfu
+                        logger.log(self.step, log)
                     if self.step % tcfg.interval_val == 0:
                         self.save()
                         if val_loader is not None:

@@ -2,14 +2,20 @@
 
 Counterpart of `latent_diffusion_speech_tpu/train/lm_trainer.py` for one
 device and `type: roformer`, in f32 as the JAX entry point builds it (TF32 off
-for CUDA matmuls, process-wide, as in the diffusion trainer):
+for CUDA matmuls, process-wide, as in the diffusion trainer), or with
+`dtype=torch.bfloat16` in bf16 from f32 weights (flax's `dtype`):
 * the loss is `RoformerSystem.loss` (shifted CE, -100 ignored) with dropout
   drawn from `step_generator(seed, step)`, the counterpart of
   `fold_in(PRNGKey(seed), step)`, so an interrupted and resumed run gives the
   same parameters as an uninterrupted one;
 * AdamW at the `warmup_step_decay` rate, after global-norm clipping only
   when `clip_grad_norm > 0` (the LM default is -1), as optax's chain
-  (`train/optim.py`);
+  (`train/optim.py`), every `gradient_accumulation_steps`-th call on the
+  mean of the calls' gradients (optax.MultiSteps; the accumulator rides in
+  the checkpoint's optimizer state);
+* `train/mfu` beside the step rate when the card's peak is known
+  (`utils/flops.py`: the products `FlopCounterMode` counts; the LM's
+  training attention is the plain path, so it sees them all);
 * a NaN guard every `nan_check_interval` steps, and the `Config.debug`
   switches (`train/debug.py`);
 * `evaluate` (val/loss, val/top5_acc), `validate_audio` through a frozen
@@ -19,9 +25,8 @@ for CUDA matmuls, process-wide, as in the diffusion trainer):
 The attention runs the plain path (the JAX RoFormer's `impl="xla"`): no
 Pallas kernel is on the JAX LM's training path.
 
-Raises for what is not ported (ROADMAP.md): `gradient_accumulation_steps > 1`,
-`type: llama`, and any mesh axis (data, model, sequence, pipeline or expert
-parallelism).  The MFU from XLA's cost analysis is left out.
+Raises for what is not ported (ROADMAP.md): `type: llama`, and any mesh axis
+(data, model, sequence, pipeline or expert parallelism).
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 from latent_diffusion_speech_tpu_torch.config import Config
 from latent_diffusion_speech_tpu_torch.models.lm.registry import roformer_config_from
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerConfig, RoformerSystem
-from latent_diffusion_speech_tpu_torch.ops.layers import no_tf32
+from latent_diffusion_speech_tpu_torch.ops.layers import no_tf32, set_compute_dtype
 from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_step,
     load_checkpoint,
@@ -47,6 +52,7 @@ from latent_diffusion_speech_tpu_torch.train.checkpoint import (
 from latent_diffusion_speech_tpu_torch.train.debug import check_step, install
 from latent_diffusion_speech_tpu_torch.train.optim import AdamWUpdates, step_generator
 from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
+from latent_diffusion_speech_tpu_torch.utils.flops import FlopsByShape, step_mfu
 
 __all__ = ["LMTrainer", "top_k_accuracy", "roformer_config_from"]
 
@@ -80,9 +86,7 @@ def deterministic_algorithms():
 
 
 def _check_one_device(cfg: Config) -> None:
-    tcfg, par = cfg.text2semantic.train, cfg.parallel
-    if tcfg.gradient_accumulation_steps > 1:
-        raise NotImplementedError("gradient_accumulation_steps > 1 is not ported yet (ROADMAP.md)")
+    par = cfg.parallel
     if cfg.text2semantic.model.type != "roformer":
         raise NotImplementedError(f"text2semantic model type {cfg.text2semantic.model.type!r}: only the RoFormer "
                                   "trains in the port (the Llama LM: ROADMAP.md Queue 1, item 8)")
@@ -99,9 +103,11 @@ class LMTrainer(AdamWUpdates):
     # the other steps never wait for the card; a NaN raises within N steps
     nan_check_interval: int = 50
 
-    def __init__(self, cfg: Config, lm_cfg: Optional[RoformerConfig] = None, codebook=None, device=None):
+    def __init__(self, cfg: Config, lm_cfg: Optional[RoformerConfig] = None, codebook=None,
+                 dtype: torch.dtype = torch.float32, device=None):
         """device: None means `cuda` (raises without a card).  codebook: the
-        k-means centroids that warm-start the semantic embeddings."""
+        k-means centroids that warm-start the semantic embeddings.  dtype:
+        the compute dtype (the weights stay f32)."""
         _check_one_device(cfg)
         self.cfg = cfg
         tcfg = cfg.text2semantic.train
@@ -110,6 +116,8 @@ class LMTrainer(AdamWUpdates):
         self.lm_cfg = lm_cfg or roformer_config_from(cfg)
         self.system = RoformerSystem(self.lm_cfg, device=device, seed=tcfg.seed, codebook=codebook, training=True)
         self.device = self.system.device
+        self.dtype = dtype
+        set_compute_dtype(self.system.module, None if dtype == torch.float32 else dtype)
         self._params = list(self.system.module.parameters())
         self._init_optimizer()
         self.step = 0
@@ -126,7 +134,8 @@ class LMTrainer(AdamWUpdates):
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """One update from one device batch, dropout drawn from
+        """One micro-step from one device batch (an update on every
+        `gradient_accumulation_steps`-th), dropout drawn from
         `step_generator(seed, step)`; returns the loss and the gradients'
         global norm (before clipping) as device scalars.  A non-finite loss
         on a guarded step raises before the update."""
@@ -211,6 +220,7 @@ class LMTrainer(AdamWUpdates):
         tcfg = self.cfg.text2semantic.train
         dcfg = self.cfg.debug
         last_t = time.time()
+        counter = FlopsByShape()
         with (shutdown or GracefulShutdown()) as stop, install(dcfg):
             start_epoch = self._epoch
             for epoch in range(start_epoch, tcfg.epochs):
@@ -227,7 +237,7 @@ class LMTrainer(AdamWUpdates):
                         self.save()
                         return
                     device_batch = self.device_put_batch(batch)
-                    metrics = self.train_step(device_batch)
+                    metrics, flops = counter.step(device_batch, lambda: self.train_step(device_batch))
                     self._batch_in_epoch += 1
                     check_step(dcfg, self.step, dict(self.system.module.named_parameters()), metrics["loss"],
                                batch=device_batch, expdir=tcfg.expdir)
@@ -235,12 +245,16 @@ class LMTrainer(AdamWUpdates):
                         dt = time.time() - last_t
                         last_t = time.time()
                         steps_per_sec = tcfg.interval_log / max(dt, 1e-9)
-                        logger.log(self.step, {
+                        log = {
                             "train/loss": float(metrics["loss"]),
                             "train/grad_norm": float(metrics["grad_norm"]),
                             "train/steps_per_sec": steps_per_sec,
                             "train/samples_per_sec": steps_per_sec * int(device_batch["phone"].shape[0]),
-                        })
+                        }
+                        mfu = step_mfu(flops, steps_per_sec, self.device)
+                        if mfu is not None:
+                            log["train/mfu"] = mfu
+                        logger.log(self.step, log)
                     if self.step % tcfg.interval_val == 0:
                         if val_loader is not None and logger is not None:
                             for vb in val_loader:

@@ -1,7 +1,9 @@
 """The port's seeded weights against the JAX modules' flax initialisers.
 
 For the RoFormer, `Unit2Mel` (flagship and general denoiser), the vocoder
-`Generator` and the `VAEEncoder`, at small widths, each seeded leaf of the
+`Generator`, the `VAEEncoder` and the codec trainer's discriminator bank
+(2-D convolutions and grouped 1-D ones, flax's `nn.Conv` defaults), at
+small widths, each seeded leaf of the
 port is held to the leaf of the same name in the JAX module's seeded tree
 (names moved over with `convert.py`): every bias and norm offset exactly
 0, every norm scale exactly 1, the standard deviation of every other leaf
@@ -31,6 +33,7 @@ from latent_diffusion_speech_tpu.models.lm.roformer import RoformerSystem as JRo
 from latent_diffusion_speech_tpu.models.lm.roformer import StackConfig as JStackConfig
 from latent_diffusion_speech_tpu.models.vaegan import VAEGANConfig as JVAEGANConfig
 from latent_diffusion_speech_tpu.models.vaegan.codec import HifiVAEGAN as JHifiVAEGAN
+from latent_diffusion_speech_tpu.models.vaegan.discriminators import DiscriminatorBank as JDiscriminatorBank
 from latent_diffusion_speech_tpu.train.lm_trainer import roformer_config_from as j_roformer_config_from
 from latent_diffusion_speech_tpu_torch import config, convert
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
@@ -38,6 +41,7 @@ from latent_diffusion_speech_tpu_torch.models.lm.registry import roformer_config
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerConfig, RoformerSystem, StackConfig
 from latent_diffusion_speech_tpu_torch.models.vaegan.codec import HifiVAEGAN
 from latent_diffusion_speech_tpu_torch.models.vaegan.config import VAEGANConfig
+from latent_diffusion_speech_tpu_torch.train.codec_trainer import CodecTrainer
 
 CONFIG = Path(__file__).resolve().parent.parent / "configs" / "config.yaml"
 STACK = dict(hidden_size=64, num_attention_heads=4, intermediate_size=128)
@@ -73,12 +77,24 @@ def _codec(part):
     return convert.encoder_from_jax(_np(jcodec.encoder_params)), codec.encoder
 
 
+def _bank():
+    """The codec trainer's seeded bank (one STFT scale, one period) against
+    the flax bank's init."""
+    scales, periods = ((128, 32, 128),), (2,)
+    jbank = JDiscriminatorBank(periods=periods, stft_scales=scales)
+    jparams = jax.jit(jbank.init)(jax.random.PRNGKey(0), jnp.zeros((1, 512)))["params"]
+    jtree = convert.discriminator_bank_from_jax(_np(jparams))
+    trainer = CodecTrainer(VAEGANConfig(**VAEGAN), disc_scales=scales, disc_periods=periods, device="cpu")
+    return jtree, trainer.disc
+
+
 MODULES = {
     "roformer": _roformer,
     "unit2mel_flagship": lambda: _unit2mel("flagship"),
     "unit2mel_general": lambda: _unit2mel("general"),
     "vocoder_generator": lambda: _codec("generator"),
     "vaegan_encoder": lambda: _codec("encoder"),
+    "discriminator_bank": _bank,
 }
 
 

@@ -363,11 +363,10 @@ def test_interrupted_lm_run_matches_uninterrupted(tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    for field, value, match in (("gradient_accumulation_steps", 2, "gradient_accumulation"),
-                                ("seq", 2, "parallel"), ("pipe", 2, "parallel"), ("data", 2, "parallel"),
+    for field, value, match in (("seq", 2, "parallel"), ("pipe", 2, "parallel"), ("data", 2, "parallel"),
                                 ("type", "llama", "Llama")):
         cfg = _lm_config(tmp_path)
-        target = {"gradient_accumulation_steps": cfg.text2semantic.train, "type": cfg.text2semantic.model}
+        target = {"type": cfg.text2semantic.model}
         setattr(target.get(field, cfg.parallel), field, value)
         with pytest.raises(NotImplementedError, match=match):
             LMTrainer(cfg, device="cpu")

@@ -87,6 +87,7 @@ def _default_systems():
     from latent_diffusion_speech_tpu_torch.models.vaegan.codec import HifiVAEGAN
     from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
     from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
+    from latent_diffusion_speech_tpu_torch.train.codec_trainer import CodecTrainer
     from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer
     from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
 
@@ -100,6 +101,7 @@ def _default_systems():
         "EuclideanCodebook": lambda: EuclideanCodebook([[0.0, 1.0]]),
         "DiffusionTrainer": lambda: DiffusionTrainer(config.Config(), model_cfg=tiny),
         "LMTrainer": lambda: LMTrainer(config.Config()),
+        "CodecTrainer": lambda: CodecTrainer(),
         "build_pipeline": lambda: build_pipeline(config.Config()),
         "load_native_pipeline": lambda: load_native_pipeline(config.Config()),
         "load_reference_pipeline": lambda: load_reference_pipeline("exp/diffusion"),
@@ -118,13 +120,14 @@ CLIS = {
     "cli.preprocess_cluster": ["-c", CONFIG],
     "cli.preprocess_val": ["-c", CONFIG],
     "cli.train_lm": ["-c", CONFIG],
+    "cli.train_codec": ["-c", CONFIG],
     "cli.batch_preprocess": ["-c", CONFIG],
     "cli.verify_import": ["no-such-checkpoint.pt"],
 }
 
 
 @pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "HifiVAEGAN", "EuclideanCodebook",
-                                  "DiffusionTrainer", "LMTrainer", "build_pipeline", "load_native_pipeline",
+                                  "DiffusionTrainer", "LMTrainer", "CodecTrainer", "build_pipeline", "load_native_pipeline",
                                   "load_reference_pipeline", "UnitsEncoder", "WhisperLargeV3Units", *CLIS])
 def test_entry_points_default_to_the_card(name):
     """A default-constructed entry point, or a CLI run without --device,
@@ -202,6 +205,8 @@ DTYPE_DEFAULTS = {
     ("models.vaegan.codec", "HifiVAEGAN.random_init", "dtype"),
     ("models.vaegan.codec", "HifiVAEGAN.from_torch_checkpoint", "dtype"),
     ("ops.stft", "hann_window", "dtype"),
+    ("train.diffusion_trainer", "DiffusionTrainer.__init__", "dtype"),
+    ("train.lm_trainer", "LMTrainer.__init__", "dtype"),
 }
 
 

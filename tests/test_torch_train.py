@@ -319,11 +319,14 @@ UniPC, the shipped config's sampler."""
     cfg = _tiny_config(tmp_path)
     cfg.diffusion.train.interval_val = 2
     cfg.common.infer.method, cfg.common.infer.speedup = "dpm-solver", 5
-    logged = []
+    logged, specs = [], []
 
     class Log:
         def log(self, step, metrics):
             logged.append((step, metrics))
+
+        def log_spec_comparison(self, step, tag, pred, gt):
+            specs.append((step, tag, pred.shape, gt.shape))
 
     trainer = DiffusionTrainer(cfg, model_cfg=TINY_MODEL, device="cpu")
     trainer.train(DataLoader(ds, batch_size=4, seed=9), val_loader=DataLoader(ds, batch_size=4, shuffle=False),
@@ -331,6 +334,7 @@ UniPC, the shipped config's sampler."""
     assert trainer.step == 2 and latest_checkpoint_step(cfg.diffusion.train.expdir) == 2
     (step, metrics), = logged
     assert step == 2 and set(metrics) == {"val/loss", "val/mel_abs_err"}
+    assert specs == [(2, "val/spec", (16, MEL_DIM), (16, MEL_DIM))]
     assert all(np.isfinite(v) for v in metrics.values())
     cfg.common.infer.method = "unipc"  # the shipped config's sampler
     metrics = trainer.validate_full(DataLoader(ds, batch_size=4, shuffle=False), torch.Generator().manual_seed(0))
@@ -345,12 +349,13 @@ def test_step_generator_is_a_function_of_seed_and_step():
 
 
 def test_unported_options_raise(tmp_path):
+    """A quantizer that is neither codebook type raises; accumulation and
+    the learned VQ no longer do (tests/test_torch_train_options.py)."""
+    with pytest.raises(TypeError, match="EuclideanCodebook or a VectorQuantize"):
+        DiffusionTrainer(_tiny_config(tmp_path), model_cfg=TINY_MODEL, quantizer=object(), device="cpu")
     cfg = _tiny_config(tmp_path)
     cfg.diffusion.train.gradient_accumulation_steps = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiffusionTrainer(cfg, model_cfg=TINY_MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="VectorQuantize"):
-        DiffusionTrainer(_tiny_config(tmp_path), model_cfg=TINY_MODEL, quantizer=object(), device="cpu")
+    assert DiffusionTrainer(cfg, model_cfg=TINY_MODEL, device="cpu").every == 2
 
 
 def test_trainer_turns_tf32_off(tmp_path):
