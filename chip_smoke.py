@@ -138,7 +138,23 @@ with nvcc (sm_90a), then:
    beside stages 10 + 11's, its batches and buckets, unit frame counts
    and units against stage 10's, the latents' frame counts and their gap
    from stage 11's (R7, reported);
-12. migrate: a full-width reference artifact set written by the inverses
+12. units_alt: the three other unit encoders (HuBERT-soft 256-d, XLSR-53
+   and w2v-BERT 2.0 1024-d) seeded at full width through
+   `UnitsEncoder.encode` on one 10 s clip, each in bf16 and f32 (the units'
+   shape at 50 fps, finiteness, bf16 against f32, ms a call); the native
+   reader built into one empty directory by two spawn processes at once;
+   HuBERT-soft through stages 10, 17 (the shipped 4096-code codebook over
+   the 256-d units, one K6 launch a step) and 19 (one K6 launch a file, ids
+   against the plain version) over 8 files of 41-45 s, and one SVC call
+   through `cli/infer_svc.py`'s path (a seeded 256-input `Unit2Mel`, 32 K4
+   launches a denoiser evaluation, the RTF); K6 at D = 256 and 1024 against
+   its plain version, timed beside cuBLAS and its bound; the diffusion
+   trainer's input at B=48 on train_slice's layout three ways (items,
+   `fast_batch`, `device_collate` with bf16 units): the loader's ms a batch
+   and the median step; with only_mean, one device-collated step's loss and
+   gradients against the host-collated step (atol 1e-5) and its launches
+   (32 K4 forward, 32 K4 backward, 1 K6);
+13. migrate: a full-width reference artifact set written by the inverses
    of the importers (`reference_unit2mel_state`, `reference_roformer_state`,
    `reference_codec_state`; the sklearn codebook dict; a Whisper-large-v3
    wrapper cut to 2 layers) served through
@@ -148,7 +164,7 @@ with nvcc (sm_90a), then:
    set in f32 on the card against the CPU (the Unit2Mel forward, K1's
    greedy logits); `verify_import` as a process for every kind, CPU
    goldens then the card, each within 1e-3 of its golden;
-13. codec_train: the HiFi-VAEGAN codec GAN through `cli/train_codec.py::main`
+14. codec_train: the HiFi-VAEGAN codec GAN through `cli/train_codec.py::main`
    as a user runs it, at the shipped 44.1 kHz width (hop 512, 128 latent
    channels; the `CodecTrainer` bank: STFT scales 1024 and 512, periods
    2-11), B=16 crops of 32256 samples from a synthetic WAV layout: 4
@@ -1984,28 +2000,34 @@ def check_k4_bwd(dev) -> dict:
 
 def f64_ties(x, cb, got, ref, what: str) -> tuple:
     """The rows where two argmins over the same codes (`got`, `ref`)
-    differ, each required to be a tie: its two squared distances,
-    recomputed in f64, within 1e-6 relative (f32 sums in another order
-    can only flip a tie that close).  Returns (the rows, the largest f64
-    distance gap among them)."""
+    differ, each required to be a tie that f32 cannot resolve: its two
+    squared distances, recomputed in f64, within 1e-6 of the magnitude of
+    the terms an f32 score ||c||^2 - 2 x.c sums (||c||^2 + 2 |x.c|, the
+    larger of the two codes').  The score loses its low bits to that
+    magnitude, not to the distance that is left after the cancellation, so
+    sums in another order can flip a tie that close.  Returns (the rows,
+    the largest f64 distance gap among them)."""
     import torch
 
     differ = (got.to(ref.device) != ref).nonzero()[:, 0]
     if not len(differ):
         return differ, 0.0
     x64, cb64 = x[differ.to(x.device)].double(), cb.double()
-    d_got = ((x64 - cb64[got[differ.to(got.device)].long()]) ** 2).sum(-1)
-    d_ref = ((x64 - cb64[ref[differ].long().to(cb.device)]) ** 2).sum(-1)
-    if not bool(((d_got - d_ref).abs() <= 1e-6 * torch.maximum(d_got, d_ref)).all()):
-        raise AssertionError(f"K6 {what} {tuple(x.shape)} x {len(cb)}: {len(differ)} rows differ, not all f64 ties")
-    return differ, (d_got - d_ref).abs().max().item()
+    c_got, c_ref = cb64[got[differ.to(got.device)].long()], cb64[ref[differ].long().to(cb.device)]
+    d_got, d_ref = ((x64 - c_got) ** 2).sum(-1), ((x64 - c_ref) ** 2).sum(-1)
+    scale = torch.maximum((c_got ** 2).sum(-1) + 2 * (x64 * c_got).sum(-1).abs(),
+                          (c_ref ** 2).sum(-1) + 2 * (x64 * c_ref).sum(-1).abs())
+    gap = (d_got - d_ref).abs()
+    if not bool((gap <= 1e-6 * scale).all()):
+        worst = int((gap / scale).argmax())
+        raise AssertionError(f"K6 {what} {tuple(x.shape)} x {len(cb)}: {len(differ)} rows differ, not all f64 ties "
+                             f"(largest gap {gap[worst].item():.3e} at a term magnitude {scale[worst].item():.3e})")
+    return differ, gap.max().item()
 
 
 def k6_row(k6, x, cb, what: str) -> dict:
     """K6 on (x, cb) against its plain version: ids equal, except that a
-    row may differ when its two squared distances, recomputed in f64, are
-    within 1e-6 relative (f32 sums in another order can only flip a tie
-    that close).  Times the kernel, its plain version and the cuBLAS f32
+    row may differ on a tie f32 cannot resolve (`f64_ties`).  Times the kernel, its plain version and the cuBLAS f32
     product x @ cb.T alone (the yardstick; TF32 off); bound: x and cb read,
     the ids written, 2 N K D f32 operations.  Prints one line; returns its
     row with the kernel's ids."""
@@ -2019,7 +2041,7 @@ def k6_row(k6, x, cb, what: str) -> dict:
     library_ms = cuda_time_ms(lambda: x @ cb.T, iters=20)
     bound_ms, bound_by = bound((N * D + K * D) * 4 + N * 4, 2 * N * K * D, F32_FLOPS)
     print(f"K6 kmeans_argmin {what} N={N} K={K} D={D}: {len(differ)} of {N} rows differ from the plain version "
-          f"({len(differ) / N:.3%}; each an f64 tie within 1e-6; largest distance gap {dist_err:.3e}); kernel "
+          f"({len(differ) / N:.3%}; each an f64 tie, `f64_ties`; largest distance gap {dist_err:.3e}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS x @ codebook.T {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}: {2 * N * K * D / 1e9:.2f} GFLOP f32)")
     return dict(N=N, K=K, D=D, ids=got, differ=len(differ), max_abs_err=dist_err, ms=ms, plain_ms=plain_ms,
@@ -2919,6 +2941,391 @@ STAGE17_CENTROID_REL = 1e-5
 # within this share of their largest magnitude
 STAGE11_REL = 1e-4
 BATCH_B = 8  # cli/batch_preprocess.py's batch size in data_path (its default)
+
+
+# units_alt: the three other unit encoders at full width (seeded), on a
+# 10 s clip; HuBERT-soft through stages 10, 17 and 19 over 8 files long
+# enough for stage 17's codebook (>= 2 x 8192 frames of 50 fps units) and
+# through one SVC call; K6 at D = 256 and 1024; then the diffusion trainer's
+# input path three ways at B = 48 on train_slice's layout
+ALT_ENCODERS = (("hubert_soft", 256), ("xlsr_53_56k", 1024), ("w2v-bert", 1024))
+ALT_CLIP_S = 10.0
+ALT_FILES = (41.0, 41.5, 42.0, 42.5, 43.0, 43.5, 44.0, 44.5)  # seconds a file (44.1 kHz)
+# each encoder in bf16 against the same weights in f32 (relative Frobenius error of the units)
+ALT_BF16_REL = 5e-2
+ALT_SVC_PARTS = ((0.5, None), (4.0, 120.0), (1.0, None), (4.5, 165.0))
+# K6 rows: (N, D) against the 4096-code shipped codebook size
+ALT_K6 = ((8192, 256), (400, 256), (8192, 1024), (400, 1024))
+ALT_TRAIN_STEPS = 10  # steps a way, after one warm-up step
+# a device-collated step against the host-collated one under only_mean
+ALT_GRAD_ATOL = 1e-5
+
+
+def _native_build_child(build_dir: str, barrier, out) -> None:
+    """A spawn worker: build and load the native reader in `build_dir`."""
+    os.environ["LDS_TORCH_BUILD_DIR"] = build_dir
+    sys.path.insert(0, ROOT)
+    from latent_diffusion_speech_tpu_torch.data import native_loader
+
+    barrier.wait()
+    try:
+        native_loader.NativeNpyReader(num_threads=1)
+        out.put(("ok", str(native_loader.library_path())))
+    except Exception as e:  # noqa: BLE001 - the parent raises it
+        out.put(("failed", repr(e)))
+
+
+def alt_signal(sec: float, f0: float, seed: int) -> np.ndarray:
+    """A voiced 44.1 kHz stretch for the units_alt corpus: five harmonics
+    with a 5 Hz +-3% vibrato, 4 Hz amplitude modulation and white noise at
+    -24 dB of the peak, between 0.25 s silences.  A steady tone gives the
+    seeded HuBERT-soft rows so alike that bf16 units repeat (178 distinct
+    of 1025 over 20 s), too few for a 4096-code k-means++."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(round(sec * SVC_SR))) / SVC_SR
+    phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))) / SVC_SR
+    voiced = 0.15 * sum(np.sin(h * phase) / h for h in range(1, 6)) * (0.65 + 0.35 * np.sin(2 * np.pi * 4 * t))
+    voiced += 0.01 * rng.standard_normal(t.size)
+    silence = np.zeros(int(0.25 * SVC_SR))
+    return np.concatenate([silence, voiced, silence]).astype(np.float32)
+
+
+def stack_items(items: list) -> dict:
+    """The default collate written out: numpy items stacked key by key."""
+    return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+def native_build_race() -> str:
+    """Two spawn processes build the native reader into one empty build
+    directory at once: both must load the same library."""
+    import multiprocessing as mp
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        ctx = mp.get_context("spawn")
+        barrier, out = ctx.Barrier(2), ctx.Queue()
+        procs = [ctx.Process(target=_native_build_child, args=(tmp, barrier, out)) for _ in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            results = [out.get(timeout=120) for _ in procs]
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+        wall = time.perf_counter() - t0
+        libs = sorted(f for f in os.listdir(tmp) if f.endswith(".so"))
+        if any(r[0] != "ok" for r in results) or len({r[1] for r in results}) != 1 or len(libs) != 1:
+            raise AssertionError(f"native reader build race: {results}, libraries {libs}")
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"native reader build race: exit codes {[p.exitcode for p in procs]}")
+    return f"two spawn processes built and loaded {libs[0]} from one empty directory in {wall:.2f} s"
+
+
+def alt_encoders(dev, card: str) -> None:
+    """Each other encoder through `UnitsEncoder.encode` on one 10 s clip at
+    44.1 kHz, seeded at full width, in bf16 (the default) and f32 from the
+    same seed: the units' shape (50 fps), finiteness, bf16 against f32 and
+    ms a call."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.models.units import UnitsEncoder
+
+    clip = alt_signal(ALT_CLIP_S, 140.0, seed=0)[int(0.25 * SVC_SR):-int(0.25 * SVC_SR)]
+    frames = -(-len(clip) * 16000 // SVC_SR) // 320  # the resampled length // hop
+    for name, width in ALT_ENCODERS:
+        units, ms = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(None):
+                enc = UnitsEncoder(name, ckpt_path="no-such-checkpoint.pt", device=dev, dtype=dtype)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            units[dtype] = enc.encode(clip, SVC_SR).float()
+            ms[dtype] = cuda_time_ms(lambda: enc.encode(clip, SVC_SR), iters=5, warmup=1)
+            n_params = sum(p.numel() for p in enc.model.model.parameters())
+            del enc
+            torch.cuda.empty_cache()
+        u32, u16 = units[torch.float32], units[torch.bfloat16]
+        rel = ((u16 - u32).norm() / u32.norm()).item()
+        # XLSR's unpadded convolutions give one frame fewer when the input
+        # fills its half-second bucket exactly (as in the JAX package)
+        if (u32.shape[0], u32.shape[2]) != (1, width) or not 0 <= frames - u32.shape[1] <= 1 \
+                or u16.shape != u32.shape:
+            raise AssertionError(f"{name}: units {tuple(u32.shape)}, want (1, {frames}, {width})")
+        if not (torch.isfinite(u32).all() and torch.isfinite(u16).all()) or rel > ALT_BF16_REL:
+            raise AssertionError(f"{name}: finite {bool(torch.isfinite(u16).all())}, bf16 vs f32 {rel}")
+        print(f"units_alt {name} [{card}]: {n_params / 1e6:.1f} M parameters seeded on the card in {build_s:.2f} s; "
+              f"{ALT_CLIP_S:.0f} s clip -> units {tuple(u16.shape)} (50 fps), finite; bf16 vs f32 relative error "
+              f"{rel:.2e} (limit {ALT_BF16_REL}); {ms[torch.bfloat16]:.2f} ms a call in bf16, "
+              f"{ms[torch.float32]:.2f} ms in f32")
+
+
+def alt_hubert_path(dev, card: str, tmp: str) -> dict:
+    """HuBERT-soft through stages 10, 17 and 19 (each its `main`) over
+    ALT_FILES, then one SVC call as `cli/infer_svc.py` makes it: the
+    shipped config with `encoder: hubert_soft`, a seeded 256-input
+    `Unit2Mel`.  Returns the launches."""
+    import io
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import preprocess_cluster, preprocess_token, preprocess_unit
+    from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline as cli_build_pipeline
+    from latent_diffusion_speech_tpu_torch.config import load_config, save_config
+    from latent_diffusion_speech_tpu_torch.models.units import UnitsEncoder
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import load_audio, write_wav
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+    from latent_diffusion_speech_tpu_torch.quantize.kmeans import load_codebook
+
+    for i, sec in enumerate(ALT_FILES):
+        os.makedirs(os.path.join(tmp, "train", "audio", str(i % 2 + 1)), exist_ok=True)
+        audio = alt_signal(sec, 100.0 + 9 * i, seed=i)
+        write_wav(os.path.join(tmp, "train", "audio", str(i % 2 + 1), f"{i}.wav"), audio, SVC_SR)
+    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+    cfg.data.encoder = "hubert_soft"
+    cfg.data.train_path = os.path.join(tmp, "train")
+    cfg.text2semantic.model.codebook_path = os.path.join(tmp, "codebook.npz")
+    cfg_path = os.path.join(tmp, "config.yaml")
+    save_config(cfg, cfg_path)
+    ckpt = ["--ckpt", os.path.join(tmp, "no-hubert.pt")]
+    launches = {"attention_fwd": 0, "kmeans_argmin": 0}
+
+    def stage(name, fn, argv) -> tuple:
+        buf = io.StringIO()
+        k6.launches = 0
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+        torch.cuda.synchronize()
+        launches["kmeans_argmin"] += k6.launches
+        return time.perf_counter() - t, k6.launches, buf.getvalue().splitlines()
+
+    wall10, n10, _ = stage("10", preprocess_unit.main, ["-c", cfg_path, *ckpt])
+    unit_root = os.path.join(tmp, "train", "units")
+    units = {f: np.load(os.path.join(unit_root, f)) for f in sorted(
+        os.path.relpath(os.path.join(d, f), unit_root) for d, _, fs in os.walk(unit_root) for f in fs)}
+    frames = sum(len(u) for u in units.values())
+    if len(units) != len(ALT_FILES) or any(u.shape[1] != 256 or not np.isfinite(u).all() for u in units.values()):
+        raise AssertionError(f"stage 10 (hubert_soft): {[(f, u.shape) for f, u in units.items()]}")
+    wall17, n17, lines17 = stage("17", preprocess_cluster.main, ["-c", cfg_path])
+    cb = load_codebook(cfg.text2semantic.model.codebook_path)
+    want17 = STAGE17_EPOCHS * (frames // STAGE17_B)
+    if cb.shape != (cfg.text2semantic.model.semantic_kmeans_num, 256) or n17 != want17:
+        raise AssertionError(f"stage 17: codebook {cb.shape}, {n17} K6 launches (want {want17})")
+    wall19, n19, _ = stage("19", preprocess_token.main, ["-c", cfg_path])
+    cb_dev = torch.from_numpy(cb).to(dev)
+    ties = 0
+    for f, u in units.items():
+        ids = np.load(os.path.join(tmp, "train", "semantic_token", f))
+        x = torch.from_numpy(u).to(dev)
+        ref = k6.kmeans_argmin_plain(x, cb_dev)
+        ties += len(f64_ties(x, cb_dev, torch.from_numpy(ids).to(dev), ref, "stage 19 (256-d)")[0])
+    if n19 != len(units):
+        raise AssertionError(f"stage 19: {n19} K6 launches for {len(units)} files")
+    print(f"units_alt hubert_soft data path [{card}]: stage 10 over {len(units)} files of {ALT_FILES[0]}-"
+          f"{ALT_FILES[-1]} s ({frames} unit frames, 256-d) {wall10:.2f} s; stage 17 ({cb.shape[0]} x 256, "
+          f"{n17} K6 launches, one a step) {wall17:.2f} s: {lines17[-1] if lines17 else ''}; stage 19 "
+          f"{wall19:.2f} s, {n19} K6 launches (one a file), ids equal to the plain version but {ties} f64 ties")
+
+    # one SVC call through cli/infer_svc.py's path
+    t0 = time.perf_counter()
+    pipe = cli_build_pipeline(cfg)
+    width = pipe.diffusion.cfg.input_channel
+    if width != 256:
+        raise AssertionError(f"build_pipeline with encoder hubert_soft: Unit2Mel input {width}")
+    with contextlib.redirect_stdout(None):
+        pipe.units_encoder = UnitsEncoder(cfg.data.encoder, cfg.data.encoder_sample_rate, cfg.data.encoder_hop_size,
+                                          cfg.data.units_forced_mode, ckpt_path=ckpt[1], device=pipe.device)
+    build_s = time.perf_counter() - t0
+    src = os.path.join(tmp, "svc_in.wav")
+    signal, _ = svc_signal(ALT_SVC_PARTS)
+    write_wav(src, signal, SVC_SR)
+    audio, sr = load_audio(src)
+    count = {"evals": 0}
+    real_denoise = pipe.diffusion.diffusion.denoise_fn
+
+    def denoise(*a):
+        count["evals"] += 1
+        return real_denoise(*a)
+
+    with mock.patch.object(pipe.diffusion.diffusion, "denoise_fn", denoise):
+        k4.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, out_sr = pipe.infer_from_long_audio(audio, sr, method=cfg.common.infer.method,
+                                                 infer_speedup=cfg.common.infer.speedup)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n4 = k4.launches
+    launches["attention_fwd"] += n4
+    out = np.asarray(out)
+    hop = pipe.vocoder.vocoder_hop_size
+    if (out_sr != SVC_SR or abs(len(out) - len(signal)) > 2 * hop or not np.isfinite(out).all()
+            or not count["evals"] or n4 != 32 * count["evals"]):
+        raise AssertionError(f"svc (hubert_soft): {out_sr} Hz, {len(out)} samples for {len(signal)}, finite "
+                             f"{bool(np.isfinite(out).all())}, {n4} K4 launches / {count['evals']} evaluations")
+    print(f"units_alt hubert_soft svc [{card}]: build_pipeline + HuBERT-soft {build_s:.2f} s (Unit2Mel input "
+          f"{width}); {len(signal) / SVC_SR:.1f} s in -> {len(out) / out_sr:.3f} s out at {out_sr} Hz, finite; "
+          f"{count['evals']} denoiser evaluations x 32 = {n4} K4 launches; wall {wall:.3f} s, "
+          f"RTF {wall / (len(signal) / SVC_SR):.4f}")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def alt_k6(dev, card: str) -> dict:
+    """K6 against its plain version at D = 256 and D = 1024 (`k6_row`), with
+    the split plan `split_codes` picks at each N."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for n, d in ALT_K6:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        cb = torch.randn((4096, d), generator=gen, device=dev)
+        splits, per = k6.split_codes(n, 4096, sms)
+        row = k6_row(k6, x, cb, f"units_alt [{card}] (D={d}; {splits} splits of {per} codes, "
+                                f"{-(-n // k6.BLOCK_ROWS) * splits} blocks on {sms} SMs)")
+        rows[(n, d)] = {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+    return rows
+
+
+def alt_train_input(dev, card: str, tmp: str) -> dict:
+    """The diffusion trainer's input path at B = 48 on train_slice's layout,
+    three ways through `cli/train_diffusion.py::build`: host collation of
+    numpy items (an explicit collate), the native `fast_batch`, and
+    `device_collate` with `transfer_dtype: bfloat16` (raw batches finished
+    on the card).  Each way: the loader alone over its second epoch (ms a
+    batch) and the median step through `train()`.  Then, with only_mean,
+    one device-collated step's loss and gradients against the host-collated
+    step on the same crops (the units rounded to bf16 in both), and the
+    launches of one device-collated step.  Returns the launches."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli.train_diffusion import build
+    from latent_diffusion_speech_tpu_torch.config import load_config
+    from latent_diffusion_speech_tpu_torch.data.diffusion_dataset import DiffusionDataset, bf16_bits
+    from latent_diffusion_speech_tpu_torch.data.loader import DataLoader
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+    from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import step_generator
+
+    cb = np.random.default_rng(1).standard_normal((4096, 1280)).astype(np.float32)
+    write_train_layout(os.path.join(tmp, "train"), cb)
+    np.savez(os.path.join(tmp, "codebook.npz"), cluster_centers_=cb)
+    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+    cfg.data.train_path = os.path.join(tmp, "train")
+    cfg.text2semantic.model.codebook_path = os.path.join(tmp, "codebook.npz")
+    cfg.diffusion.train.interval_log = 1
+    cfg.diffusion.train.interval_val = 10 ** 9
+    launches = {"attention_fwd": 0, "attention_bwd": 0, "kmeans_argmin": 0}
+    results = {}
+    for way in ("items", "fast_batch", "device_collate bf16"):
+        cfg.diffusion.train.expdir = os.path.join(tmp, "exp_" + way.split()[0])
+        cfg.diffusion.train.device_collate = way.startswith("device")
+        cfg.diffusion.train.transfer_dtype = "bfloat16" if way.startswith("device") else None
+        with contextlib.redirect_stdout(None):
+            trainer, loader = build(cfg, device=dev)
+        if way == "items":  # an explicit collate: the loader assembles the batch from items
+            loader = DataLoader(loader.dataset, loader.batch_size, collate=stack_items, seed=loader.seed,
+                                device_put=trainer.pin_batch)
+        for epoch in (0, 1):  # the first epoch also probes the files and builds the reader
+            loader.set_epoch(epoch)
+            t0, n = time.perf_counter(), 0
+            for batch in loader:
+                n += 1
+            loader_ms = (time.perf_counter() - t0) / n * 1e3
+        log = StepLog()
+        k4.launches = k4.bwd_launches = k6.launches = 0
+        start = time.perf_counter()
+        trainer.train(loader, max_steps=ALT_TRAIN_STEPS + 1, logger=log)
+        launches["attention_fwd"] += k4.launches
+        launches["attention_bwd"] += k4.bwd_launches
+        launches["kmeans_argmin"] += k6.launches
+        steps = ALT_TRAIN_STEPS + 1
+        if (k4.launches, k4.bwd_launches, k6.launches) != (32 * steps, 32 * steps, steps):
+            raise AssertionError(f"{way}: launches {k4.launches} / {k4.bwd_launches} / {k6.launches} "
+                                 f"over {steps} steps, want 32 / 32 / 1 a step")
+        times = [start] + log.times
+        step_ms = [1e3 * (b - a) for a, b in zip(times, times[1:])][1:]  # the first includes start-up
+        results[way] = dict(loader_ms=loader_ms, step_ms=float(np.median(step_ms)),
+                            q=[float(v) for v in np.percentile(step_ms, [25, 75])])
+        if not all(np.isfinite(log.losses)):
+            raise AssertionError(f"{way}: losses {log.losses}")
+        del trainer, loader
+        torch.cuda.empty_cache()
+    for way, r in results.items():
+        print(f"units_alt training input [{card}] {way}: loader alone {r['loader_ms']:.2f} ms a batch (second epoch, "
+              f"B={TRAIN_B}); median train step {r['step_ms']:.2f} ms over {ALT_TRAIN_STEPS} steps "
+              f"(quartiles {r['q'][0]:.2f} / {r['q'][1]:.2f} ms)")
+
+    # only_mean: the device-collated step against the host-collated one
+    args = dict(waveform_sec=cfg.data.duration, hop_size=cfg.data.block_size, sample_rate=cfg.data.sampling_rate,
+                n_spk=cfg.common.n_spk, only_mean=True, clamp=cfg.common.vocoder.clamp)
+    idx = list(range(TRAIN_B))
+    host = DiffusionDataset(cfg.data.train_path, **args).fast_batch(idx)
+    raw = DiffusionDataset(cfg.data.train_path, device_collate=True, transfer_dtype="bfloat16", **args).fast_batch(idx)
+    host["units"] = (bf16_bits(host["units"]).astype(np.uint32) << 16).view(np.float32)  # bf16 values
+    cfg.common.vocoder.only_mean = True
+    cfg.diffusion.train.expdir = os.path.join(tmp, "exp_equal")
+    with contextlib.redirect_stdout(None):
+        trainer, _ = build(cfg, device=dev)
+    grads, losses = [], []
+    with deterministic_cudnn():
+        for batch in (host, raw):
+            trainer.optimizer.zero_grad(set_to_none=True)
+            k4.launches = k4.bwd_launches = k6.launches = 0
+            loss = trainer.loss(trainer.device_put_batch(batch), step_generator(0, 0, dev))
+            loss.backward()
+            torch.cuda.synchronize()
+            counts = (k4.launches, k4.bwd_launches, k6.launches)
+            if counts != (32, 32, 1):
+                raise AssertionError(f"one step: launches {counts}, want 32 / 32 / 1")
+            launches["attention_fwd"] += 32
+            launches["attention_bwd"] += 32
+            launches["kmeans_argmin"] += 1
+            losses.append(loss.item())
+            grads.append({n: p.grad.clone() for n, p in trainer.system.module.named_parameters()
+                          if p.grad is not None})
+    trainer.optimizer.zero_grad(set_to_none=True)
+    worst = max((grads[0][n] - g).abs().max().item() for n, g in grads[1].items())
+    if grads[0].keys() != grads[1].keys() or abs(losses[0] - losses[1]) > ALT_GRAD_ATOL or worst > ALT_GRAD_ATOL:
+        raise AssertionError(f"device-collated step vs host: loss {losses[1]} vs {losses[0]}, gradients {worst}")
+    print(f"units_alt device-collated step vs host-collated [{card}] (only_mean, B={TRAIN_B}, deterministic "
+          f"cuDNN): loss {losses[1]:.7f} vs {losses[0]:.7f}; largest gradient difference {worst:.2e} over "
+          f"{len(grads[0])} tensors (atol {ALT_GRAD_ATOL}); launches a step 32 K4 forward / 32 K4 backward / 1 K6")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def units_alt(dev, card: str) -> dict:
+    """The three other unit encoders, HuBERT-soft's data and SVC path, K6 at
+    D = 256 and 1024, and the trainer's input path (see the module
+    docstring, step 12).  Returns the launches and the K6 rows."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    alt_encoders(dev, card)
+    print(f"units_alt native reader [{card}]: {native_build_race()}")
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        launches = alt_hubert_path(dev, card, tmp)
+    k6_rows = alt_k6(dev, card)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        train = alt_train_input(dev, card, tmp)
+    for name, n in train.items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"units_alt [{card}]: phase wall {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return dict(launches=launches, k6=k6_rows)
 
 
 def reference_codec_state(module, cfg, gen, stage: str) -> dict:
@@ -3835,6 +4242,11 @@ def main() -> int:
           f"kmeans_argmin {data['launches']['kmeans_argmin']} (stage 17 {data['k6_stage17_launches']})")
     s17 = data["k6_stage17"]
     torch.cuda.empty_cache()
+    alt = units_alt(dev, card)
+    launches["attention_fwd"] += alt["launches"]["attention_fwd"]
+    print(f"launches with units_alt's: {launches}, attention_bwd {alt['launches']['attention_bwd']}, "
+          f"kmeans_argmin {alt['launches']['kmeans_argmin']}")
+    torch.cuda.empty_cache()
     mig = migrate(dev, card)
     for name in ("ar_decode", "attention_fwd"):
         launches[name] += mig["launches"][name]
@@ -3864,7 +4276,7 @@ def main() -> int:
         dict(name="attention_bwd", route="cuda", source=src + "attention_bwd.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/fused_attention.py:149",
              launches=train["launches"]["attention_bwd"] + train["options"]["attention_bwd"]
-             + data["launches"]["attention_bwd"],
+             + data["launches"]["attention_bwd"] + alt["launches"]["attention_bwd"],
              max_abs_err=k4_bwd["max_abs_err"],
              ms=k4_bwd["ms"], plain_ms=k4_bwd["plain_ms"], bound_ms=k4_bwd["bound_ms"],
              bound_by=k4_bwd["bound_by"], library_ms=k4_bwd["library_ms"]),
@@ -3878,11 +4290,14 @@ def main() -> int:
              replaces="latent_diffusion_speech_tpu/ops/pallas/kmeans.py:54",
              launches=train["launches"]["kmeans_argmin"] + train["options"]["kmeans_argmin"]
              + svc_launches["kmeans_argmin"]
-             + data["launches"]["kmeans_argmin"] + mig["launches"]["kmeans_argmin"],
+             + data["launches"]["kmeans_argmin"] + alt["launches"]["kmeans_argmin"]
+             + mig["launches"]["kmeans_argmin"],
              max_abs_err=k6["max_abs_err"],
              ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"], bound_by=k6["bound_by"],
              library_ms=k6["library_ms"], stage17_ms=s17["ms"], stage17_plain_ms=s17["plain_ms"],
-             stage17_bound_ms=s17["bound_ms"], stage17_library_ms=s17["library_ms"]),
+             stage17_bound_ms=s17["bound_ms"], stage17_library_ms=s17["library_ms"],
+             **{f"n{n}_d{d}_{k}": v for (n, d), row in alt["k6"].items() for k, v in row.items()
+                if k != "bound_by"}),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,9 @@ reads the config, builds the k-means unit quantizer when
 `text2semantic.train.use_units_quantize` is set and the codebook file
 exists, the trainer (resumed from the latest checkpoint of
 `diffusion.train.expdir`), the dataset over `data.train_path` and its
-loader (`loader_processes` spawn workers), and trains, printing one JSON
+loader (`loader_processes` spawn workers; batches through the native
+reader, raw and finished on the card with `device_collate`, units shipped
+in `transfer_dtype`; pinned in the loader's thread), and trains, printing one JSON
 line of metrics every `interval_log` steps.  One process, one device: no multi-process setup.
 """
 
@@ -63,8 +65,11 @@ def build(cfg: Config, device=None):
         only_mean=cfg.common.vocoder.only_mean,
         clamp=cfg.common.vocoder.clamp,
         cache=tcfg.cache_all_data,
+        device_collate=tcfg.device_collate,
+        transfer_dtype=tcfg.transfer_dtype,
     )
-    loader = DataLoader(dataset, tcfg.batch_size, shuffle=True, seed=tcfg.seed, num_workers=tcfg.loader_processes)
+    loader = DataLoader(dataset, tcfg.batch_size, shuffle=True, seed=tcfg.seed, num_workers=tcfg.loader_processes,
+                        device_put=trainer.pin_batch)
     return trainer, loader
 
 

@@ -20,7 +20,12 @@ CLI's order and shapes, so a golden written by either package's CLI is a
 golden for the other's.  The kinds `whisper`, `vaegan-encoder`,
 `vaegan-decoder` (and a directory holding the pair), `unit2mel` (through
 `infer/load.py::load_reference_pipeline`, f32), `roformer` and `codebook`
-(K6 on the card) run a forward; `llama`, `hubert`, `wav2vec2`, `w2vbert` and
+(K6 on the card) run a forward; the unit encoders `hubert` (bshall's
+layout, under a `hubert` or `model` key or bare), `wav2vec2` (HF's or
+fairseq's) and `w2vbert` (HF's) are imported at the layer counts their
+state dicts hold (the JAX CLI assumes the published ones) and report, as
+the JAX CLI does, the mean |x| of the first eight leaves of the
+imported tree in JAX's leaf order (`_verify_stats_only`); `llama` and
 `bert` are detected and raise NotImplementedError until their modules are
 ported (ROADMAP.md Queue 1, items 8 and 6).
 
@@ -329,11 +334,62 @@ def _verify_roformer(obj, report, args, device):
     return {"phone": phone, "tone": tone, "semantic": sem}, out.float().cpu().numpy(), imported
 
 
+def _leaves(tree: Dict) -> list:
+    """The leaves of a nested dict in `jax.tree_util.tree_leaves` order
+    (keys sorted at every level)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def _verify_stats_only(obj, report, args, kind):
+    """Import-only verification of the unit encoders (their forwards are
+    held to HF and the JAX package by the tests): the output is the mean
+    |x| of the first eight leaves of the imported tree, as the JAX CLI
+    reports them.  The importers read the layer counts from the state
+    dict, so a checkpoint of the published geometry gives the JAX CLI's
+    numbers."""
+    from latent_diffusion_speech_tpu_torch import convert
+
+    state = obj.get("model", obj) if isinstance(obj, dict) else obj
+    if kind == "hubert":
+        from latent_diffusion_speech_tpu_torch.models.hubert import hubert_params_from_torch
+
+        params = hubert_params_from_torch(obj.get("hubert", state) if isinstance(obj, dict) else state)
+        imported = convert.hubert_from_jax(params)
+    elif kind == "wav2vec2":
+        from latent_diffusion_speech_tpu_torch.models.wav2vec2 import (
+            Wav2Vec2Config,
+            wav2vec2_params_from_fairseq,
+            wav2vec2_params_from_hf,
+        )
+
+        cfg = Wav2Vec2Config(
+            num_hidden_layers=_max_index(state, r"encoder\.layers\.(\d+)\.") + 1,
+            conv_dim=(512,) * (_max_index(state, r"feature_extractor\.conv_layers\.(\d+)\.") + 1))
+        report["geometry"] = {"layers": cfg.num_hidden_layers, "convs": len(cfg.conv_dim),
+                              "hidden": int(_to_np(state["encoder.layer_norm.weight"]).shape[0])}
+        if any(k.startswith("w2v_encoder.") or k.startswith("encoder.layers.0.self_attn") for k in state):
+            params = wav2vec2_params_from_fairseq(state, cfg)
+        else:
+            params = wav2vec2_params_from_hf(state, cfg)
+        imported = convert.wav2vec2_from_jax(params)
+    else:
+        from latent_diffusion_speech_tpu_torch.models.w2vbert import W2vBertConfig, w2vbert_params_from_torch
+
+        cfg = W2vBertConfig(num_hidden_layers=_max_index(state, r"encoder\.layers\.(\d+)\.") + 1)
+        report["geometry"] = {"layers": cfg.num_hidden_layers,
+                              "hidden": int(_to_np(state["feature_projection.projection.weight"]).shape[0])}
+        params = w2vbert_params_from_torch(state, cfg)
+        imported = convert.w2vbert_from_jax(params)
+    out = np.asarray([float(np.abs(np.asarray(x)).mean()) for x in _leaves(params)[:8]])
+    return {}, out, imported
+
+
 _WAITING = {
     "llama": "the Llama LM (ROADMAP.md Queue 1, item 8)",
-    "hubert": "the HuBERT-soft unit encoder (ROADMAP.md Queue 1, item 6)",
-    "wav2vec2": "the XLSR-53 (wav2vec 2.0) unit encoder (ROADMAP.md Queue 1, item 6)",
-    "w2vbert": "the w2v-BERT 2.0 unit encoder (ROADMAP.md Queue 1, item 6)",
     "bert": "BERT and the LM's text mode (ROADMAP.md Queue 1, item 6)",
 }
 
@@ -379,6 +435,8 @@ def verify(args) -> Dict:
         inputs, out, imported = _verify_unit2mel(obj, report, args, device)
     elif kind == "roformer":
         inputs, out, imported = _verify_roformer(obj, report, args, device)
+    elif kind in ("hubert", "wav2vec2", "w2vbert"):
+        inputs, out, imported = _verify_stats_only(obj, report, args, kind)
     elif kind in _WAITING:
         raise NotImplementedError(f"{path}: a {kind!r} checkpoint; {_WAITING[kind]} is not ported yet")
     else:

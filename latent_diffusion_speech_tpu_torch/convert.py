@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 __all__ = ["roformer_from_jax", "unit2mel_from_jax", "encoder_from_jax", "generator_from_jax",
-           "whisper_encoder_from_jax", "discriminator_bank_from_jax", "vq_state_from_jax"]
+           "whisper_encoder_from_jax", "discriminator_bank_from_jax", "vq_state_from_jax",
+           "hubert_from_jax", "wav2vec2_from_jax", "w2vbert_from_jax"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -102,6 +103,24 @@ def discriminator_bank_from_jax(params: Mapping) -> dict:
     """flax `DiscriminatorBank` params -> state dict of the port's
     `DiscriminatorBank` (the same `Conv_{j}` names; 2-D and grouped 1-D
     kernels moved to torch's layouts)."""
+    return _convert(params)
+
+
+def hubert_from_jax(params: Mapping) -> dict:
+    """flax `Hubert` / `HubertSoft` params -> state dict of the port's
+    `Hubert` (`masked_spec_embed` keeps its name)."""
+    return _convert(params)
+
+
+def wav2vec2_from_jax(params: Mapping) -> dict:
+    """flax `Wav2Vec2Encoder` params -> state dict of the port's `Wav2Vec2Encoder`."""
+    return _convert(params)
+
+
+def w2vbert_from_jax(params: Mapping) -> dict:
+    """flax `W2vBertModel` params -> state dict of the port's `W2vBertModel`
+    (the depthwise (k, 1, h) kernel to (h, 1, k); each block's
+    `self_attn.distance_embedding` keeps its name)."""
     return _convert(params)
 
 

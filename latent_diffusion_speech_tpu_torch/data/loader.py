@@ -17,8 +17,16 @@ the (seed, epoch) shuffle, a stable sort inside pools of
 same generator, so pad-to-bucket batches hug the true lengths.  Every order is
 a pure function of (seed, epoch), and `skip_batches` skips the start of the
 next epoch without loading it, so a resumed run replays the exact batch
-stream.  The JAX package's native batched reads (`fast_batch`) and its
-`device_put` hook are not ported (the trainers move batches to the card).
+stream.
+
+A dataset with `fast_batch` (the native batched reader) assembles each
+batch in one call when no `collate` is given, in both modes; an OSError
+from it (an unreadable file) turns the fast path off and the batch is
+assembled from items, as in JAX.  A reader that fails to build raises.
+`device_put` (the JAX hook's counterpart) runs on each finished batch in
+the producer thread (thread mode) or as it is collected (process mode):
+the diffusion trainer pins the batch there, so its copy to the card can
+overlap.
 
 Imports numpy only: a worker imports this module and the dataset's.
 """
@@ -45,8 +53,8 @@ def _collate_items(items, collate):
     return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
-def _worker_init(dataset, collate) -> None:
-    _W["dataset"], _W["collate"], _W["epoch"] = dataset, collate, None
+def _worker_init(dataset, collate, fast) -> None:
+    _W["dataset"], _W["collate"], _W["fast"], _W["epoch"] = dataset, collate, fast, None
 
 
 def _worker_make_batch(job):
@@ -58,7 +66,13 @@ def _worker_make_batch(job):
     if _W["epoch"] != epoch and hasattr(dataset, "set_epoch"):
         dataset.set_epoch(epoch)
         _W["epoch"] = epoch
-    return _collate_items([dataset[int(i)] for i in indices], _W["collate"])
+    indices = [int(i) for i in indices]
+    if _W["fast"]:
+        try:
+            return dataset.fast_batch(indices)
+        except OSError:  # an unreadable file: items from here on, as the thread mode does
+            _W["fast"] = False
+    return _collate_items([dataset[i] for i in indices], _W["collate"])
 
 
 class DataLoader:
@@ -75,10 +89,13 @@ class DataLoader:
         num_workers: int = 0,
         length_sorted: bool = False,
         pool_factor: int = 50,
+        device_put: Optional[Callable] = None,
     ):
-        """collate: items -> batch (default: stack every key); prefetch:
-        batches assembled ahead; num_workers > 0: spawn worker processes;
-        length_sorted: needs `dataset.item_lengths()`."""
+        """collate: items -> batch (default: stack every key, or the
+        dataset's `fast_batch`); prefetch: batches assembled ahead;
+        num_workers > 0: spawn worker processes; length_sorted: needs
+        `dataset.item_lengths()`; device_put: batch -> batch, applied to
+        every batch before it is yielded."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate
@@ -90,6 +107,8 @@ class DataLoader:
         self.num_workers = int(num_workers)
         self.length_sorted = bool(length_sorted)
         self.pool_factor = int(pool_factor)
+        self.device_put = device_put
+        self._fast = collate is None and hasattr(dataset, "fast_batch")
         self.epoch = 0
         self._skip_next = 0
         self._pool = None  # item thread pool, made at the first threaded batch
@@ -151,6 +170,11 @@ class DataLoader:
             yield idx[n_full * self.batch_size :]
 
     def _make_batch(self, indices):
+        if self._fast:
+            try:
+                return self.dataset.fast_batch([int(i) for i in indices])
+            except OSError:  # an unreadable file: items from here on
+                self._fast = False
         # threads only for datasets whose items draw from (seed, epoch,
         # index)-keyed generators: a shared generator would interleave draws
         if self.num_threads > 1 and getattr(self.dataset, "thread_safe_items", False):
@@ -162,6 +186,9 @@ class DataLoader:
         else:
             items = [self.dataset[int(i)] for i in indices]
         return _collate_items(items, self.collate)
+
+    def _put(self, batch):
+        return self.device_put(batch) if self.device_put is not None else batch
 
     def __iter__(self) -> Iterator:
         skip, self._skip_next = self._skip_next, 0
@@ -178,7 +205,7 @@ class DataLoader:
             # collate are pickled once, into the initializer
             self._proc_pool = ProcessPoolExecutor(
                 max_workers=self.num_workers, mp_context=mp.get_context("spawn"),
-                initializer=_worker_init, initargs=(self.dataset, self.collate),
+                initializer=_worker_init, initargs=(self.dataset, self.collate, self._fast),
             )
         pool, window, pending = self._proc_pool, self.num_workers + self.prefetch, deque()
         try:
@@ -187,9 +214,9 @@ class DataLoader:
                     continue
                 pending.append(pool.submit(_worker_make_batch, (self.epoch, indices)))
                 if len(pending) >= window:
-                    yield pending.popleft().result()
+                    yield self._put(pending.popleft().result())
             while pending:
-                yield pending.popleft().result()
+                yield self._put(pending.popleft().result())
         except GeneratorExit:  # the consumer stopped early: the workers stay for the next epoch
             for job in pending:
                 job.cancel()
@@ -215,7 +242,7 @@ class DataLoader:
         def producer():
             try:
                 for bi, indices in enumerate(self._batches()):
-                    if bi >= skip and not put(self._make_batch(indices)):
+                    if bi >= skip and not put(self._put(self._make_batch(indices))):
                         return
             except BaseException as e:  # noqa: BLE001 — re-raised in the consumer
                 put(e)

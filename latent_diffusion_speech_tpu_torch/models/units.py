@@ -2,9 +2,15 @@
 
 Counterpart of `latent_diffusion_speech_tpu/models/units.py`: the encoder
 registry, input resampling to the encoder rate, the 400-sample minimum,
-the rate-forcing modes and the half-second bucket padding.  Whisper-large-v3
-is ported; HuBERT-soft, w2v-BERT 2.0 and XLSR-53 are not yet (ROADMAP.md
-Queue 1, item 6) and raise `NotImplementedError`.
+the rate-forcing modes and the half-second bucket padding, over the four
+encoders the JAX package offers: Whisper-large-v3 (1280-d), HuBERT-soft
+(256-d, `models/hubert.py`), XLSR-53 (1024-d, `models/wav2vec2.py`) and
+w2v-BERT 2.0 (1024-d, `models/w2vbert.py`), each at 50 fps.  Each encoder
+is built on its device (`device=`, None meaning `cuda`) from a checkpoint,
+an injected HF model (`hf_model=`, of which only `.config` and
+`.state_dict()` are read) or, when there is neither, seeded (`seed=`) at
+full width with flax's initialisers (`ops/layers.py::init_weights`), as the
+JAX package seeds it; `dtype=` is the compute dtype of its products.
 """
 
 from __future__ import annotations
@@ -15,13 +21,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from latent_diffusion_speech_tpu_torch.models.hubert import HubertSoft, hubert_state_from_torch
+from latent_diffusion_speech_tpu_torch.models.w2vbert import (
+    W2vBertConfig,
+    W2vBertModel,
+    w2vbert_fbank,
+    w2vbert_state_from_torch,
+)
+from latent_diffusion_speech_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder, wav2vec2_state_from_torch
 from latent_diffusion_speech_tpu_torch.models.whisper.model import WhisperDims, WhisperEncoder
 from latent_diffusion_speech_tpu_torch.ops.layers import cast_compute_dtype, init_weights, resolve_device
 from latent_diffusion_speech_tpu_torch.ops.resample import resample
 from latent_diffusion_speech_tpu_torch.ops.stft import whisper_log_mel
 
-__all__ = ["ENCODER_OUT_CHANNELS", "get_encoder_out_channels", "WhisperLargeV3Units", "UnitsEncoder",
-           "whisper_state_from_reference"]
+__all__ = ["ENCODER_OUT_CHANNELS", "get_encoder_out_channels", "WhisperLargeV3Units", "HubertSoftUnits",
+           "XLSRUnits", "Wav2Vec2BertUnits", "UnitsEncoder", "whisper_state_from_reference"]
 
 ENCODER_OUT_CHANNELS = {
     "whisper_large_v3": 1280,
@@ -85,6 +99,124 @@ class WhisperLargeV3Units:
         return self.model(whisper_log_mel(audio16k, n_mels=self.dims.n_mels))
 
 
+def _built(factory, device: torch.device, state: Optional[dict], seed: int, dtype) -> torch.nn.Module:
+    """The module of `factory` on `device` (no CPU init of its weights):
+    `state` loaded, or seeded with flax's initialisers; products cast to
+    `dtype`; in eval mode."""
+    with torch.device("meta"):
+        model = factory()
+    model = model.to_empty(device=device)
+    if state is not None:
+        model.load_state_dict(state)
+    else:
+        g = torch.Generator(device=device).manual_seed(seed)
+        init_weights(model, g)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name == "masked_spec_embed":  # flax uniform(1.0)
+                    p.uniform_(0.0, 1.0, generator=g)
+                elif name.endswith("distance_embedding"):  # flax normal(0.02)
+                    p.normal_(0.0, 0.02, generator=g)
+    return cast_compute_dtype(model, dtype).eval()
+
+
+def _load(path) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+class HubertSoftUnits:
+    """HuBERT-soft unit extractor (the reference's alternative encoder,
+    `encoder/hubert/model.py:72-80`): 16 kHz audio -> 50 fps 256-d units in
+    the compute dtype.  ckpt_path: bshall's release (a `hubert` or `model`
+    key, or the bare state dict); seeded when it does not exist."""
+
+    def __init__(self, ckpt_path: Optional[str] = None, dtype=torch.bfloat16, seed: int = 0, device=None):
+        self.device = resolve_device(device)
+        state = None
+        if ckpt_path and Path(ckpt_path).exists():
+            ck = _load(ckpt_path)
+            state = hubert_state_from_torch(ck.get("hubert", ck.get("model", ck)))
+        else:
+            print(f"[!] no HuBERT-soft checkpoint at {ckpt_path}; seeded random weights")
+        self.model = _built(HubertSoft, self.device, state, seed, dtype)
+
+    @torch.no_grad()
+    def __call__(self, audio16k: torch.Tensor) -> torch.Tensor:
+        if audio16k.dim() == 1:
+            audio16k = audio16k[None]
+        return self.model.units(audio16k)
+
+
+class Wav2Vec2BertUnits:
+    """w2v-BERT 2.0 units (ref `tools/tools.py:128-142`): the Kaldi fbank in
+    f32, then the conformer: 50 fps 1024-d f32 hidden states.  Weights
+    from `hf_model`, else `ckpt_path` (an HF `Wav2Vec2BertModel` state dict,
+    or one under a `model` key), else HF's local cache of
+    facebook/w2v-bert-2.0 under `cache_dir` (transformers is imported only
+    there), else seeded at full width."""
+
+    def __init__(self, ckpt_path: Optional[str] = None, cache_dir: str = "pretrain", dtype=torch.bfloat16,
+                 seed: int = 0, hf_model=None, device=None, **_):
+        self.device = resolve_device(device)
+        self.cfg, state = W2vBertConfig(), None
+        if hf_model is not None:
+            self.cfg = W2vBertConfig.from_hf(hf_model.config)
+            state = hf_model.state_dict()
+        elif ckpt_path and Path(ckpt_path).exists():
+            ck = _load(ckpt_path)
+            state = ck.get("model", ck)
+        else:
+            try:
+                from transformers import Wav2Vec2BertModel as _HF
+
+                hf = _HF.from_pretrained("facebook/w2v-bert-2.0", cache_dir=cache_dir, local_files_only=True)
+                self.cfg, state = W2vBertConfig.from_hf(hf.config), hf.state_dict()
+            except (ImportError, OSError, ValueError) as e:
+                print(f"[!] no local w2v-BERT 2.0 weights ({type(e).__name__}); seeded random weights")
+        if state is not None:
+            state = w2vbert_state_from_torch(state, self.cfg)
+        cfg = self.cfg
+        self.model = _built(lambda: W2vBertModel(cfg), self.device, state, seed, dtype)
+
+    @torch.no_grad()
+    def __call__(self, audio16k: torch.Tensor) -> torch.Tensor:
+        if audio16k.dim() == 1:
+            audio16k = audio16k[None]
+        return self.model(w2vbert_fbank(audio16k))
+
+
+class XLSRUnits:
+    """XLSR-53 (wav2vec 2.0 large) units (ref `tools/tools.py:144-163`):
+    50 fps 1024-d f32 hidden states.  Weights from `hf_model` (an HF
+    `Wav2Vec2Model`), else `ckpt_path` (fairseq's `xlsr_53_56k.pt`, told
+    apart by `post_extract_proj`, or an HF state dict), else seeded."""
+
+    def __init__(self, ckpt_path: Optional[str] = None, dtype=torch.bfloat16, seed: int = 0, hf_model=None,
+                 device=None, **_):
+        self.device = resolve_device(device)
+        self.cfg, state = Wav2Vec2Config(), None
+        if hf_model is not None:
+            self.cfg = Wav2Vec2Config.from_hf(hf_model.config)
+            state = wav2vec2_state_from_torch(hf_model.state_dict(), self.cfg)
+        elif ckpt_path and Path(ckpt_path).exists():
+            ck = _load(ckpt_path)
+            state = wav2vec2_state_from_torch(ck.get("model", ck), self.cfg)
+        else:
+            print(f"[!] no XLSR-53 checkpoint at {ckpt_path}; seeded random weights")
+        cfg = self.cfg
+        self.model = _built(lambda: Wav2Vec2Encoder(cfg), self.device, state, seed, dtype)
+
+    @torch.no_grad()
+    def __call__(self, audio16k: torch.Tensor) -> torch.Tensor:
+        if audio16k.dim() == 1:
+            audio16k = audio16k[None]
+        return self.model(audio16k)
+
+
+_ENCODERS = {"whisper_large_v3": WhisperLargeV3Units, "hubert_soft": HubertSoftUnits,
+             "w2v-bert": Wav2Vec2BertUnits, "xlsr_53_56k": XLSRUnits}
+
+
 class UnitsEncoder:
     def __init__(
         self,
@@ -95,17 +227,12 @@ class UnitsEncoder:
         ckpt_path: Optional[str] = None,
         **kw,
     ):
-        """kw goes to the encoder (`WhisperLargeV3Units`: dims, dtype, seed,
-        device)."""
+        """kw goes to the encoder (dtype, seed, device; `WhisperLargeV3Units`:
+        dims; XLSR and w2v-BERT: hf_model)."""
         self.encoder = encoder
-        if encoder == "whisper_large_v3":
-            self.model = WhisperLargeV3Units(ckpt_path=ckpt_path, **kw)
-        elif encoder in ("hubert_soft", "w2v-bert", "xlsr_53_56k"):
-            raise NotImplementedError(
-                f"units encoder {encoder!r} is not ported yet (ROADMAP.md Queue 1, item 6); "
-                "whisper_large_v3 is")
-        else:
+        if encoder not in _ENCODERS:
             raise ValueError(f"[x] Unknown units encoder: {encoder}")
+        self.model = _ENCODERS[encoder](ckpt_path=ckpt_path, **kw)
         self.device = self.model.device
 
         self.units_forced_mode = units_forced_mode or "left"

@@ -29,13 +29,19 @@ its bf16 entries on the card):
 * `validate_full`: the validation loss, the sampler's mel error, the
   spectrogram triptych and, given a vocoder, the audio of the first item;
 * the `Config.debug` switches (`train/debug.py`): anomaly detection and the
-  periodic finiteness check with its batch dump.
+  periodic finiteness check with its batch dump;
+* device-side collation: a raw batch (`DiffusionDataset(device_collate=True)`:
+  `mel_stats`, `units_raw`, `unit_idx`) is finished inside the step, on the
+  card (`finalize`: the units gathered by `unit_idx` and cast to f32, the
+  latent z = m + eps * exp(logs) with eps from the step's generator, the
+  clamp); a host-collated batch passes through unchanged.  `pin_batch`, the
+  loader's `device_put`, makes the batch pinned host tensors in the
+  loader's thread, so `device_put_batch`'s copy to the card is asynchronous.
 The per-step generator is a pure function of (seed, step), the counterpart
 of `fold_in(PRNGKey(seed), step)`, so an interrupted and resumed run gives
 the same parameters as an uninterrupted one.
 
-Not ported (ROADMAP.md): the sharded checkpoint, and the device-side
-collation (`units_raw` batches).
+Not ported (ROADMAP.md): the sharded checkpoint.
 """
 
 from __future__ import annotations
@@ -65,6 +71,14 @@ from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
 from latent_diffusion_speech_tpu_torch.utils.flops import FlopsByShape, step_mfu
 
 __all__ = ["DiffusionTrainer", "step_generator", "global_norm"]
+
+
+def _host_tensor(v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v
+    if v.dtype == np.uint16:  # bf16 bits
+        return torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(v))
 
 
 class DiffusionTrainer(AdamWUpdates):
@@ -132,11 +146,37 @@ class DiffusionTrainer(AdamWUpdates):
 
     # -- one step --------------------------------------------------------------
 
-    def device_put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
-        if "spk_id" in out:
-            out["spk_id"] = out["spk_id"].long()
+    def pin_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A numpy batch as host tensors, pinned when the trainer runs on a
+        card (the loader's `device_put`, run in its producer thread)."""
+        out = {k: _host_tensor(v) for k, v in batch.items()}
+        return {k: v.pin_memory() for k, v in out.items()} if self.device.type == "cuda" else out
+
+    def device_put_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """A numpy or host-tensor batch on the trainer's device; uint16
+        arrays are bf16 bits (`transfer_dtype="bfloat16"`)."""
+        out = {k: _host_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+        for k in ("spk_id", "unit_idx"):
+            if k in out:
+                out[k] = out[k].long()
         return out
+
+    def finalize(self, batch: Dict[str, torch.Tensor], generator: torch.Generator):
+        """(units, mel) of a device batch: a raw batch finished on its device
+        (JAX `finalize`), a host-collated one as it is."""
+        if "units_raw" not in batch:
+            return batch["units"], batch["mel"]
+        raw, idx = batch["units_raw"], batch["unit_idx"]
+        units = torch.gather(raw.float(), 1, idx[..., None].expand(-1, -1, raw.shape[-1]))
+        m, logs = batch["mel_stats"].chunk(2, dim=-1)
+        vcfg = self.cfg.common.vocoder
+        if vcfg.only_mean:
+            mel = m
+        else:
+            mel = m + torch.randn(m.shape, generator=generator, device=m.device, dtype=m.dtype) * torch.exp(logs)
+        if vcfg.clamp and vcfg.clamp > 0:
+            mel = mel.clamp(-vcfg.clamp, vcfg.clamp)
+        return units, mel
 
     def _quantized(self, units: torch.Tensor) -> torch.Tensor:
         """Units as evaluation sees them: snapped, or through the VQ
@@ -148,12 +188,12 @@ class DiffusionTrainer(AdamWUpdates):
     def loss_and_vq_state(self, batch: Dict[str, torch.Tensor], generator: torch.Generator):
         """(training loss of one device batch (differentiable), the VQ
         state after its EMA step (None without the learned VQ))."""
-        units, commit, vq_state = batch["units"], 0.0, None
+        (units, mel), commit, vq_state = self.finalize(batch, generator), 0.0, None
         if self._vq is not None:
             units, _, commit, vq_state = self._vq(self.vq_state, units, train=True)
         elif self.quantizer is not None:
             units = self.quantizer(units)
-        loss = self.system.loss(units, batch["mel"], generator, spk_id=batch.get("spk_id"),
+        loss = self.system.loss(units, mel, generator, spk_id=batch.get("spk_id"),
                                 aug_shift=batch.get("aug_shift"))
         return loss + commit, vq_state
 
@@ -294,7 +334,8 @@ class DiffusionTrainer(AdamWUpdates):
         """K6's products in a step (the counter cannot see the kernel)."""
         if isinstance(self.quantizer, EuclideanCodebook) and self.quantizer.codebook.is_cuda:
             K, D = self.quantizer.codebook.shape
-            return 2.0 * batch["units"][..., 0].numel() * K * D
+            frames = batch["unit_idx"].numel() if "unit_idx" in batch else batch["units"][..., 0].numel()
+            return 2.0 * frames * K * D
         return 0.0
 
     # -- the epoch loop --------------------------------------------------------

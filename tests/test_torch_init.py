@@ -1,9 +1,11 @@
 """The port's seeded weights against the JAX modules' flax initialisers.
 
 For the RoFormer, `Unit2Mel` (flagship and general denoiser), the vocoder
-`Generator`, the `VAEEncoder` and the codec trainer's discriminator bank
-(2-D convolutions and grouped 1-D ones, flax's `nn.Conv` defaults), at
-small widths, each seeded leaf of the
+`Generator`, the `VAEEncoder`, the codec trainer's discriminator bank
+(2-D convolutions and grouped 1-D ones, flax's `nn.Conv` defaults) and the
+unit encoders (HuBERT-soft at its only width; XLSR and w2v-BERT small, the
+latter's relative-key table at flax's N(0, 0.02)), at small widths, each
+seeded leaf of the
 port is held to the leaf of the same name in the JAX module's seeded tree
 (names moved over with `convert.py`): every bias and norm offset exactly
 0, every norm scale exactly 1, the standard deviation of every other leaf
@@ -26,6 +28,9 @@ import torch
 from torch import nn
 
 from latent_diffusion_speech_tpu import config as j_config
+from latent_diffusion_speech_tpu.models import hubert as j_hubert
+from latent_diffusion_speech_tpu.models import w2vbert as j_w2vbert
+from latent_diffusion_speech_tpu.models import wav2vec2 as j_wav2vec2
 from latent_diffusion_speech_tpu.models.diffusion.unit2mel import Unit2MelConfig as JUnit2MelConfig
 from latent_diffusion_speech_tpu.models.diffusion.unit2mel import Unit2MelSystem as JUnit2MelSystem
 from latent_diffusion_speech_tpu.models.lm.roformer import RoformerConfig as JRoformerConfig
@@ -36,6 +41,7 @@ from latent_diffusion_speech_tpu.models.vaegan.codec import HifiVAEGAN as JHifiV
 from latent_diffusion_speech_tpu.models.vaegan.discriminators import DiscriminatorBank as JDiscriminatorBank
 from latent_diffusion_speech_tpu.train.lm_trainer import roformer_config_from as j_roformer_config_from
 from latent_diffusion_speech_tpu_torch import config, convert
+from latent_diffusion_speech_tpu_torch.models import hubert, units, w2vbert, wav2vec2
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
 from latent_diffusion_speech_tpu_torch.models.lm.registry import roformer_config_from
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerConfig, RoformerSystem, StackConfig
@@ -88,6 +94,26 @@ def _bank():
     return jtree, trainer.disc
 
 
+XLSR = dict(hidden_size=64, num_hidden_layers=2, intermediate_size=128, num_attention_heads=4, conv_dim=(32, 32, 32),
+            conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2), num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+W2VBERT = dict(hidden_size=256, num_hidden_layers=1, intermediate_size=256, num_attention_heads=2)
+
+
+def _encoder(name):
+    """The JAX module's seeded tree against the port's seeded encoder
+    (`models/units.py::_built`, as `UnitsEncoder` seeds it)."""
+    if name == "hubert":
+        jm, probe, factory, to = j_hubert.HubertSoft(), jnp.zeros((1, 960)), hubert.HubertSoft, convert.hubert_from_jax
+    elif name == "xlsr":
+        jm, probe = j_wav2vec2.Wav2Vec2Encoder(j_wav2vec2.Wav2Vec2Config(**XLSR)), jnp.zeros((1, 1600))
+        factory, to = lambda: wav2vec2.Wav2Vec2Encoder(wav2vec2.Wav2Vec2Config(**XLSR)), convert.wav2vec2_from_jax
+    else:
+        jm, probe = j_w2vbert.W2vBertModel(j_w2vbert.W2vBertConfig(**W2VBERT)), jnp.zeros((1, 4, 160))
+        factory, to = lambda: w2vbert.W2vBertModel(w2vbert.W2vBertConfig(**W2VBERT)), convert.w2vbert_from_jax
+    jtree = to(_np(jax.jit(jm.init)(jax.random.PRNGKey(0), probe)["params"]))
+    return jtree, units._built(factory, torch.device("cpu"), None, 0, torch.float32)
+
+
 MODULES = {
     "roformer": _roformer,
     "unit2mel_flagship": lambda: _unit2mel("flagship"),
@@ -95,6 +121,9 @@ MODULES = {
     "vocoder_generator": lambda: _codec("generator"),
     "vaegan_encoder": lambda: _codec("encoder"),
     "discriminator_bank": _bank,
+    "hubert_soft": lambda: _encoder("hubert"),
+    "xlsr": lambda: _encoder("xlsr"),
+    "w2vbert": lambda: _encoder("w2vbert"),
 }
 
 

@@ -527,13 +527,121 @@ def test_detect_kind_unknown_raises():
         verify_import.detect_kind({"model": {"mystery.weight": 0}}, "x")
 
 
-@pytest.mark.parametrize("case,item", [("llama", "item 8"), ("hubert", "item 6"), ("wav2vec2", "item 6"),
-                                       ("w2vbert", "item 6"), ("bert", "item 6")])
+@pytest.mark.parametrize("case,item", [("llama", "item 8"), ("bert", "item 6")])
 def test_waiting_kinds_raise_naming_their_item(case, item, tmp_path):
     state = {k: torch.zeros(2) for k in FINGERPRINTS[case].get("model", FINGERPRINTS[case])}
     torch.save({"model": state}, tmp_path / "x.pt")
     with pytest.raises(NotImplementedError, match=item):
         verify_import.verify(_args(tmp_path / "x.pt", device="cpu"))
+
+
+def _encoder_state(kind, layers=24):
+    """A unit encoder's torch state dict at tiny widths with the published
+    layer counts the JAX CLI assumes: bshall's HuBERT (packed in_proj,
+    weight-normed positional conv), HF's Wav2Vec2Model, HF's
+    Wav2Vec2BertModel."""
+    rng = np.random.default_rng(len(kind))
+    state = {}
+
+    def put(name, *shape):
+        state[name] = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def lin(name, o, i, bias=True):
+        put(f"{name}.weight", o, i)
+        if bias:
+            put(f"{name}.bias", o)
+
+    def ln(name, c):
+        put(f"{name}.weight", c)
+        put(f"{name}.bias", c)
+
+    if kind == "hubert":
+        for i in range(7):
+            put(f"feature_extractor.conv{i}.weight", 8, 1 if i == 0 else 8, 3)
+        ln("feature_extractor.norm0", 8)
+        ln("feature_projection.norm", 8)
+        lin("feature_projection.projection", 16, 8)
+        put("positional_embedding.conv.weight_g", 1, 1, 4)
+        put("positional_embedding.conv.weight_v", 16, 4, 4)
+        put("positional_embedding.conv.bias", 16)
+        ln("norm", 16)
+        for i in range(12):
+            b = f"encoder.layers.{i}"
+            put(f"{b}.self_attn.in_proj_weight", 48, 16)
+            put(f"{b}.self_attn.in_proj_bias", 48)
+            lin(f"{b}.self_attn.out_proj", 16, 16)
+            ln(f"{b}.norm1", 16)
+            ln(f"{b}.norm2", 16)
+            lin(f"{b}.linear1", 32, 16)
+            lin(f"{b}.linear2", 16, 32)
+        lin("proj", 8, 16)
+        put("masked_spec_embed", 16)
+        put("label_embedding.weight", 100, 8)
+        return {"model": state}
+    if kind == "wav2vec2":
+        for i in range(7):
+            put(f"feature_extractor.conv_layers.{i}.conv.weight", 8, 1 if i == 0 else 8, 3)
+            put(f"feature_extractor.conv_layers.{i}.conv.bias", 8)
+            ln(f"feature_extractor.conv_layers.{i}.layer_norm", 8)
+        ln("feature_projection.layer_norm", 8)
+        lin("feature_projection.projection", 16, 8)
+        put("encoder.pos_conv_embed.conv.weight_g", 1, 1, 4)
+        put("encoder.pos_conv_embed.conv.weight_v", 16, 4, 4)
+        put("encoder.pos_conv_embed.conv.bias", 16)
+        ln("encoder.layer_norm", 16)
+        for i in range(layers):
+            b = f"encoder.layers.{i}"
+            ln(f"{b}.layer_norm", 16)
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                lin(f"{b}.attention.{proj}", 16, 16)
+            ln(f"{b}.final_layer_norm", 16)
+            lin(f"{b}.feed_forward.intermediate_dense", 32, 16)
+            lin(f"{b}.feed_forward.output_dense", 16, 32)
+        return state
+    ln("feature_projection.layer_norm", 160)
+    lin("feature_projection.projection", 16, 160)
+    for i in range(layers):
+        b = f"encoder.layers.{i}"
+        for ffn in ("ffn1", "ffn2"):
+            ln(f"{b}.{ffn}_layer_norm", 16)
+            lin(f"{b}.{ffn}.intermediate_dense", 32, 16)
+            lin(f"{b}.{ffn}.output_dense", 16, 32)
+        ln(f"{b}.self_attn_layer_norm", 16)
+        for proj in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            lin(f"{b}.self_attn.{proj}", 16, 16)
+        put(f"{b}.self_attn.distance_embedding.weight", 11, 4)
+        ln(f"{b}.conv_module.layer_norm", 16)
+        put(f"{b}.conv_module.pointwise_conv1.weight", 32, 16, 1)
+        put(f"{b}.conv_module.depthwise_conv.weight", 16, 1, 3)
+        ln(f"{b}.conv_module.depthwise_layer_norm", 16)
+        put(f"{b}.conv_module.pointwise_conv2.weight", 16, 16, 1)
+        ln(f"{b}.final_layer_norm", 16)
+    return state
+
+
+@pytest.mark.parametrize("kind", ["hubert", "wav2vec2", "w2vbert"])
+def test_unit_encoder_kinds_report_as_jax(kind, tmp_path):
+    """Each unit encoder's checkpoint imports in the port and reports the
+    JAX CLI's numbers (the first eight leaves' mean |x|), golden and all;
+    the port also reads bshall's release layout (a `hubert` key), where the
+    JAX CLI reads only `model`, and a checkpoint of fewer layers."""
+    torch.save(_encoder_state(kind), tmp_path / "x.pt")
+    golden = str(tmp_path / "g.npz")
+    got = verify_import.verify(_args(tmp_path / "x.pt", kind=kind, device="cpu", save_golden=golden))
+    want = j_verify.verify(_args(tmp_path / "x.pt", kind=kind))
+    assert got["kind"] == want["kind"] == kind
+    for key in ("output_shape", "output_mean", "output_std", "output_finite", "torch_elements"):
+        assert got[key] == want[key], key
+    assert got["output_shape"] == [8] and got["imported_elements"] == want["imported_elements"]
+    assert j_verify.verify(_args(tmp_path / "x.pt", kind=kind, golden=golden))["golden_match"]
+    if kind == "hubert":  # its depth is fixed
+        torch.save({"hubert": _encoder_state(kind)["model"]}, tmp_path / "release.pt")
+        release = verify_import.verify(_args(tmp_path / "release.pt", kind=kind, device="cpu"))
+        assert release["output_mean"] == got["output_mean"]
+    else:
+        torch.save(_encoder_state(kind, layers=2), tmp_path / "x2.pt")
+        short = verify_import.verify(_args(tmp_path / "x2.pt", kind=kind, device="cpu"))
+        assert short["geometry"]["layers"] == 2 and short["output_mean"] == got["output_mean"]
 
 
 def test_main_exit_codes(artifacts, tmp_path, capsys):

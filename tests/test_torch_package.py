@@ -29,11 +29,14 @@ import latent_diffusion_speech_tpu_torch as port
 from latent_diffusion_speech_tpu import config as j_config
 from latent_diffusion_speech_tpu.models.diffusion import unet1d as j_unet1d
 from latent_diffusion_speech_tpu.models.diffusion import unet1d_condition as j_unet1d_condition
+from latent_diffusion_speech_tpu.models import w2vbert as j_w2vbert
+from latent_diffusion_speech_tpu.models import wav2vec2 as j_wav2vec2
 from latent_diffusion_speech_tpu.models.diffusion import unit2mel as j_unit2mel
 from latent_diffusion_speech_tpu.models.lm import roformer as j_roformer
 from latent_diffusion_speech_tpu.models.lm import sampling as j_sampling
 from latent_diffusion_speech_tpu.models.vaegan import config as j_vaegan_config
 from latent_diffusion_speech_tpu_torch import config
+from latent_diffusion_speech_tpu_torch.models import w2vbert, wav2vec2
 from latent_diffusion_speech_tpu_torch.models.diffusion import unet1d, unet1d_condition, unit2mel
 from latent_diffusion_speech_tpu_torch.models.lm import roformer, sampling
 from latent_diffusion_speech_tpu_torch.models.vaegan import config as vaegan_config
@@ -83,7 +86,13 @@ def test_no_jax_imports_in_the_source():
 def _default_systems():
     from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
     from latent_diffusion_speech_tpu_torch.infer.load import load_native_pipeline, load_reference_pipeline
-    from latent_diffusion_speech_tpu_torch.models.units import UnitsEncoder, WhisperLargeV3Units
+    from latent_diffusion_speech_tpu_torch.models.units import (
+        HubertSoftUnits,
+        UnitsEncoder,
+        Wav2Vec2BertUnits,
+        WhisperLargeV3Units,
+        XLSRUnits,
+    )
     from latent_diffusion_speech_tpu_torch.models.vaegan.codec import HifiVAEGAN
     from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
     from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
@@ -107,6 +116,9 @@ def _default_systems():
         "load_reference_pipeline": lambda: load_reference_pipeline("exp/diffusion"),
         "UnitsEncoder": lambda: UnitsEncoder(),
         "WhisperLargeV3Units": lambda: WhisperLargeV3Units(),
+        "HubertSoftUnits": lambda: HubertSoftUnits(),
+        "XLSRUnits": lambda: XLSRUnits(),
+        "Wav2Vec2BertUnits": lambda: Wav2Vec2BertUnits(),
     }
 
 
@@ -128,7 +140,8 @@ CLIS = {
 
 @pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "HifiVAEGAN", "EuclideanCodebook",
                                   "DiffusionTrainer", "LMTrainer", "CodecTrainer", "build_pipeline", "load_native_pipeline",
-                                  "load_reference_pipeline", "UnitsEncoder", "WhisperLargeV3Units", *CLIS])
+                                  "load_reference_pipeline", "UnitsEncoder", "WhisperLargeV3Units",
+                                  "HubertSoftUnits", "XLSRUnits", "Wav2Vec2BertUnits", *CLIS])
 def test_entry_points_default_to_the_card(name):
     """A default-constructed entry point, or a CLI run without --device,
     asks for `cuda`: without a card it raises (never a silent CPU run);
@@ -176,6 +189,8 @@ PAIRS = {
     "UNet1DConditionConfig": (unet1d_condition.UNet1DConditionConfig, j_unet1d_condition.UNet1DConditionConfig),
     "Unit2MelConfig": (unit2mel.Unit2MelConfig, j_unit2mel.Unit2MelConfig),
     "VAEGANConfig": (vaegan_config.VAEGANConfig, j_vaegan_config.VAEGANConfig),
+    "Wav2Vec2Config": (wav2vec2.Wav2Vec2Config, j_wav2vec2.Wav2Vec2Config),
+    "W2vBertConfig": (w2vbert.W2vBertConfig, j_w2vbert.W2vBertConfig),
     **{name: (getattr(config, name), getattr(j_config, name)) for name in (
         "Config", "DataConfig", "VocoderConfig", "InferConfig", "CommonConfig", "DiffusionModelConfig",
         "TrainConfig", "DiffusionConfig", "TransformerConfig", "LMModelConfig", "LMTrainConfig", "LMConfig",
@@ -201,6 +216,9 @@ DTYPE_DEFAULTS = {
     ("models.diffusion.unit2mel", "Unit2MelSystem.__init__", "dtype"),
     ("models.lm.roformer", "RoformerSystem.__init__", "dtype"),
     ("models.units", "WhisperLargeV3Units.__init__", "dtype"),
+    ("models.units", "HubertSoftUnits.__init__", "dtype"),
+    ("models.units", "XLSRUnits.__init__", "dtype"),
+    ("models.units", "Wav2Vec2BertUnits.__init__", "dtype"),
     ("models.vaegan.codec", "HifiVAEGAN.__init__", "dtype"),
     ("models.vaegan.codec", "HifiVAEGAN.random_init", "dtype"),
     ("models.vaegan.codec", "HifiVAEGAN.from_torch_checkpoint", "dtype"),

@@ -205,13 +205,21 @@ def test_bucket_padding_changes_what_attention_sees(encoders, rng):
     assert (padded - bare).abs().max() > 1e-3
 
 
-def test_registry_and_unported_encoders():
+def test_registry_and_unported_encoders(monkeypatch):
+    """Every encoder name builds its encoder (the other three are ported:
+    their full-width builds are stubbed here, tests/test_torch_units_alt.py
+    runs them)."""
+    from latent_diffusion_speech_tpu_torch.models import units as port_units
+
     assert get_encoder_out_channels("whisper_large_v3") == 1280
     assert get_encoder_out_channels("hubert_soft") == 256
+    assert get_encoder_out_channels("w2v-bert") == get_encoder_out_channels("xlsr_53_56k") == 1024
     with pytest.raises(ValueError):
         get_encoder_out_channels("nope")
-    for name in ("hubert_soft", "w2v-bert", "xlsr_53_56k"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            UnitsEncoder(name, device="cpu")
+    monkeypatch.setattr(port_units, "_built", lambda factory, device, state, seed, dtype: None)
+    for name, cls in (("hubert_soft", port_units.HubertSoftUnits), ("w2v-bert", port_units.Wav2Vec2BertUnits),
+                      ("xlsr_53_56k", port_units.XLSRUnits)):
+        kw = {"cache_dir": "no-such-cache"} if name == "w2v-bert" else {}
+        assert type(UnitsEncoder(name, device="cpu", **kw).model) is cls
     with pytest.raises(ValueError, match="Unknown units encoder"):
         UnitsEncoder("not_an_encoder", device="cpu")
