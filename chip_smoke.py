@@ -172,7 +172,26 @@ with nvcc (sm_90a), then:
    D + G step on the card against the same step on the CPU (B=2, the same
    seeded weights and latent noise, TF32 off); the step time, samples/s,
    the VQ's codebook utilisation and the peak memory.  The codec path runs
-   no custom kernel (the JAX package computes it outside any Pallas kernel).
+   no custom kernel (the JAX package computes it outside any Pallas kernel);
+15. llama_text: the Llama LM at the JAX `LlamaConfig`'s geometry (768
+   wide, 4 heads, 4 layers, FFN 512, V = 4207) through stage 21 with
+   `type: llama` on `lm_train`'s corpus (B=32, f32): dense (20.6 M) and MoE
+   (E=8, top-2, cf 1.25; 53.7 M), each 3 steps, a save, a resume and 3
+   more against an uninterrupted run (bitwise), one step on the card
+   against the CPU (with experts, the expert choices that differ are
+   counted), the median step, non-pad tokens/s, `train/mfu`, peak memory
+   and the dropped share of the routed choices; the dense run evaluates
+   and synthesises validation audio once; its checkpoint served through
+   `build_pipeline(lm_ckpt=)` in bf16 (one `tts` of 430 decode steps,
+   plain PyTorch as in the JAX package: no K1, 640 K4 launches; the LM's
+   ms a step and the stage walls; `tts_batch` raises, R11) and greedy
+   tokens on the card against the CPU's; `verify_import` on the checkpoint
+   in the reference's layout (a CPU golden, then the card); a seeded BERT at
+   bert-base-multilingual-cased's geometry in both layouts, f32 and bf16,
+   on one sentence, against the CPU (the post-LN one through a local
+   checkpoint directory, `get_bert_feature` and `verify_import --kind
+   bert`); stage 16's `text` mode over a vocab the phase writes; and
+   `extract_f0` and MCD / LSD on a 10 s signal against the CPU.
 
 Any failure raises (exit code != 0).  The second-to-last line is a JSON
 object with one entry per kernel; the last line is
@@ -182,6 +201,7 @@ Without a CUDA device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
@@ -3449,6 +3469,50 @@ def reference_roformer_state(state: dict, cfg) -> dict:
     return out
 
 
+_LLAMA_BLOCK = {"input_ln": "input_layernorm", "post_ln": "post_attention_layernorm",
+                "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj", "v_proj": "self_attn.v_proj",
+                "o_proj": "self_attn.o_proj", "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+                "down_proj": "mlp.down_proj"}
+_LLAMA_TOP = {"embed_tokens": "model.embed_tokens", "final_ln": "model.norm", "lm_head": "lm_head"}
+
+
+def reference_llama_state(state: dict, prefix: str = "llama.") -> dict:
+    """A reference-layout Llama state dict (HF `LlamaForCausalLM` keys under
+    `prefix`, the reference's `Llama` wrapper) holding the weights of the
+    port's dense `Llama` state dict `state`: the inverse of
+    `llama_state_from_torch` (both keep torch's (out, in) product layout)."""
+    out = {}
+    for key, t in state.items():
+        mod, leaf = key.rsplit(".", 1)
+        m = re.fullmatch(r"block_(\d+)\.(\w+)", mod)
+        name = f"model.layers.{m[1]}.{_LLAMA_BLOCK[m[2]]}" if m else _LLAMA_TOP[mod]
+        out[f"{prefix}{name}.{leaf}"] = t
+    return out
+
+
+_BERT_TOP = {"word_embeddings": "embeddings.word_embeddings", "position_embeddings": "embeddings.position_embeddings",
+             "token_type_embeddings": "embeddings.token_type_embeddings", "emb_ln": "embeddings.LayerNorm",
+             "final_ln": "encoder.ln"}
+_BERT_LAYER = {"attn.query": "attention.self.query", "attn.key": "attention.self.key",
+               "attn.value": "attention.self.value", "attn.out": "attention.output.dense",
+               "ffn_in": "intermediate.dense", "ffn_out": "output.dense"}
+
+
+def reference_bert_state(state: dict, pre_ln: bool) -> dict:
+    """An HF `BertModel` (post-LN) or `MegatronBertModel` (`pre_ln`) state
+    dict holding the weights of the port's `BertEncoderModel` state dict
+    `state`: the inverse of `bert_params_from_torch` + `convert.bert_from_jax`."""
+    norms = ({"attn_ln": "attention.ln", "ffn_ln": "ln"} if pre_ln
+             else {"attn_ln": "attention.output.LayerNorm", "ffn_ln": "output.LayerNorm"})
+    out = {}
+    for key, t in state.items():
+        mod, leaf = key.rsplit(".", 1)
+        m = re.fullmatch(r"layer_(\d+)\.(.+)", mod)
+        name = f"encoder.layer.{m[1]}.{_BERT_LAYER.get(m[2]) or norms[m[2]]}" if m else _BERT_TOP[mod]
+        out[f"{name}.{leaf}"] = t
+    return out
+
+
 def batched_preprocessing(tmp: str, cfg, wavs: list, stage, files, walls: dict, card: str) -> None:
     """`cli/batch_preprocess.py`'s main (B = BATCH_B) over a second root
     whose `audio/` holds hard links to stage 10's and 11's training files
@@ -4166,6 +4230,468 @@ def codec_train(dev, card: str) -> dict:
     return runs
 
 
+# llama_text: the Llama LM (dense and MoE) served and trained at the
+# reference geometry, the text-mode front end and the leftovers
+LLAMA_GEOM = (768, 4, 4, 512)  # width, heads, layers, FFN: the JAX LlamaConfig's defaults
+LLAMA_MOE = (8, 2, 1.25)  # experts, top-k, capacity factor
+LLAMA_PARAMS = {"dense": 20_624_640, "moe": 53_679_360}  # 20.6 M and 53.7 M
+LLAMA_B, LLAMA_STEPS, LLAMA_VAL_AT = 32, (3, 3), 4  # batch; steps before / after the resume; interval_val
+LLAMA_CPU_B = 2  # the card-against-CPU step's batch (the longest batch's first rows)
+BERT_TEXT = "Please read the following sentence slowly and clearly, then bring the book back home."
+F0_SIGNAL_S = 10.0
+
+
+def llama_corpus_config(tmp: str, moe: bool):
+    """The shipped config with `type: llama` at LLAMA_GEOM over the
+    phase's corpus (`write_lm_corpus`, stages 15 and 16), threaded loader,
+    every step logged, seeded diffusion behind validation audio."""
+    from latent_diffusion_speech_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+    m, tcfg = cfg.text2semantic.model, cfg.text2semantic.train
+    m.type = "llama"
+    d = m.decoder
+    d.hidden_size, d.num_attention_heads, d.num_hidden_layers, d.intermediate_size = LLAMA_GEOM
+    if moe:
+        m.moe_experts, m.moe_top_k, m.moe_capacity_factor = LLAMA_MOE
+    m.codebook_path = os.path.join(tmp, "no-codebook.npz")
+    cfg.data.train_path, cfg.data.valid_path = os.path.join(tmp, "train"), os.path.join(tmp, "val")
+    cfg.diffusion.train.expdir = os.path.join(tmp, "no-diffusion")
+    tcfg.batch_size, tcfg.loader_processes, tcfg.interval_log = LLAMA_B, 0, 1
+    tcfg.interval_val = LLAMA_VAL_AT if not moe else 10 ** 9
+    tcfg.expdir = os.path.join(tmp, "exp_llama_moe" if moe else "exp_llama")
+    return cfg
+
+
+def compare_llama_step(cfg, batch, dev) -> str:
+    """One Llama trainer step on the card (TF32 off) against the same step
+    on the CPU from the same seeded weights and batch: the loss's relative
+    error and the largest relative L2 error of a gradient tensor.  With
+    experts, each call's top-k expert choices are recorded: where a near
+    tie in the router's f32 probabilities falls the other way on the card,
+    the routing (and which tokens a full expert drops) differs, and so does
+    the step.  The step is held to the CPU's when the routing agrees; the
+    choices that differ are counted and reported otherwise."""
+    from latent_diffusion_speech_tpu_torch.ops import moe
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
+
+    got = []
+    for device in (dev, "cpu"):
+        trainer = LMTrainer(cfg, device=device)
+        choices, real_top_k = [], moe.top_k_lowest_index
+
+        def top_k(probs, k):
+            vals, idx = real_top_k(probs, k)
+            choices.append(idx.cpu())
+            return vals, idx
+
+        t0 = time.perf_counter()
+        with mock.patch.object(moe, "top_k_lowest_index", top_k):
+            loss = trainer.train_step(trainer.device_put_batch(batch))["loss"].item()
+        got.append((loss, {n: p.grad.cpu() for n, p in trainer.system.module.named_parameters()},
+                    time.perf_counter() - t0, choices))
+        del trainer
+    (loss, grads, t_card, ch), (loss_p, grads_p, t_cpu, ch_p) = got
+    flips = sum(int((a != b).sum()) for a, b in zip(ch, ch_p))
+    routed = sum(a.numel() for a in ch_p)
+    rel = {n: ((g - grads_p[n]).norm() / grads_p[n].norm().clamp_min(1e-30)).item() for n, g in grads.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    if loss_rel > (1e-5 if not flips else 1e-4) or (not flips and rel[worst] > 1e-3):
+        raise AssertionError(f"Llama step: loss {loss} on the card vs {loss_p} on the CPU, gradient {worst} "
+                             f"relative L2 error {rel[worst]:.3e}, {flips} of {routed} expert choices differ")
+    routing = (f"; expert choices: {flips} of {routed} differ (near ties; the gradients are held to the CPU's "
+               f"only when none does)" if ch_p else "")
+    return (f"loss {loss:.7f} on the card vs {loss_p:.7f} on the CPU (relative error {loss_rel:.2e}); "
+            f"{len(grads)} gradient tensors, largest relative L2 error {rel[worst]:.2e} ({worst}), median "
+            f"{float(np.median(list(rel.values()))):.2e}{routing}; step {t_card * 1e3:.1f} ms on the card (first "
+            f"call), {t_cpu:.2f} s on the CPU")
+
+
+def llama_train_run(tmp: str, moe: bool, dev, card: str) -> dict:
+    """Stage 21 with `type: llama`: `build` + `train` for all steps, then
+    `main` for LLAMA_STEPS[0] and again (resume) to the end; the two
+    checkpoints bitwise equal; step times, tokens/s, train/mfu, peak
+    memory; with experts the dropped share of the routed choices."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import train_lm
+    from latent_diffusion_speech_tpu_torch.config import save_config
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.moe import MoEMLP
+    from latent_diffusion_speech_tpu_torch.train.checkpoint import load_checkpoint
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
+    from latent_diffusion_speech_tpu_torch.utils.logger import MetricsLogger
+
+    name = "moe" if moe else "dense"
+    cfg = llama_corpus_config(tmp, moe)
+    tcfg = cfg.text2semantic.train
+    cfg_path = os.path.join(tmp, f"config_{name}.yaml")
+    save_config(cfg, cfg_path)
+    n = sum(LLAMA_STEPS)
+
+    cfg_a = copy.deepcopy(cfg)
+    cfg_a.text2semantic.train.expdir = tcfg.expdir + "_a"
+    cfg_a.text2semantic.train.interval_val = 10 ** 9
+    trainer_a, loader_a, val_a, logger_a, pipe_a = train_lm.build(cfg_a, device=dev)
+    del pipe_a
+    n_params = sum(p.numel() for p in trainer_a.system.module.parameters())
+    if n_params != LLAMA_PARAMS[name] or trainer_a.lm_cfg.vocab_size != 4207:
+        raise AssertionError(f"llama {name}: {n_params} parameters, V={trainer_a.lm_cfg.vocab_size}")
+    stats = lm_batch_stats(loader_a, range(n // len(loader_a) + 1))[:n]
+    longest = max(range(len(loader_a)), key=lambda i: stats[i][0])
+    loader_a.set_epoch(0)
+    step_batch = [b for _, b in zip(range(longest + 1), loader_a)][-1]
+    small = {k: v[:LLAMA_CPU_B] for k, v in step_batch.items()}
+    print(f"llama_text {name} step, card vs CPU (f32, B={LLAMA_CPU_B}, T={small['input_ids'].shape[1]}) [{card}]: "
+          f"{compare_llama_step(cfg, small, dev)}")
+    trainer_a.train(loader_a, max_steps=n)
+    for x in (loader_a, val_a, logger_a):
+        x.close()
+
+    times, val = [], {}
+    real_log, real_validate = MetricsLogger.log, LMTrainer.validate_audio
+
+    def log(self, step, metrics):
+        if "train/loss" in metrics:
+            times[-1].append(time.perf_counter())
+        return real_log(self, step, metrics)
+
+    def validate_audio(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0, before = time.perf_counter(), k4.launches
+        out = real_validate(self, *a, **kw)
+        torch.cuda.synchronize()
+        val.update(step=self.step, s=time.perf_counter() - t0, k4=k4.launches - before)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with mock.patch.object(MetricsLogger, "log", log), mock.patch.object(LMTrainer, "validate_audio",
+                                                                          validate_audio):
+        for steps in (LLAMA_STEPS[0], n):
+            times.append([time.perf_counter()])
+            train_lm.main(["-c", cfg_path, "--max-steps", str(steps)])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    (step_a, params_a, opt_a), (step_b, params_b, opt_b) = (load_checkpoint(e) for e in
+                                                            (cfg_a.text2semantic.train.expdir, tcfg.expdir))
+    differ = [k for k in params_a if not torch.equal(params_a[k], params_b[k])]
+    if (step_a, step_b) != (n, n) or differ or not same_state(opt_a, opt_b):
+        raise AssertionError(f"llama {name} resume: steps {step_a} / {step_b}, parameters differ at {differ[:5]}")
+    if not moe and (val.get("step") != LLAMA_VAL_AT or val["k4"] not in (0, 640)):
+        raise AssertionError(f"llama validation: {val} (want one call at step {LLAMA_VAL_AT}, 640 K4 launches "
+                             "when it synthesises)")
+    rows = [json.loads(x) for x in open(os.path.join(tcfg.expdir, "logs", "metrics.jsonl"))]
+    train_rows = [r for r in rows if "train/loss" in r]
+    mfu = [r.get("train/mfu") for r in train_rows]
+    losses = [r["train/loss"] for r in train_rows]
+    vals = [r for r in rows if "val/loss" in r]
+    if len(train_rows) != n or any(x is None for x in mfu) or not all(np.isfinite(losses)):
+        raise AssertionError(f"llama {name} metrics: {train_rows}")
+
+    drop = None
+    if moe:  # the routed choices without a slot, layer by layer, on the longest batch
+        with torch.no_grad():
+            trainer_a.system.module(*(torch.as_tensor(step_batch[k], device=dev) for k in ("input_ids",
+                                                                                          "attention_mask")))
+        drop = [m.drop_fraction.item() for m in trainer_a.system.module.modules() if isinstance(m, MoEMLP)]
+    del trainer_a
+
+    step_s = [b - a for leg in times for a, b in zip(leg, leg[1:])]
+    skip = {0, LLAMA_STEPS[0]} | ({LLAMA_VAL_AT} if not moe else set())
+    steady = [s for i, s in enumerate(step_s) if i not in skip]
+    median = float(np.median(steady))
+    tokens = float(np.mean([t for _, t, _ in stats]))
+    print(f"llama_text {name} training [{card}]: {n_params / 1e6:.1f} M parameters, {n} steps at B={LLAMA_B} f32 "
+          f"({LLAMA_STEPS[0]} through stage 21's main, then main again: resume, {LLAMA_STEPS[1]} more; buckets "
+          f"{sorted({s for s, _, _ in stats})}); losses {[round(x, 4) for x in losses]}; the resumed run's "
+          f"{len(params_b)} parameter tensors and AdamW state bitwise equal to the uninterrupted run's")
+    print(f"llama_text {name} step [{card}]: median {median * 1e3:.2f} ms over {len(steady)} steps (all: "
+          f"{[round(s * 1e3, 2) for s in step_s]} ms); {LLAMA_B / median:.1f} samples/s; {tokens / median:.0f} "
+          f"non-pad tokens/s ({tokens:.0f} a batch); train/mfu {[round(x, 4) for x in mfu]}; peak allocated "
+          f"{peak:.2f} GiB" + (f"; dropped share of the routed choices by layer {[round(x, 4) for x in drop]}"
+                               if moe else ""))
+    if vals:
+        print(f"llama_text {name} evaluate + validate_audio at step {val['step']} [{card}]: {val['s']:.3f} s wall, "
+              f"{val['k4']} K4 launches; val/loss {vals[0]['val/loss']:.4f}, val/top5_acc "
+              f"{vals[0]['val/top5_acc']:.4f}")
+    return dict(cfg=cfg, params=params_b, median=median, peak=peak, drop=drop, val_k4=val.get("k4", 0))
+
+
+def llama_serve(cfg, params, dev, card: str) -> dict:
+    """The trained dense checkpoint served through `build_pipeline(lm_ckpt=)`
+    in bf16: one warm-up and one measured `tts` of N_TOKENS decode steps;
+    tts_batch raises (R11); greedy tokens on the card against the CPU's."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
+    from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaSystem
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+
+    tcfg = cfg.text2semantic.train
+    pipe = build_pipeline(cfg, lm_ckpt=tcfg.expdir)
+    if not isinstance(pipe.lm, LlamaSystem) or pipe.lm.module.lm_head.weight.dtype != torch.bfloat16:
+        raise AssertionError(f"build_pipeline served {type(pipe.lm).__name__}")
+    served = pipe.lm.module.state_dict()
+    if any(not torch.equal(served[k].cpu(), v.to(served[k].dtype)) for k, v in params.items()):
+        raise AssertionError("build_pipeline(lm_ckpt=): the served Llama's weights are not the checkpoint's")
+    stages: dict = {}
+    generated = []
+    real_generate = pipe.lm.generate
+
+    def generate(*a, **kw):
+        toks, lens = real_generate(*a, **kw)
+        generated.append(int(lens[0]))
+        return toks, lens
+
+    pipe.lm.generate = timed(stages, "lm_decode", generate)
+    pipe.diffusion.infer = timed(stages, "diffusion_20step", pipe.diffusion.infer)
+    pipe.vocoder.infer = timed(stages, "vocoder", pipe.vocoder.infer)
+    before = k4.launches
+    pipe.tts(TEXT, language="EN", max_length=N_TOKENS)  # warm-up
+    stages.clear()
+    t0 = time.perf_counter()
+    wav, sr = pipe.tts(TEXT, language="EN", max_length=N_TOKENS)
+    t_tts = time.perf_counter() - t0
+    n_k4 = k4.launches - before
+    if n_k4 != 2 * 640 or sr != 44100 or not len(wav) or not np.isfinite(wav).all():
+        raise AssertionError(f"llama tts: {n_k4} K4 launches (want 2 x 640), {sr} Hz, {wav.shape}")
+    try:
+        pipe.tts_batch(BATCH_TEXTS, language="EN", max_length=N_TOKENS)
+        raise AssertionError("tts_batch served a Llama pipeline (the JAX package cannot: R11)")
+    except TypeError as err:
+        r11 = str(err)
+    print(f"llama_text serve (bf16, build_pipeline over model_{sum(LLAMA_STEPS)}.ckpt) [{card}]: tts "
+          f"{len(wav) / sr:.3f} s of audio ({generated[-1]} tokens) in {t_tts:.3f} s; lm_decode "
+          f"{stages['lm_decode'] * 1e3:.1f} ms for {N_TOKENS} steps ({stages['lm_decode'] * 1e3 / N_TOKENS:.3f} ms a "
+          f"step, the prompt's prefill included), diffusion {stages['diffusion_20step']:.4f} s, vocoder "
+          f"{stages['vocoder']:.4f} s; {n_k4} K4 launches (warm-up and measured); tts_batch raised: {r11[:60]}...")
+
+    phones, _ = pipe.text_to_phones(TEXT, "EN")
+    greedy = {}
+    for where, dtype in ((dev, torch.float32), ("cpu", torch.float32), (dev, torch.bfloat16)):
+        lm = LlamaSystem(pipe.lm.cfg, state_dict=params, dtype=dtype, device=where)
+        t0 = time.perf_counter()
+        toks, lens = lm.generate(phones[None], max_length=N_TOKENS, do_sample=False)
+        greedy[(str(where), dtype)] = (toks[0].cpu().numpy(), int(lens[0]), time.perf_counter() - t0)
+        del lm
+    card32, cpu32, card16 = (greedy[k] for k in ((str(dev), torch.float32), ("cpu", torch.float32),
+                                                 (str(dev), torch.bfloat16)))
+
+    def agree(a, b) -> str:
+        diff = np.nonzero(a[0] != b[0])[0]
+        return "identical" if not len(diff) and a[1] == b[1] else f"agree up to step {int(diff[0]) if len(diff) else N_TOKENS}"
+
+    print(f"llama_text greedy decode, {N_TOKENS} steps [{card}]: f32 card vs f32 CPU tokens {agree(card32, cpu32)} "
+          f"(lengths {card32[1]} / {cpu32[1]}; {card32[2]:.3f} s on the card, {cpu32[2]:.3f} s on the CPU); bf16 "
+          f"card vs f32 CPU {agree(card16, cpu32)} ({card16[2]:.3f} s)")
+    return dict(k4=n_k4, t_tts=t_tts, stages=stages)
+
+
+def bert_phase(tmp: str, dev, card: str) -> None:
+    """Seeded BertEncoderModel at bert-base-multilingual-cased's geometry
+    (JAX BertConfig's default), post-LN (through a local checkpoint
+    directory, `get_bert_feature`) and MegatronBert's pre-LN, f32 and bf16,
+    against the CPU; stage 16's text mode over the phase's vocab;
+    verify_import on the checkpoint."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import verify_import
+    from latent_diffusion_speech_tpu_torch.cli.preprocess_text import merge_labels
+    from latent_diffusion_speech_tpu_torch.cli.preprocess_tts import process_tts
+    from latent_diffusion_speech_tpu_torch.models.bert import BertConfig, BertEncoderModel
+    from latent_diffusion_speech_tpu_torch.ops.layers import init_weights
+    from latent_diffusion_speech_tpu_torch.text.bert import NativeBertFeatures, get_bert_feature, get_bert_token
+
+    vocab = os.path.join(tmp, "vocab.txt")
+    words = sorted(set(LM_WORDS) | set(re.findall(r"[a-z]+", BERT_TEXT.lower())))
+    with open(vocab, "w", encoding="utf-8") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ",", ".", "!", "?", *words]))
+    ids, tokens = get_bert_token(BERT_TEXT, vocab_file=vocab)
+    if "[UNK]" in tokens or ids[0] != 2 or ids[-1] != 3:
+        raise AssertionError(f"WordPiece over the phase's vocab: {tokens}")
+
+    for pre_ln in (False, True):
+        cfg = BertConfig(pre_ln=pre_ln)
+        with torch.device("meta"):
+            module = BertEncoderModel(cfg)
+        module = module.to_empty(device=dev)
+        init_weights(module, torch.Generator(device=dev).manual_seed(int(pre_ln)))
+        n_params = sum(p.numel() for p in module.parameters())
+        state = {k: v.cpu() for k, v in module.state_dict().items()}
+        layout = "MegatronBert pre-LN" if pre_ln else "BERT post-LN"
+        hf_cfg = dict(vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size, num_hidden_layers=cfg.num_hidden_layers,
+                      num_attention_heads=cfg.num_attention_heads, intermediate_size=cfg.intermediate_size,
+                      max_position_embeddings=cfg.max_position_embeddings, type_vocab_size=cfg.type_vocab_size,
+                      layer_norm_eps=cfg.layer_norm_eps, model_type="megatron-bert" if pre_ln else "bert")
+        ref_state = reference_bert_state(state, pre_ln)
+        if pre_ln:  # handed in, as an HF model would be
+            hf = type("HF", (), {"config": type("Cfg", (), hf_cfg)(), "state_dict": lambda self: ref_state})()
+            extractors = {torch.float32: NativeBertFeatures(hf_model=hf), torch.bfloat16:
+                          NativeBertFeatures(hf_model=hf, dtype=torch.bfloat16)}
+            cpu = NativeBertFeatures(hf_model=hf, device="cpu")
+        else:  # a local HF checkpoint directory, read without transformers
+            ckpt = os.path.join(tmp, "bert-base-multilingual-cased")
+            os.makedirs(ckpt)
+            with open(os.path.join(ckpt, "config.json"), "w") as f:
+                json.dump(hf_cfg, f)
+            torch.save(ref_state, os.path.join(ckpt, "pytorch_model.bin"))
+            extractors = {torch.float32: NativeBertFeatures(cache_dir=ckpt),
+                          torch.bfloat16: NativeBertFeatures(cache_dir=ckpt, dtype=torch.bfloat16)}
+            cpu = NativeBertFeatures(cache_dir=ckpt, device="cpu")
+            word2ph = [1] + [2] * (len(ids) - 2) + [1]
+            feats = get_bert_feature(BERT_TEXT, word2ph, vocab_file=vocab, cache_dir=ckpt)
+            if feats.shape != (cfg.hidden_size, sum(word2ph)) or not np.isfinite(feats).all():
+                raise AssertionError(f"get_bert_feature: {feats.shape}")
+            rep = verify_import.verify(argparse.Namespace(path=os.path.join(ckpt, "pytorch_model.bin"), kind="auto",
+                                                          heads=0, golden=None, save_golden=None, tol=1e-3,
+                                                          json=True, device=str(dev)))
+            if rep["kind"] != "bert" or rep["geometry"] != {"vocab": 119547, "hidden": 768, "layers": 12} or \
+                    rep["imported_elements"] != n_params or not rep["output_finite"]:
+                raise AssertionError(f"verify_import --kind bert: {rep}")
+            print(f"llama_text verify_import bert [{card}]: geometry {rep['geometry']}, {rep['imported_elements']} "
+                  f"elements imported, leaf statistics mean {rep['output_mean']:.5f}")
+        del module
+        ref = cpu.features(ids)
+        out = {}
+        for dtype, ex in extractors.items():
+            ex.features(ids)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                f_card = ex.features(ids)
+            out[dtype] = (f_card, (time.perf_counter() - t0) / 5)
+        rel = {dtype: float(np.abs(f - ref).max() / np.abs(ref).max()) for dtype, (f, _) in out.items()}
+        if rel[torch.float32] > 1e-4 or rel[torch.bfloat16] > 0.1 or not np.isfinite(out[torch.bfloat16][0]).all():
+            raise AssertionError(f"BERT {layout}: hidden_states[-3] card vs CPU relative errors {rel}")
+        print(f"llama_text {layout} seeded at bert-base-multilingual-cased's geometry ({n_params / 1e6:.1f} M) "
+              f"[{card}]: hidden_states[-3] of {len(ids)} tokens, f32 card vs CPU max error {rel[torch.float32]:.2e} "
+              f"of scale, bf16 card vs f32 CPU {rel[torch.bfloat16]:.2e}; {out[torch.float32][1] * 1e3:.2f} ms f32, "
+              f"{out[torch.bfloat16][1] * 1e3:.2f} ms bf16 a forward (back to back, host clock)")
+        del extractors, cpu
+
+    root = os.path.join(tmp, "text_mode")
+    for i in range(8):
+        spk_dir = os.path.join(root, "audio", f"spk{i % 2}")
+        os.makedirs(spk_dir, exist_ok=True)
+        open(os.path.join(spk_dir, f"{i // 2}.wav"), "wb").close()
+        with open(os.path.join(spk_dir, f"{i // 2}.txt"), "w", encoding="utf-8") as f:
+            f.write(" ".join(np.random.default_rng(i).choice(LM_WORDS, 8)).capitalize() + ".\n")
+    merge_labels(root)
+    with mock.patch.dict(os.environ, {"LDS_BERT_VOCAB": vocab}):
+        written = dict(process_tts(root, mode="text"))
+    files = [np.load(os.path.join(root, "utt", k + ".npy"), allow_pickle=True) for k in written]
+    if len(files) != 8 or any(f[0][0] != 2 or f[0][-1] != 3 or 1 in f[0] or any(len(x) for x in f[1:])
+                              for f in files):
+        raise AssertionError(f"stage 16 text mode: {written}")
+    print(f"llama_text stage 16 text mode: 8 labels -> (WordPiece ids, [], [], []) files, {sorted(written.values())} "
+          f"ids each (CLS ... SEP, no [UNK])")
+
+
+def leftovers(dev, card: str) -> None:
+    """extract_f0 and MCD / LSD on a 10 s 44.1 kHz signal, the card against the CPU."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.ops.f0 import extract_f0
+    from latent_diffusion_speech_tpu_torch.ops.metrics import log_spectral_distance, mcd
+    from latent_diffusion_speech_tpu_torch.ops.stft import MelSpectrogram
+
+    sr = 44100
+    t = np.arange(int(F0_SIGNAL_S * sr)) / sr
+    f0_true = np.where(t < 4.5, 120 + 40 * t, np.where(t < 5.5, 0.0, 220.0))
+    audio = (0.5 * np.sin(2 * np.pi * np.cumsum(f0_true) / sr) * (f0_true > 0)).astype(np.float32)
+    got = {}
+    for where in (dev, "cpu"):
+        x = torch.from_numpy(audio).to(where)
+        extract_f0(x)  # warm-up
+        if where == dev:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f0, voiced = extract_f0(x)
+        if where == dev:
+            torch.cuda.synchronize()
+        got[str(where)] = (f0.cpu().numpy(), voiced.cpu().numpy(), time.perf_counter() - t0)
+    (f_c, v_c, t_c), (f_p, v_p, t_p) = got[str(dev)], got["cpu"]
+    both = v_c & v_p
+    f0_rel = float(np.max(np.abs(f_c[both] - f_p[both]) / f_p[both]))
+    if (v_c != v_p).mean() > 0.01 or f0_rel > 1e-3 or both.mean() < 0.8:
+        raise AssertionError(f"extract_f0 card vs CPU: voicing differs on {(v_c != v_p).sum()} frames, f0 {f0_rel}")
+    mel = MelSpectrogram()
+    # two takes of the signal over a noise floor 40 dB down: the second 5%
+    # louder, with other noise
+    noise = np.random.default_rng(0).standard_normal((2, len(audio))).astype(np.float32) * 0.005
+    takes = (audio + noise[0], 1.05 * audio + noise[1])
+    res = {}
+    for where in (dev, "cpu"):
+        a, b = (mel(torch.from_numpy(x).to(where)[None]).transpose(1, 2) for x in takes)
+        if where == dev:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, l = mcd(a, b).item(), log_spectral_distance(a, b).item()
+        res[str(where)] = (m, l, time.perf_counter() - t0)
+    (m_c, l_c, tm), (m_p, l_p, _) = res[str(dev)], res["cpu"]
+    if abs(m_c - m_p) > 1e-3 * abs(m_p) or abs(l_c - l_p) > 1e-3 * abs(l_p):
+        raise AssertionError(f"mcd / LSD card vs CPU: {m_c} / {m_p}, {l_c} / {l_p}")
+    print(f"llama_text leftovers on a {F0_SIGNAL_S:.0f} s signal [{card}]: extract_f0 {len(f_c)} frames, voicing "
+          f"equal on {(v_c == v_p).mean():.2%} of frames, f0 max relative error {f0_rel:.2e} where both voiced; "
+          f"{t_c * 1e3:.2f} ms on the card, {t_p * 1e3:.1f} ms on the CPU; MCD {m_c:.5f} dB (CPU {m_p:.5f}), "
+          f"LSD {l_c:.5f} dB (CPU {l_p:.5f}), {tm * 1e3:.2f} ms for both on the card")
+
+
+def llama_text(dev, card: str) -> dict:
+    """The Llama LM trained (dense and MoE) and served, the text-mode front
+    end and the leftovers; returns the phase's kernel launches."""
+    import tempfile
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import verify_import
+    from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+
+    t_phase = time.perf_counter()
+    k1.launches = k4.launches = k4.bwd_launches = 0
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        t0 = time.perf_counter()
+        write_lm_corpus(os.path.join(tmp, "train"), LM_UTTS[0], 0)
+        write_lm_corpus(os.path.join(tmp, "val"), LM_UTTS[1], 1)
+        print(f"llama_text corpus: {LM_UTTS[0]} + {LM_UTTS[1]} EN utterances through stages 15 and 16 in "
+              f"{time.perf_counter() - t0:.2f} s")
+        dense = llama_train_run(tmp, False, dev, card)
+        moe = llama_train_run(tmp, True, dev, card)
+        print(f"llama_text dense vs MoE (E={LLAMA_MOE[0]}, top-{LLAMA_MOE[1]}, cf {LLAMA_MOE[2]}) [{card}]: median "
+              f"step {dense['median'] * 1e3:.2f} / {moe['median'] * 1e3:.2f} ms, peak {dense['peak']:.2f} / "
+              f"{moe['peak']:.2f} GiB")
+        served = llama_serve(dense["cfg"], dense["params"], dev, card)
+
+        # verify_import on the trained checkpoint in the reference's layout:
+        # a CPU golden, then the card against it
+        path = os.path.join(tmp, "llama_model.pt")
+        torch.save({"model": reference_llama_state(dense["params"])}, path)
+        reps = {}
+        for device, extra in (("cpu", {"save_golden": path + ".golden.npz", "golden": None}),
+                              (str(dev), {"save_golden": None, "golden": path + ".golden.npz"})):
+            reps[device] = verify_import.verify(argparse.Namespace(path=path, kind="auto", heads=LLAMA_GEOM[1],
+                                                                   tol=1e-3, json=True, device=device, **extra))
+        rep = reps[str(dev)]
+        if rep["kind"] != "llama" or not rep["golden_match"] or rep["torch_keys_unused"]:
+            raise AssertionError(f"verify_import --kind llama: {rep}")
+        print(f"llama_text verify_import llama [{card}]: geometry {rep['geometry']}, {rep['torch_keys_read']} keys "
+              f"read, none unused; card vs CPU golden relative error {rep['golden_rel_diff']:.2e}")
+        bert_phase(tmp, dev, card)
+    leftovers(dev, card)
+    launches = {"ar_decode": k1.launches, "attention_fwd": k4.launches}
+    want = served["k4"] + dense["val_k4"]
+    if k1.launches or k4.bwd_launches or k4.launches != want:
+        raise AssertionError(f"llama_text launches {launches}, K4 backward {k4.bwd_launches} (want no K1 launch: "
+                             f"the Llama decode is plain PyTorch; {want} K4 launches)")
+    print(f"llama_text launches: {launches} (no K1: the Llama's decode is plain PyTorch, as in the JAX package; "
+          f"K4 in the flagship UNet behind validate_audio and the serve's two tts); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -4253,6 +4779,10 @@ def main() -> int:
     print(f"launches with migrate's: {launches}, kmeans_argmin {mig['launches']['kmeans_argmin']} (verify_import)")
     torch.cuda.empty_cache()
     codec_train(dev, card)
+    torch.cuda.empty_cache()
+    llama = llama_text(dev, card)
+    launches["attention_fwd"] += llama["launches"]["attention_fwd"]
+    print(f"launches with llama_text's: {launches}")
 
     src = "latent_diffusion_speech_tpu_torch/csrc/"
     kernels = [

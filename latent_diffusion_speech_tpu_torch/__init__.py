@@ -2,9 +2,11 @@
 (RoFormer AR decode -> 20-step DPM-Solver++ UNet -> HiFi-VAEGAN; the entry
 points `cli/infer_tts.py`, `cli/serve.py`, `infer/load.py`), SVC long-audio
 inference (`cli/infer_svc.py`), the diffusion training path
-(`cli/train_diffusion.py` -> `train/diffusion_trainer.py`), the RoFormer LM
-training path (`cli/train_lm.py` -> `train/lm_trainer.py`, whose checkpoints
-the serve entry points load), and the preprocessing stages 10
+(`cli/train_diffusion.py` -> `train/diffusion_trainer.py`), the LM
+training path for the RoFormer and the Llama (`cli/train_lm.py` ->
+`train/lm_trainer.py`, whose checkpoints the serve entry points load), the
+text-mode front end (`text/wordpiece.py`, `models/bert.py`,
+`text/bert.py`), and the preprocessing stages 10
 (`cli/preprocess_unit.py`), 15 (`cli/preprocess_text.py`), 16
 (`cli/preprocess_tts.py`) and 19 (`cli/preprocess_token.py`).
 

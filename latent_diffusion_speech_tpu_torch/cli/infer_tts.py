@@ -6,9 +6,11 @@ Counterpart of `latent_diffusion_speech_tpu/cli/infer_tts.py`:
         -l EN -i "Some text." -o out.wav [--long] [--model exp/diffusion/model_<step>.ckpt] \
         [--lm-model exp/lm]
 
-text -> phones -> RoFormer AR decode (K1) -> semantic tokens -> k-means
+text -> phones -> the LM's AR decode (`type: roformer`: K1; `type: llama`:
+plain PyTorch, as in the JAX package) -> semantic tokens -> k-means
 centroid units -> latent diffusion (the config's sampler) -> HiFi-VAEGAN
-decode -> a 16-bit WAV file.  `build_pipeline` is the loader the HTTP
+decode -> a 16-bit WAV file.  `--long` needs the RoFormer (it runs
+`tts_batch`, which the Llama does not serve).  `build_pipeline` is the loader the HTTP
 daemon (`cli/serve.py`) and `infer/load.py` share.
 """
 

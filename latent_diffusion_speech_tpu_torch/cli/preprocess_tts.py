@@ -8,8 +8,11 @@ Reads each speaker's `utt_text.txt` (stage 15), runs the port's text frontend
 (`text.text_to_sequence`, 'phone' mode: G2P to phone / tone ids) on every
 audio file's label, and saves the object-dtype npy tuple the JAX stage
 writes, at `<path>/utt/<speaker>/<file>.<ext>.npy`, for the train path.
-'text' mode needs the BERT tokenizer, which is not ported (ROADMAP.md
-Queue 1, item 6), and raises.  Host-only: no torch.
+'text' mode writes the WordPiece ids of each label instead
+(`text/bert.py::get_bert_token`, a local `vocab.txt`: $LDS_BERT_VOCAB or one
+under `pretrain/`) with empty tone, language and word2ph arrays.  The LM
+config mappers pin `mode="phone"` in both packages, so a text-mode corpus
+trains as phone ids (ROADMAP.md Queue 3, R12).  Host-only: no torch.
 """
 
 from __future__ import annotations
@@ -29,9 +32,6 @@ def process_tts(path_root: str | Path, mode: str = "phone", language: str = "ZH"
     """Yields (file name, number of phones) as each `utt/` file is saved."""
     from latent_diffusion_speech_tpu_torch.text import text_to_sequence
 
-    if mode != "phone":
-        raise NotImplementedError(f"mode {mode!r}: the BERT tokenizer of 'text' mode is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 6)")
     root = Path(path_root)
     utt_text, prev_spk = {}, None
     for name_ext in traverse_dir(root / "audio", extensions=extensions):
@@ -48,7 +48,14 @@ def process_tts(path_root: str | Path, mode: str = "phone", language: str = "ZH"
         stem = Path(name_ext).stem
         if stem not in utt_text:
             continue
-        (phones, tones, lang_ids), (_norm, word2ph) = text_to_sequence(utt_text[stem], language)
+        if mode == "phone":
+            (phones, tones, lang_ids), (_norm, word2ph) = text_to_sequence(utt_text[stem], language)
+        else:
+            # 'text' mode: BERT tokenizer ids, empty tone / language / word2ph
+            from latent_diffusion_speech_tpu_torch.text.bert import get_bert_token
+
+            phones, _tokens = get_bert_token(utt_text[stem])
+            tones = lang_ids = word2ph = []
         out = root / "utt" / (name_ext + ".npy")
         out.parent.mkdir(parents=True, exist_ok=True)
         np.save(

@@ -1,4 +1,4 @@
-"""Stage 21: RoFormer LM training on one CUDA device.
+"""Stage 21: LM training (RoFormer or Llama) on one CUDA device.
 
 Counterpart of `latent_diffusion_speech_tpu/cli/train_lm.py`:
 
@@ -7,7 +7,9 @@ Counterpart of `latent_diffusion_speech_tpu/cli/train_lm.py`:
 reads the config, the k-means codebook when it exists (it warm-starts the
 semantic embeddings), the trainer (resumed from the latest checkpoint of
 `text2semantic.train.expdir`), the train and valid loaders over `utt/` +
-`semantic_token/` (stages 16 and 19; `collate_text_batch`, length-sorted
+`semantic_token/` (stages 16 and 19; `collate_text_batch` for the RoFormer,
+`collate_llama_batch` for the Llama, whose dataset wraps the semantic ids
+with the unshifted BOS/EOS (K, K + 1) that the collate shifts; length-sorted
 batches when `length_sorted`, `loader_processes` spawn workers), a
 `MetricsLogger` in the experiment directory, and the frozen serve pipeline
 for validation audio (`infer/load.py::load_native_pipeline`: the diffusion
@@ -31,7 +33,11 @@ def build(cfg: Config, device=None):
     """(trainer, loader, val_loader, logger, pipe) as the entry point makes
     them; device None means `cuda`.  `pipe` is None when the validation
     pipeline cannot be built."""
-    from latent_diffusion_speech_tpu_torch.data.lm_dataset import TextDataset, collate_text_batch
+    from latent_diffusion_speech_tpu_torch.data.lm_dataset import (
+        TextDataset,
+        collate_llama_batch,
+        collate_text_batch,
+    )
     from latent_diffusion_speech_tpu_torch.data.loader import DataLoader
     from latent_diffusion_speech_tpu_torch.infer.load import load_native_pipeline
     from latent_diffusion_speech_tpu_torch.quantize.kmeans import load_codebook
@@ -50,11 +56,17 @@ def build(cfg: Config, device=None):
     resumed = trainer.resume()
     print(f"{'resumed at step ' + str(trainer.step) if resumed else 'fresh start'}")
     lm_cfg = trainer.lm_cfg
-    collate = partial(collate_text_batch, phone_pad=lm_cfg.phone_pad, semantic_pad=lm_cfg.semantic_pad)
+    if trainer.lm_type == "llama":
+        sem_bos, sem_eos = lm_cfg.semantic_kmeans_num, lm_cfg.semantic_kmeans_num + 1
+        collate = partial(collate_llama_batch, token_shift=lm_cfg.token_shift, phone_bos=lm_cfg.phone_bos,
+                          phone_eos=lm_cfg.phone_eos, pad_id=lm_cfg.pad_token_id)
+    else:
+        sem_bos, sem_eos = lm_cfg.semantic_bos, lm_cfg.semantic_eos
+        collate = partial(collate_text_batch, phone_pad=lm_cfg.phone_pad, semantic_pad=lm_cfg.semantic_pad)
 
     def make_loader(path, shuffle):
-        ds = TextDataset(path, semantic_bos=lm_cfg.semantic_bos, semantic_eos=lm_cfg.semantic_eos,
-                         n_spk=cfg.common.n_spk, cache=tcfg.cache_all_data)
+        ds = TextDataset(path, semantic_bos=sem_bos, semantic_eos=sem_eos, n_spk=cfg.common.n_spk,
+                         cache=tcfg.cache_all_data)
         return DataLoader(ds, tcfg.batch_size, collate=collate, shuffle=shuffle, seed=tcfg.seed,
                           num_workers=tcfg.loader_processes, length_sorted=shuffle and tcfg.length_sorted)
 

@@ -25,9 +25,11 @@ layout, under a `hubert` or `model` key or bare), `wav2vec2` (HF's or
 fairseq's) and `w2vbert` (HF's) are imported at the layer counts their
 state dicts hold (the JAX CLI assumes the published ones) and report, as
 the JAX CLI does, the mean |x| of the first eight leaves of the
-imported tree in JAX's leaf order (`_verify_stats_only`); `llama` and
-`bert` are detected and raise NotImplementedError until their modules are
-ported (ROADMAP.md Queue 1, items 8 and 6).
+imported tree in JAX's leaf order (`_verify_stats_only`); `llama` runs
+the Llama's forward (geometry from the state dict, heads from `--heads`,
+default 4), and `bert` is imported at the geometry its state dict holds
+(the post-LN layout, as the JAX CLI assumes) and reports the same leaf
+statistics.
 
 Exit code 0 = imported, forward finite, golden (if given) within tolerance.
 """
@@ -334,6 +336,41 @@ def _verify_roformer(obj, report, args, device):
     return {"phone": phone, "tone": tone, "semantic": sem}, out.float().cpu().numpy(), imported
 
 
+def _verify_llama(obj, report, args, device):
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.models.lm.import_hf import llama_state_from_torch
+    from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaConfig, LlamaSystem
+    from latent_diffusion_speech_tpu_torch.text.symbols import symbols
+
+    state = _state(obj)
+    pre = "llama." if any(k.startswith("llama.") for k in state) else ""
+    layers = _max_index(state, (r"llama\." if pre else "") + r"model\.layers\.(\d+)\.") + 1
+    emb = _to_np(state[f"{pre}model.embed_tokens.weight"])
+    ff = _to_np(state[f"{pre}model.layers.0.mlp.gate_proj.weight"]).shape[0]
+    cfg = LlamaConfig(
+        hidden_size=emb.shape[1],
+        num_hidden_layers=layers,
+        intermediate_size=ff,
+        num_attention_heads=args.heads or 4,
+        semantic_kmeans_num=emb.shape[0] - len(symbols) - 3,
+    )
+    report["geometry"] = {
+        "layers": layers, "hidden": emb.shape[1], "intermediate": ff,
+        "vocab": emb.shape[0], "semantic_kmeans_num": cfg.semantic_kmeans_num,
+    }
+    tracking = _Tracking(state)
+    imported = llama_state_from_torch(tracking, cfg)
+    _coverage(report, tracking)
+
+    system = LlamaSystem(cfg, state_dict=imported, device=device)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (1, 16)).astype(np.int32)
+    with torch.no_grad():
+        out = system.module(torch.from_numpy(ids).long().to(device))[0]
+    return {"input_ids": ids}, out.float().cpu().numpy(), imported
+
+
 def _leaves(tree: Dict) -> list:
     """The leaves of a nested dict in `jax.tree_util.tree_leaves` order
     (keys sorted at every level)."""
@@ -345,8 +382,8 @@ def _leaves(tree: Dict) -> list:
 
 
 def _verify_stats_only(obj, report, args, kind):
-    """Import-only verification of the unit encoders (their forwards are
-    held to HF and the JAX package by the tests): the output is the mean
+    """Import-only verification of the unit encoders and BERT (their
+    forwards are held to HF and the JAX package by the tests): the output is the mean
     |x| of the first eight leaves of the imported tree, as the JAX CLI
     reports them.  The importers read the layer counts from the state
     dict, so a checkpoint of the published geometry gives the JAX CLI's
@@ -376,6 +413,15 @@ def _verify_stats_only(obj, report, args, kind):
         else:
             params = wav2vec2_params_from_hf(state, cfg)
         imported = convert.wav2vec2_from_jax(params)
+    elif kind == "bert":
+        from latent_diffusion_speech_tpu_torch.models.bert import BertConfig, bert_params_from_torch
+
+        emb = _to_np(state["embeddings.word_embeddings.weight"])
+        layers = _max_index(state, r"encoder\.layer\.(\d+)\.") + 1
+        cfg = BertConfig(vocab_size=emb.shape[0], hidden_size=emb.shape[1], num_hidden_layers=layers)
+        report["geometry"] = {"vocab": emb.shape[0], "hidden": emb.shape[1], "layers": layers}
+        params = bert_params_from_torch(state, cfg)
+        imported = convert.bert_from_jax(params)
     else:
         from latent_diffusion_speech_tpu_torch.models.w2vbert import W2vBertConfig, w2vbert_params_from_torch
 
@@ -386,12 +432,6 @@ def _verify_stats_only(obj, report, args, kind):
         imported = convert.w2vbert_from_jax(params)
     out = np.asarray([float(np.abs(np.asarray(x)).mean()) for x in _leaves(params)[:8]])
     return {}, out, imported
-
-
-_WAITING = {
-    "llama": "the Llama LM (ROADMAP.md Queue 1, item 8)",
-    "bert": "BERT and the LM's text mode (ROADMAP.md Queue 1, item 6)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -435,10 +475,10 @@ def verify(args) -> Dict:
         inputs, out, imported = _verify_unit2mel(obj, report, args, device)
     elif kind == "roformer":
         inputs, out, imported = _verify_roformer(obj, report, args, device)
-    elif kind in ("hubert", "wav2vec2", "w2vbert"):
+    elif kind == "llama":
+        inputs, out, imported = _verify_llama(obj, report, args, device)
+    elif kind in ("hubert", "wav2vec2", "w2vbert", "bert"):
         inputs, out, imported = _verify_stats_only(obj, report, args, kind)
-    elif kind in _WAITING:
-        raise NotImplementedError(f"{path}: a {kind!r} checkpoint; {_WAITING[kind]} is not ported yet")
     else:
         raise ValueError(f"unknown kind {kind!r}")
 

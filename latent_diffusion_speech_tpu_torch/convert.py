@@ -28,7 +28,8 @@ import torch
 
 __all__ = ["roformer_from_jax", "unit2mel_from_jax", "encoder_from_jax", "generator_from_jax",
            "whisper_encoder_from_jax", "discriminator_bank_from_jax", "vq_state_from_jax",
-           "hubert_from_jax", "wav2vec2_from_jax", "w2vbert_from_jax"]
+           "hubert_from_jax", "wav2vec2_from_jax", "w2vbert_from_jax", "llama_from_jax", "bert_from_jax",
+           "vaegan_modules_from_jax"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -121,6 +122,25 @@ def w2vbert_from_jax(params: Mapping) -> dict:
     """flax `W2vBertModel` params -> state dict of the port's `W2vBertModel`
     (the depthwise (k, 1, h) kernel to (h, 1, k); each block's
     `self_attn.distance_embedding` keeps its name)."""
+    return _convert(params)
+
+
+def llama_from_jax(params: Mapping) -> dict:
+    """flax `Llama` params -> state dict of the port's `Llama`; the MoE banks
+    (`block_<i>.moe.gate` (C, E), `w_gate`, `w_up`, `w_down`) keep their
+    names and layouts."""
+    return _convert(params)
+
+
+def bert_from_jax(params: Mapping) -> dict:
+    """flax `BertEncoderModel` params (either layout) -> state dict of the
+    port's `BertEncoderModel`."""
+    return _convert(params)
+
+
+def vaegan_modules_from_jax(params: Mapping) -> dict:
+    """flax `WN1D` / `ConvReluNorm1D` params -> state dict of the port's
+    module (dilated (k, in, out) kernels to (out, in, k))."""
     return _convert(params)
 
 

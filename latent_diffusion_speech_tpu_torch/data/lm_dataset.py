@@ -4,8 +4,8 @@ A copy of `latent_diffusion_speech_tpu/data/lm_dataset.py` (its RoFormer
 part): items pair `(phones, tones, lang_ids, word2ph)` from `utt/` (stage 16)
 with token ids from `semantic_token/` (stage 19); semantic sequences are
 BOS/EOS-wrapped; speaker ids are per-token sequences; the collate pads to
-pad-to-multiple buckets with -100 labels on the padding.  `collate_llama_batch`
-waits for the Llama LM (ROADMAP.md Queue 1, item 8).
+pad-to-multiple buckets with -100 labels on the padding; `collate_llama_batch`
+is the Llama LM's single-stream collate.
 
 Imports numpy only (no torch): the loader's spawn workers unpickle this
 module's dataset and collate, and start in well under a second.
@@ -21,7 +21,7 @@ import numpy as np
 
 from latent_diffusion_speech_tpu_torch.data.files import speaker_id_map, traverse_dir
 
-__all__ = ["TextDataset", "collate_text_batch"]
+__all__ = ["TextDataset", "collate_text_batch", "collate_llama_batch"]
 
 
 class TextDataset:
@@ -151,4 +151,36 @@ def collate_text_batch(
         "encoder_attention_mask": np.stack([_pad_to(np.ones(len(it["phone"]), np.int32), pl, 0) for it in items]),
         "attention_mask": np.stack([_pad_to(np.ones(len(it["semantic"]), np.int32), sl, 0) for it in items]),
         "spk_id": np.stack([_pad_to(it["spk_id"], pl, 0) for it in items]),
+    }
+
+
+def collate_llama_batch(
+    items: List[Dict[str, np.ndarray]],
+    token_shift: int,
+    phone_bos: int,
+    phone_eos: int,
+    pad_id: int,
+    pad_multiple: int = 32,
+    max_len: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Single-stream Llama collate: each item becomes
+
+        input_ids = [BOS, phones, EOS] ++ (semantic_wrapped + token_shift)
+
+    where the dataset already wrapped semantic with the unshifted BOS/EOS
+    (kmeans_num, kmeans_num + 1), which shift onto Llama's semantic BOS/EOS.
+    labels = input_ids with -100 on the padding (the CE covers the phone
+    prompt too); input_ids are padded with `pad_id`, to one length that is a
+    multiple of `pad_multiple` (or `max_len`)."""
+
+    def bucket(n):
+        return max(pad_multiple, ((n + pad_multiple - 1) // pad_multiple) * pad_multiple)
+
+    seqs = [np.concatenate([[phone_bos], it["phone"], [phone_eos], it["semantic"] + token_shift]).astype(np.int32)
+            for it in items]
+    L = max_len or bucket(max(len(s) for s in seqs))
+    return {
+        "input_ids": np.stack([_pad_to(s, L, pad_id) for s in seqs]),
+        "labels": np.stack([_pad_to(s, L, -100) for s in seqs]),
+        "attention_mask": np.stack([_pad_to(np.ones(len(s), np.int32), L, 0) for s in seqs]),
     }

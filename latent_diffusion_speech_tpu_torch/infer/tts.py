@@ -7,8 +7,11 @@ serve path: `tts`, `tts_from_phones`, `tts_batch`, `tts_long_text`,
 `mel2wav` and the stages under them), with the same signatures except that
 `rng` keys become `torch.Generator`s.  `tts_batch` keeps the phone, length
 and batch buckets and the per-item crops, so the server's batching loop
-(`infer/server.py`) can drive it.  It runs eagerly; the LM decode is one K1
-kernel launch on the card and every UNet attention one K4 launch, or one K5
+(`infer/server.py`) can drive it.  It runs eagerly; the LM is the RoFormer
+(`RoformerSystem`) or the Llama (`LlamaSystem`, whose decode is plain
+PyTorch and which serves `tts` and `tts_from_phones` only: no batched
+decode, as in the JAX package).  The RoFormer decode is one K1 kernel
+launch on the card and every UNet attention one K4 launch, or one K5
 launch with `attn_impl="pallas"` (the flagship or the general denoiser: it
 takes any `Unit2MelSystem`).  `infer_from_long_audio` is the SVC path:
 audio in, RMS-sliced at silences, each voiced segment through the units
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelSystem
+from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaSystem
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerSystem
 from latent_diffusion_speech_tpu_torch.models.vocoder import Vocoder
 from latent_diffusion_speech_tpu_torch.ops.alignment import cross_fade, units_forced_alignment
@@ -52,7 +56,7 @@ class TTSPipeline:
         self,
         diffusion: Unit2MelSystem,
         vocoder: Vocoder,
-        lm: Optional[RoformerSystem] = None,
+        lm: Optional[RoformerSystem | LlamaSystem] = None,
         codebook: Optional[np.ndarray] = None,
         units_encoder=None,
         device=None,
@@ -245,6 +249,10 @@ class TTSPipeline:
         outputs are dropped)."""
         if self.lm is None or self.codebook is None:
             raise ValueError("tts_batch needs a language model and a codebook")
+        if isinstance(self.lm, LlamaSystem):
+            raise TypeError("tts_batch: the Llama LM has no batched decode over padded prompts (its generate takes "
+                            "no attention_mask, as in the JAX package: ROADMAP.md Queue 3, R11); serve it with "
+                            "tts or tts_from_phones")
         seqs = [self.text_to_phones(t, language) for t in texts]
         B = len(seqs)
         L = max(len(p) for p, _ in seqs)

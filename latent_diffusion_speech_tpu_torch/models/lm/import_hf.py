@@ -11,8 +11,10 @@ reads: the head bias falls back from `cls.predictions.bias` to
 `cls.predictions.decoder.weight` (the semantic embeddings again) and HF's
 sinusoidal `embed_positions` tables are never read.
 
-The Llama LM is not ported yet: `llama_params_from_torch` raises
-`NotImplementedError` (ROADMAP.md Queue 1, item 8).
+The reference's `Llama` checkpoints (HF `LlamaForCausalLM` parts under a
+`llama.` prefix, or bare) go the same way: `llama_params_from_torch` is a
+numpy copy of the JAX importer and `llama_state_from_torch` passes its tree
+through `convert.llama_from_jax`.
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ from typing import Dict
 
 import numpy as np
 
-from latent_diffusion_speech_tpu_torch.convert import roformer_from_jax
+from latent_diffusion_speech_tpu_torch.convert import llama_from_jax, roformer_from_jax
 
-__all__ = ["roformer_params_from_torch", "roformer_state_from_torch", "llama_params_from_torch"]
+__all__ = ["roformer_params_from_torch", "roformer_state_from_torch", "llama_params_from_torch",
+           "llama_state_from_torch"]
 
 
 def _np(v):
@@ -102,5 +105,30 @@ def roformer_state_from_torch(state: Dict, cfg) -> dict:
 
 
 def llama_params_from_torch(state: Dict, cfg) -> Dict:
-    """The reference `Llama` state dict: not ported yet."""
-    raise NotImplementedError("the Llama LM and its importer are not ported yet (ROADMAP.md Queue 1, item 8)")
+    """Map the reference `Llama` state dict (llama.model.* / llama.lm_head,
+    or the same keys bare) onto the flax Llama tree (numpy)."""
+    pre = "llama." if any(k.startswith("llama.") for k in state) else ""
+    params: Dict = {
+        "embed_tokens": {"embedding": _np(state[f"{pre}model.embed_tokens.weight"])},
+        "final_ln": {"scale": _np(state[f"{pre}model.norm.weight"])},
+        "lm_head": {"kernel": _np(state[f"{pre}lm_head.weight"]).T},
+    }
+    for i in range(cfg.num_hidden_layers):
+        b = f"{pre}model.layers.{i}"
+        params[f"block_{i}"] = {
+            "input_ln": {"scale": _np(state[f"{b}.input_layernorm.weight"])},
+            "post_ln": {"scale": _np(state[f"{b}.post_attention_layernorm.weight"])},
+            "q_proj": _dense(state, f"{b}.self_attn.q_proj", bias=False),
+            "k_proj": _dense(state, f"{b}.self_attn.k_proj", bias=False),
+            "v_proj": _dense(state, f"{b}.self_attn.v_proj", bias=False),
+            "o_proj": _dense(state, f"{b}.self_attn.o_proj", bias=False),
+            "gate_proj": _dense(state, f"{b}.mlp.gate_proj", bias=False),
+            "up_proj": _dense(state, f"{b}.mlp.up_proj", bias=False),
+            "down_proj": _dense(state, f"{b}.mlp.down_proj", bias=False),
+        }
+    return params
+
+
+def llama_state_from_torch(state: Dict, cfg) -> dict:
+    """The reference `Llama` state dict -> state dict of the port's `Llama`."""
+    return llama_from_jax(llama_params_from_torch(state, cfg))

@@ -1,11 +1,10 @@
 """LM registry: build the configured text->semantic language model.
 
 Counterpart of `latent_diffusion_speech_tpu/models/lm/registry.py`, with
-`roformer_config_from` (JAX `train/lm_trainer.py::roformer_config_from`,
-which the port's LM trainer imports from here).  `type: roformer` builds a
-`RoformerSystem`; `type: llama` raises
-`NotImplementedError` until the Llama LM is ported (ROADMAP.md Queue 1,
-item 8).
+`roformer_config_from` and `llama_config_from` (JAX
+`train/lm_trainer.py::roformer_config_from` / `llama_config_from`, which the
+port's LM trainer imports from here).  `type: roformer` builds a
+`RoformerSystem`, `type: llama` a `LlamaSystem` (one device: no mesh).
 """
 
 from __future__ import annotations
@@ -13,9 +12,10 @@ from __future__ import annotations
 import torch
 
 from latent_diffusion_speech_tpu_torch.config import Config
+from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaConfig, LlamaSystem
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerConfig, RoformerSystem, StackConfig
 
-__all__ = ["get_language_model", "roformer_config_from"]
+__all__ = ["get_language_model", "roformer_config_from", "llama_config_from"]
 
 
 def roformer_config_from(cfg: Config) -> RoformerConfig:
@@ -42,18 +42,37 @@ def roformer_config_from(cfg: Config) -> RoformerConfig:
     )
 
 
+def llama_config_from(cfg: Config) -> LlamaConfig:
+    """Decoder-only Llama geometry from the config's `decoder` stack and the
+    MoE fields (the JAX package's mapping)."""
+    m = cfg.text2semantic.model
+    tc = m.decoder
+    return LlamaConfig(
+        hidden_size=tc.hidden_size,
+        num_attention_heads=tc.num_attention_heads,
+        num_hidden_layers=tc.num_hidden_layers,
+        intermediate_size=tc.intermediate_size,
+        mode="phone",
+        semantic_kmeans_num=m.semantic_kmeans_num,
+        moe_experts=m.moe_experts,
+        moe_top_k=m.moe_top_k,
+        moe_capacity_factor=m.moe_capacity_factor,
+        moe_aux_weight=m.moe_aux_weight,
+    )
+
+
 def get_language_model(cfg: Config, dtype=None, seed: int = 0, device=None, state_dict=None):
     """The configured LM system (dtype None means f32; device None means
     `cuda`): the weights of `state_dict` (an f32 state dict of the LM
     trainer's checkpoint) cast to `dtype`, else seeded ones.  The JAX
     function's `codebook` warm start of the semantic embeddings (the LM
-    trainer passes it to `RoformerSystem`) and its `mesh` (Llama MoE) are
-    not taken here."""
+    trainer passes it to the system itself) and its `mesh` (the Llama's
+    expert sharding) are not taken here."""
     dtype = dtype or torch.float32
     mtype = cfg.text2semantic.model.type
     if mtype == "roformer":
         return RoformerSystem(roformer_config_from(cfg), state_dict=state_dict, dtype=dtype, device=device,
                               seed=seed)
     if mtype == "llama":
-        raise NotImplementedError("the Llama LM is not ported yet (ROADMAP.md Queue 1, item 8)")
+        return LlamaSystem(llama_config_from(cfg), state_dict=state_dict, dtype=dtype, device=device, seed=seed)
     raise ValueError(f"[x] Unknown language model type: {mtype}")

@@ -98,8 +98,12 @@ def init_weights(module: nn.Module, generator: torch.Generator, conv_std: float 
     N(0, 1/C) (flax's `default_embed_init`: variance scaling 1.0 over
     fan-in C, a plain normal), biases 0, norm scales 1 and offsets 0.
     `conv_std` draws every `nn.Conv1d` and `nn.ConvTranspose1d` from
-    N(0, conv_std) instead, as the HiFi-VAEGAN modules do (0.01)."""
+    N(0, conv_std) instead, as the HiFi-VAEGAN modules do (0.01).  A module
+    with an `init_flax(generator)` method draws its own parameters."""
     for m in module.modules():
+        if hasattr(m, "init_flax"):  # a module with parameters of its own kind (ops/moe.py)
+            m.init_flax(generator)
+            continue
         if conv_std is not None and isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
             m.weight.normal_(0.0, conv_std, generator=generator)
         elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):

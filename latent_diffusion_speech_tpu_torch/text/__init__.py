@@ -1,8 +1,9 @@
 """Text frontend (L4): symbols, sequence encoding, per-language G2P dispatch.
 
-The port's own copy of `latent_diffusion_speech_tpu/text/` (without the BERT
-feature modules), so the port loads nothing of the JAX package; the data
-tables in `data/` are copies too.  `tests/test_torch_text.py` holds the two
+The port's own copy of `latent_diffusion_speech_tpu/text/` (the WordPiece
+tokenizer included; `text/bert.py` runs the port's own BERT encoder), so the
+port loads nothing of the JAX package; the data tables in `data/` are copies
+too.  `tests/test_torch_text.py` holds the two
 frontends to the same sequences.
 
 Parity surface with the reference `text/` package (`text/__init__.py:6-18`,

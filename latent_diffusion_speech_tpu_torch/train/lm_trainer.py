@@ -1,11 +1,15 @@
-"""RoFormer LM trainer on one device.
+"""LM trainer (RoFormer or Llama) on one device.
 
 Counterpart of `latent_diffusion_speech_tpu/train/lm_trainer.py` for one
-device and `type: roformer`, in f32 as the JAX entry point builds it (TF32 off
+device, `type: roformer` (encoder-decoder, `collate_text_batch` batches) or
+`type: llama` (one token stream, `collate_llama_batch` batches; dense or
+with the MoE feed-forward, whose auxiliary loss the Llama's `loss` adds),
+in f32 as the JAX entry point builds it (TF32 off
 for CUDA matmuls, process-wide, as in the diffusion trainer), or with
 `dtype=torch.bfloat16` in bf16 from f32 weights (flax's `dtype`):
-* the loss is `RoformerSystem.loss` (shifted CE, -100 ignored) with dropout
-  drawn from `step_generator(seed, step)`, the counterpart of
+* the loss is the system's `loss` (shifted CE, -100 ignored) with the
+  RoFormer's dropout drawn from `step_generator(seed, step)` (the Llama has
+  no dropout), the counterpart of
   `fold_in(PRNGKey(seed), step)`, so an interrupted and resumed run gives the
   same parameters as an uninterrupted one;
 * AdamW at the `warmup_step_decay` rate, after global-norm clipping only
@@ -14,18 +18,21 @@ for CUDA matmuls, process-wide, as in the diffusion trainer), or with
   mean of the calls' gradients (optax.MultiSteps; the accumulator rides in
   the checkpoint's optimizer state);
 * `train/mfu` beside the step rate when the card's peak is known
-  (`utils/flops.py`: the products `FlopCounterMode` counts; the LM's
-  training attention is the plain path, so it sees them all);
+  (`utils/flops.py`: the products `FlopCounterMode` counts; the LMs'
+  training attention is the plain path and the MoE experts are batched
+  products, so it sees them all);
 * a NaN guard every `nan_check_interval` steps, and the `Config.debug`
   switches (`train/debug.py`);
-* `evaluate` (val/loss, val/top5_acc), `validate_audio` through a frozen
+* `evaluate` (val/loss with the MoE auxiliary loss, val/top5_acc),
+  `validate_audio` (the Llama's phone prompt recovered up to `phone_eos`)
+  through a frozen
   serve pipeline with the current weights, checkpoint save / resume with the
   data-stream position in the meta sidecar (`train/checkpoint.py`, which
   `cli/infer_tts.py` reads back).
-The attention runs the plain path (the JAX RoFormer's `impl="xla"`): no
-Pallas kernel is on the JAX LM's training path.
+The attention runs the plain path (the JAX LMs' `impl="xla"`): no Pallas
+kernel is on the JAX LMs' training path.
 
-Raises for what is not ported (ROADMAP.md): `type: llama`, and any mesh axis
+Raises for what is not ported (ROADMAP.md Queue 1, item 10): any mesh axis
 (data, model, sequence, pipeline or expert parallelism).
 """
 
@@ -40,8 +47,9 @@ import numpy as np
 import torch
 
 from latent_diffusion_speech_tpu_torch.config import Config
-from latent_diffusion_speech_tpu_torch.models.lm.registry import roformer_config_from
-from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerConfig, RoformerSystem
+from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaSystem
+from latent_diffusion_speech_tpu_torch.models.lm.registry import llama_config_from, roformer_config_from
+from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerSystem
 from latent_diffusion_speech_tpu_torch.ops.layers import no_tf32, set_compute_dtype
 from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_step,
@@ -54,7 +62,7 @@ from latent_diffusion_speech_tpu_torch.train.optim import AdamWUpdates, step_gen
 from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
 from latent_diffusion_speech_tpu_torch.utils.flops import FlopsByShape, step_mfu
 
-__all__ = ["LMTrainer", "top_k_accuracy", "roformer_config_from"]
+__all__ = ["LMTrainer", "top_k_accuracy", "roformer_config_from", "llama_config_from"]
 
 
 def top_k_accuracy(logits: torch.Tensor, labels: torch.Tensor, k: int = 5) -> torch.Tensor:
@@ -87,15 +95,12 @@ def deterministic_algorithms():
 
 def _check_one_device(cfg: Config) -> None:
     par = cfg.parallel
-    if cfg.text2semantic.model.type != "roformer":
-        raise NotImplementedError(f"text2semantic model type {cfg.text2semantic.model.type!r}: only the RoFormer "
-                                  "trains in the port (the Llama LM: ROADMAP.md Queue 1, item 8)")
     axes = {"data": par.data, "model": par.model, "seq": par.seq, "pipe": par.pipe, "expert": par.expert,
             "dcn_data": par.dcn_data}
     spread = {k: v for k, v in axes.items() if v > 1}
     if spread:
-        raise NotImplementedError(f"parallel {spread}: the LM trainer runs on one device; mesh, sequence and "
-                                  "pipeline parallelism are not ported (ROADMAP.md)")
+        raise NotImplementedError(f"parallel {spread}: the LM trainer runs on one device; mesh, sequence, "
+                                  "pipeline and expert parallelism are not ported (ROADMAP.md Queue 1, item 10)")
 
 
 class LMTrainer(AdamWUpdates):
@@ -103,18 +108,25 @@ class LMTrainer(AdamWUpdates):
     # the other steps never wait for the card; a NaN raises within N steps
     nan_check_interval: int = 50
 
-    def __init__(self, cfg: Config, lm_cfg: Optional[RoformerConfig] = None, codebook=None,
+    def __init__(self, cfg: Config, lm_cfg=None, codebook=None,
                  dtype: torch.dtype = torch.float32, device=None):
-        """device: None means `cuda` (raises without a card).  codebook: the
-        k-means centroids that warm-start the semantic embeddings.  dtype:
-        the compute dtype (the weights stay f32)."""
+        """device: None means `cuda` (raises without a card).  lm_cfg: a
+        `RoformerConfig` or `LlamaConfig` (default: from `cfg`, by
+        `text2semantic.model.type`).  codebook: the k-means centroids that
+        warm-start the semantic embeddings.  dtype: the compute dtype (the
+        weights stay f32)."""
         _check_one_device(cfg)
         self.cfg = cfg
         tcfg = cfg.text2semantic.train
         self.lm_type = cfg.text2semantic.model.type
+        if self.lm_type == "llama":
+            self.lm_cfg, system = lm_cfg or llama_config_from(cfg), LlamaSystem
+        elif self.lm_type == "roformer":
+            self.lm_cfg, system = lm_cfg or roformer_config_from(cfg), RoformerSystem
+        else:
+            raise ValueError(f"unknown text2semantic model type: {self.lm_type!r}")
         no_tf32()  # f32 as the JAX entry point trains
-        self.lm_cfg = lm_cfg or roformer_config_from(cfg)
-        self.system = RoformerSystem(self.lm_cfg, device=device, seed=tcfg.seed, codebook=codebook, training=True)
+        self.system = system(self.lm_cfg, device=device, seed=tcfg.seed, codebook=codebook, training=True)
         self.device = self.system.device
         self.dtype = dtype
         set_compute_dtype(self.system.module, None if dtype == torch.float32 else dtype)
@@ -152,9 +164,14 @@ class LMTrainer(AdamWUpdates):
 
     @torch.no_grad()
     def evaluate(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
-        """Deterministic (no dropout) loss and top-5 accuracy of one batch."""
-        logits = self.system.logits(batch)
-        loss = self.system._ce(logits, batch["labels"])
+        """Deterministic (no dropout) loss and top-5 accuracy of one batch;
+        the Llama's loss includes the MoE auxiliary loss, as JAX's."""
+        if self.lm_type == "llama":
+            logits, aux = self.system.module(batch["input_ids"], batch.get("attention_mask"))
+            loss = self.system.loss_of(logits, aux, batch["labels"])
+        else:
+            logits = self.system.logits(batch)
+            loss = self.system._ce(logits, batch["labels"])
         acc = top_k_accuracy(logits[:, :-1], batch["labels"][:, 1:], k=5)
         return {"val/loss": float(loss), "val/top5_acc": float(acc)}
 
@@ -164,8 +181,23 @@ class LMTrainer(AdamWUpdates):
         frozen pipeline (`TTSPipeline`: its diffusion model and vocoder).
         The weights are copied into `pipe.lm` with `load_state_dict` (cast to
         its dtype): K1's packed-weight cache is keyed on the parameters'
-        version counters, which a write through `p.data` would not move."""
+        version counters, which a write through `p.data` would not move.
+        A Llama batch is one stream `[BOS, phones, EOS, semantic...]`: the
+        phone prompt is recovered up to the phone EOS and served with zero
+        tones and speaker 1 (the Llama conditions on neither)."""
         pipe.lm.module.load_state_dict(self.system.module.state_dict())
+        if self.lm_type == "llama":
+            ids = batch["input_ids"].cpu().numpy()
+            for i in range(min(n_items, ids.shape[0])):
+                eos_pos = int(np.argmax(ids[i] == self.lm_cfg.phone_eos))
+                if eos_pos <= 1:
+                    continue
+                phones = ids[i, 1:eos_pos]
+                wav, sr = pipe.tts_from_phones(phones, np.zeros_like(phones), spk_id=1, seed=seed + i,
+                                               method=method, infer_speedup=infer_speedup)
+                if logger is not None and wav.size:
+                    logger.log_audio(self.step, f"val/audio_{i}", wav, sr)
+            return
         mask = batch.get("encoder_attention_mask")
         phones = batch["phone"].cpu().numpy()
         tones = batch["tone"].cpu().numpy()
@@ -249,7 +281,7 @@ class LMTrainer(AdamWUpdates):
                             "train/loss": float(metrics["loss"]),
                             "train/grad_norm": float(metrics["grad_norm"]),
                             "train/steps_per_sec": steps_per_sec,
-                            "train/samples_per_sec": steps_per_sec * int(device_batch["phone"].shape[0]),
+                            "train/samples_per_sec": steps_per_sec * int(next(iter(device_batch.values())).shape[0]),
                         }
                         mfu = step_mfu(flops, steps_per_sec, self.device)
                         if mfu is not None:

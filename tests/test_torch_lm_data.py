@@ -216,8 +216,15 @@ def test_stages_15_and_16_write_jax_files(tmp_path):
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
                 assert np.asarray(x).dtype == np.asarray(y).dtype
-    with pytest.raises(NotImplementedError, match="BERT"):
-        list(process_tts(mine, mode="text", language="EN"))
+    # 'text' mode reaches the WordPiece tokenizer in both packages: without a
+    # vocab.txt both raise FileNotFoundError naming LDS_BERT_VOCAB
+    # (tests/test_torch_bert.py writes one and compares the files)
+    for fn, root in ((process_tts, mine), (j_process_tts, theirs)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.delenv("LDS_BERT_VOCAB", raising=False)
+            mp.chdir(tmp_path)
+            with pytest.raises(FileNotFoundError, match="LDS_BERT_VOCAB"):
+                list(fn(root, mode="text", language="EN"))
 
 
 def test_stage_mains_read_the_config(tmp_path):

@@ -364,7 +364,7 @@ def test_interrupted_lm_run_matches_uninterrupted(tmp_path):
 
 def test_what_is_not_ported_raises(tmp_path):
     for field, value, match in (("seq", 2, "parallel"), ("pipe", 2, "parallel"), ("data", 2, "parallel"),
-                                ("type", "llama", "Llama")):
+                                ("expert", 2, "expert")):
         cfg = _lm_config(tmp_path)
         target = {"type": cfg.text2semantic.model}
         setattr(target.get(field, cfg.parallel), field, value)

@@ -191,8 +191,28 @@ def test_roformer_logits_match_jax(hf_roformer, rng):
 
 
 def test_llama_importer_waits():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        import_hf.llama_params_from_torch({}, None)
+    """The Llama importer (it raised until the Llama was ported): a
+    reference-layout state dict (`chip_smoke.reference_llama_state`, with
+    and without the `llama.` prefix) gives JAX's tree bit for bit, and
+    `llama_state_from_torch` gives back the port state it was made from.
+    tests/test_torch_llama.py holds it to HF's LlamaForCausalLM."""
+    from chip_smoke import reference_llama_state
+    from latent_diffusion_speech_tpu.models.lm.llama import LlamaConfig as JLlamaConfig
+    from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaConfig, LlamaSystem
+
+    geom = dict(hidden_size=16, num_attention_heads=2, num_hidden_layers=2, intermediate_size=24,
+                semantic_kmeans_num=20)
+    cfg = LlamaConfig(**geom)
+    state = LlamaSystem(cfg, device="cpu", seed=3).module.state_dict()
+    for prefix in ("llama.", ""):
+        ref = reference_llama_state(state, prefix)
+        mine, theirs = import_hf.llama_params_from_torch(ref, cfg), j_import_hf.llama_params_from_torch(
+            ref, JLlamaConfig(**geom))
+        assert jax.tree_util.tree_structure(mine) == jax.tree_util.tree_structure(theirs)
+        assert all(np.array_equal(a, np.asarray(b)) for a, b in zip(jax.tree_util.tree_leaves(mine),
+                                                                    jax.tree_util.tree_leaves(theirs)))
+        back = import_hf.llama_state_from_torch(ref, cfg)
+        assert back.keys() == state.keys() and all(torch.equal(back[k], state[k]) for k in state)
 
 
 # -- the Unit2Mel importer ---------------------------------------------------------
@@ -529,10 +549,33 @@ def test_detect_kind_unknown_raises():
 
 @pytest.mark.parametrize("case,item", [("llama", "item 8"), ("bert", "item 6")])
 def test_waiting_kinds_raise_naming_their_item(case, item, tmp_path):
-    state = {k: torch.zeros(2) for k in FINGERPRINTS[case].get("model", FINGERPRINTS[case])}
+    """The kinds that waited for their modules (Queue 1 `item`) now verify,
+    with the JAX CLI's report: a Llama forward (geometry from the state
+    dict, `--heads 2`), BERT's leaf statistics (the layers its state holds)."""
+    from chip_smoke import reference_bert_state, reference_llama_state
+
+    if case == "llama":
+        from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaConfig, LlamaSystem
+
+        cfg = LlamaConfig(hidden_size=16, num_attention_heads=2, num_hidden_layers=3, intermediate_size=24,
+                          semantic_kmeans_num=20)
+        state = reference_llama_state(LlamaSystem(cfg, device="cpu", seed=1).module.state_dict())
+    else:
+        from latent_diffusion_speech_tpu_torch.models.bert import BertConfig, BertEncoderModel
+        from latent_diffusion_speech_tpu_torch.ops.layers import seeded
+
+        cfg = BertConfig(vocab_size=40, hidden_size=16, num_hidden_layers=3, num_attention_heads=2,
+                         intermediate_size=32, max_position_embeddings=24)
+        state = reference_bert_state(seeded(lambda: BertEncoderModel(cfg), 1).state_dict(), pre_ln=False)
     torch.save({"model": state}, tmp_path / "x.pt")
-    with pytest.raises(NotImplementedError, match=item):
-        verify_import.verify(_args(tmp_path / "x.pt", device="cpu"))
+    got = verify_import.verify(_args(tmp_path / "x.pt", heads=2, device="cpu"))
+    want = j_verify.verify(_args(tmp_path / "x.pt", heads=2))
+    assert got["kind"] == want["kind"] == case
+    for key in ("geometry", "torch_keys_read", "torch_keys_unused", "torch_elements", "imported_elements",
+                "output_shape", "output_finite"):
+        assert got.get(key) == want.get(key), key
+    for key in ("output_mean", "output_std"):
+        assert got[key] == pytest.approx(want[key], rel=1e-4, abs=1e-6), key
 
 
 def _encoder_state(kind, layers=24):

@@ -32,13 +32,15 @@ from latent_diffusion_speech_tpu.models.diffusion import unet1d_condition as j_u
 from latent_diffusion_speech_tpu.models import w2vbert as j_w2vbert
 from latent_diffusion_speech_tpu.models import wav2vec2 as j_wav2vec2
 from latent_diffusion_speech_tpu.models.diffusion import unit2mel as j_unit2mel
+from latent_diffusion_speech_tpu.models import bert as j_bert
+from latent_diffusion_speech_tpu.models.lm import llama as j_llama
 from latent_diffusion_speech_tpu.models.lm import roformer as j_roformer
 from latent_diffusion_speech_tpu.models.lm import sampling as j_sampling
 from latent_diffusion_speech_tpu.models.vaegan import config as j_vaegan_config
 from latent_diffusion_speech_tpu_torch import config
-from latent_diffusion_speech_tpu_torch.models import w2vbert, wav2vec2
+from latent_diffusion_speech_tpu_torch.models import bert, w2vbert, wav2vec2
 from latent_diffusion_speech_tpu_torch.models.diffusion import unet1d, unet1d_condition, unit2mel
-from latent_diffusion_speech_tpu_torch.models.lm import roformer, sampling
+from latent_diffusion_speech_tpu_torch.models.lm import llama, roformer, sampling
 from latent_diffusion_speech_tpu_torch.models.vaegan import config as vaegan_config
 
 PORT_DIR = Path(port.__file__).parent
@@ -102,8 +104,12 @@ def _default_systems():
 
     tiny = unit2mel.Unit2MelConfig(input_channel=8, n_spk=4, out_dims=4, n_hidden=8, block_out_channels=(8, 8),
                                    n_heads=2, timesteps=20, k_step=20)
+    from latent_diffusion_speech_tpu_torch.text.bert import NativeBertFeatures
+
     return {
         "RoformerSystem": lambda: roformer.RoformerSystem(roformer.RoformerConfig()),
+        "LlamaSystem": lambda: llama.LlamaSystem(llama.LlamaConfig(moe_experts=2)),
+        "NativeBertFeatures": lambda: NativeBertFeatures(cache_dir="no-such-dir"),
         "Unit2MelSystem": lambda: unit2mel.Unit2MelSystem(unit2mel.Unit2MelConfig()),
         "Vocoder": lambda: Vocoder("hifi-vaegan"),
         "HifiVAEGAN": lambda: HifiVAEGAN.random_init(),
@@ -138,8 +144,9 @@ CLIS = {
 }
 
 
-@pytest.mark.parametrize("name", ["RoformerSystem", "Unit2MelSystem", "Vocoder", "HifiVAEGAN", "EuclideanCodebook",
-                                  "DiffusionTrainer", "LMTrainer", "CodecTrainer", "build_pipeline", "load_native_pipeline",
+@pytest.mark.parametrize("name", ["RoformerSystem", "LlamaSystem", "NativeBertFeatures", "Unit2MelSystem", "Vocoder",
+                                  "HifiVAEGAN", "EuclideanCodebook", "DiffusionTrainer", "LMTrainer", "CodecTrainer",
+                                  "build_pipeline", "load_native_pipeline",
                                   "load_reference_pipeline", "UnitsEncoder", "WhisperLargeV3Units",
                                   "HubertSoftUnits", "XLSRUnits", "Wav2Vec2BertUnits", *CLIS])
 def test_entry_points_default_to_the_card(name):
@@ -183,6 +190,8 @@ def _fields(cls):
 
 PAIRS = {
     "StackConfig": (roformer.StackConfig, j_roformer.StackConfig),
+    "LlamaConfig": (llama.LlamaConfig, j_llama.LlamaConfig),
+    "BertConfig": (bert.BertConfig, j_bert.BertConfig),
     "RoformerConfig": (roformer.RoformerConfig, j_roformer.RoformerConfig),
     "SamplingConfig": (sampling.SamplingConfig, j_sampling.SamplingConfig),
     "UNet1DConfig": (unet1d.UNet1DConfig, j_unet1d.UNet1DConfig),
@@ -215,6 +224,7 @@ def test_load_config_matches_jax():
 DTYPE_DEFAULTS = {
     ("models.diffusion.unit2mel", "Unit2MelSystem.__init__", "dtype"),
     ("models.lm.roformer", "RoformerSystem.__init__", "dtype"),
+    ("models.lm.llama", "LlamaSystem.__init__", "dtype"),
     ("models.units", "WhisperLargeV3Units.__init__", "dtype"),
     ("models.units", "HubertSoftUnits.__init__", "dtype"),
     ("models.units", "XLSRUnits.__init__", "dtype"),

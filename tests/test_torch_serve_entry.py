@@ -137,10 +137,19 @@ def test_roformer_config_from_matches_jax():
 
 
 def test_llama_raises():
-    cfg = config.Config()
-    cfg.text2semantic.model.type = "llama"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        get_language_model(cfg, device="cpu")
+    """`type: llama` builds the port's LlamaSystem (it raised until the
+    Llama was ported) at the JAX mapping's geometry."""
+    from latent_diffusion_speech_tpu.train.lm_trainer import llama_config_from as j_llama_config_from
+    from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaSystem
+
+    cfg, j_cfg = config.load_config(CONFIG), j_config.load_config(CONFIG)
+    for c in (cfg, j_cfg):
+        c.text2semantic.model.type = "llama"
+        c.text2semantic.model.decoder.hidden_size = 32
+        c.text2semantic.model.moe_experts = 2
+    lm = get_language_model(cfg, device="cpu")
+    assert isinstance(lm, LlamaSystem) and not lm.module.training
+    assert dataclasses.asdict(lm.cfg) == dataclasses.asdict(j_llama_config_from(j_cfg))
 
 
 # -- tts_long_text ------------------------------------------------------------
@@ -373,11 +382,20 @@ def test_weight_quant_int8_raises(cli):
         cli.main(args)
 
 
-def test_llama_config_raises_in_build_pipeline(tmp_path):
+def test_llama_config_raises_in_build_pipeline(tmp_path, tiny_vocoder):
+    """A `type: llama` config builds a Llama pipeline (it raised until the
+    Llama was ported): `tts` serves; `tts_batch` raises, as the JAX
+    pipeline's does (ROADMAP R11)."""
+    from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaSystem
+
     cfg = _tiny(config.load_config(CONFIG), tmp_path)
     cfg.text2semantic.model.type = "llama"
-    with pytest.raises(NotImplementedError, match="Llama"):
-        build_pipeline(cfg, device="cpu")
+    pipe = build_pipeline(cfg, dtype=torch.float32, device="cpu")
+    assert isinstance(pipe.lm, LlamaSystem)
+    wav, sr = pipe.tts(TEXT, language="EN", max_length=16, infer_speedup=100)
+    assert sr == VAEGAN["sampling_rate"] and np.isfinite(wav).all()
+    with pytest.raises(TypeError, match="Llama LM has no batched decode"):
+        pipe.tts_batch([TEXT], language="EN", max_length=16)
 
 
 def test_lm_checkpoint_raises_in_build_pipeline(tmp_path):
