@@ -9,7 +9,9 @@ with nvcc (sm_90a), then:
    shapes the serve path gives it (K4 attention_fwd at the four UNet
    resolutions at B=1 and B=4 and T=1024; K5 flash_attention at the four UNet resolutions
    at B=1 and B=4 and T=1024, and at the JAX kernel's contract shapes,
-   causal with Tq != Tkv included; K1 ar_decode at the flagship decoder
+   causal with Tq != Tkv included; both also at head dim 8, the general
+   denoiser's block zoo's, with H = 32-64 at the four resolutions at B=1
+   and B=4; K1 ar_decode at the flagship decoder
    width, B in {1, 4}, N=430 (f32 greedy also with the end gate; bf16
    logits also at N=1024), and at the HTTP server's batch sizes B in
    {2, 8}, N=1024, over 64 encoder rows (bf16 logits and sampled tokens),
@@ -48,7 +50,12 @@ with nvcc (sm_90a), then:
    per-stage wall times;
 5. checks the 20-step diffusion + vocoder against the same run with the
    plain attention, in f32, on a short input, for the flagship with K4 and
-   for the general denoiser with K5, and the fused configuration's
+   for the general denoiser with K5; `zoo`: the general denoiser's block
+   zoo, four configurations at the shipped widths that between them reach
+   every block type (attention heads of dim 8), each one bf16 `tts` and
+   one `tts_batch` of 4 through K5 and one `tts` through K4, the launches
+   equal to the attention modules x 20 evaluations, no plain route, and in
+   f32 against the plain attention; then the fused configuration's
    diffusion trajectory against the eager one from the same x_init
    (DPM-Solver++ in bf16 and f32, UniPC in bf16);
 6. holds the training kernels against their plain versions at the shapes
@@ -243,6 +250,25 @@ K4_SHAPES += [(b, t, d) for b in (1, 2, 8) for t, d in ((1024, 32), (512, 48), (
 # attention with Tq != Tkv (top-left aligned) both ways
 K5_SHAPES = [(b, t, t, d, False) for b in (1, 4) for t, d in ((448, 32), (224, 48), (112, 64), (56, 64), (1024, 32))]
 K5_SHAPES += [(1, 100, 260, 64, False), (1, 96, 96, 32, True), (2, 70, 200, 64, True), (2, 200, 70, 48, True)]
+# K4 and K5 at head dim 8, the block zoo's (below): (B, T, H) of its
+# attention in a 448-frame bucket at B=1 (tts) and B=4 (tts_batch), H the
+# level's width over 8
+D8_SHAPES = [(b, t, h) for b in (1, 4) for t, h in ((448, 32), (224, 48), (112, 64), (56, 64))]
+# the general denoiser's block zoo: four configurations that between them
+# reach every down and up block type and the three mid blocks, served at the
+# shipped widths; (down_block_types, up_block_types, mid_block_type)
+ZOO = {
+    "zoo_attn": (("ResnetDownsampleBlock2D", "AttnDownBlock2D", "SimpleCrossAttnDownBlock2D", "DownBlock2D"),
+                 ("UpBlock2D", "SimpleCrossAttnUpBlock2D", "AttnUpBlock2D", "ResnetUpsampleBlock2D"),
+                 "UNetMidBlock2DSimpleCrossAttn"),
+    "zoo_skip": (("AttnSkipDownBlock2D", "SkipDownBlock2D", "AttnSkipDownBlock2D", "SkipDownBlock2D"),
+                 ("SkipUpBlock2D", "AttnSkipUpBlock2D", "SkipUpBlock2D", "AttnSkipUpBlock2D"), "UNetMidBlock2D"),
+    "zoo_encdec": (("DownEncoderBlock2D", "AttnDownEncoderBlock2D", "DownEncoderBlock2D", "AttnDownEncoderBlock2D"),
+                   ("AttnUpDecoderBlock2D", "UpDecoderBlock2D", "AttnUpDecoderBlock2D", "UpDecoderBlock2D"),
+                   "UNetMidBlock2D"),
+    "zoo_k": (("KDownBlock2D", "KCrossAttnDownBlock2D", "KCrossAttnDownBlock2D", "KCrossAttnDownBlock2D"),
+              ("KCrossAttnUpBlock2D",) * 3 + ("KUpBlock2D",), None),
+}
 # fused UNet buckets: the smallest, the 430-token one, max_length=1024
 UNET_T = (64, 448, 1024)
 # K4 shapes on the training path: (T, D) at H=8, B=48 for the four UNet
@@ -360,8 +386,8 @@ def turns_line(t: dict) -> str:
                      for name, v in t.items())
 
 
-def k4_bf16_row(k4, gen, dev, B: int, T: int, D: int) -> dict:
-    """K4 forward at (B, T, H=8, D): f32 against the plain version (atol
+def k4_bf16_row(k4, gen, dev, B: int, T: int, D: int, H: int = 8) -> dict:
+    """K4 forward at (B, T, H, D): f32 against the plain version (atol
     2e-5, LSE 1e-4); bf16 (the tensor-core kernel) against the f32 plain
     version on the same bf16-rounded inputs at atol/rtol 3e-2, its LSE
     within 1e-4 of the plain version's on the same bf16 inputs, and at most
@@ -374,7 +400,7 @@ def k4_bf16_row(k4, gen, dev, B: int, T: int, D: int) -> dict:
     import torch
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q, k, v = (torch.randn((B, T, 8, D), generator=gen, device=dev) for _ in range(3))
+    q, k, v = (torch.randn((B, T, H, D), generator=gen, device=dev) for _ in range(3))
     # f32: the kernel's arithmetic against the plain version
     out, lse = k4.fused_attention_with_lse(q, k, v)
     ref, ref_lse = k4.fused_attention_plain(q, k, v)
@@ -405,20 +431,20 @@ def k4_bf16_row(k4, gen, dev, B: int, T: int, D: int) -> dict:
                   "new": lambda: k4.fused_attention(qb, kb, vb),
                   "sdpa": lambda: sdpa(qs, ks, vs)})
     plain_ms = cuda_time_ms(lambda: k4.fused_attention_plain(qb, kb, vb), iters=50)
-    bound_ms, bound_by = bound(B * (4 * T * 8 * D * 2 + 8 * T * 4), 4 * B * T * T * 8 * D)
-    print(f"K4 attention_fwd B={B} T={T} H=8 D={D}: f32 err {e32:.2e} lse err {lse_err:.2e}; "
+    bound_ms, bound_by = bound(B * (4 * T * H * D * 2 + H * T * 4), 4 * B * T * T * H * D)
+    print(f"K4 attention_fwd B={B} T={T} H={H} D={D}: f32 err {e32:.2e} lse err {lse_err:.2e}; "
           f"bf16 vs f32 plain max err {err.max().item():.3e}, lse err {lse_b:.2e}, outputs differing from "
           f"the plain version {share:.3%} (SIMT kernel {share_simt:.3%}); back-to-back / device: "
           f"{turns_line(t)}; plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by})")
-    return dict(B=B, T=T, D=D, ms=t["new"]["b2b"], device_ms=t["new"]["device"],
+    return dict(B=B, T=T, H=H, D=D, ms=t["new"]["b2b"], device_ms=t["new"]["device"],
                 simt_ms=t["simt"]["b2b"], simt_device_ms=t["simt"]["device"],
                 library_ms=t["sdpa"]["b2b"], library_device_ms=t["sdpa"]["device"],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err.max().item())
 
 
 def check_k4(dev) -> dict:
-    """K4 forward at every K4_SHAPES entry (`k4_bf16_row`), and the host
-    time a call beside SDPA's."""
+    """K4 forward at every K4_SHAPES entry and, at head dim 8, every
+    D8_SHAPES entry (`k4_bf16_row`), and the host time a call beside SDPA's."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
@@ -426,6 +452,8 @@ def check_k4(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = [k4_bf16_row(k4, gen, dev, B, T, D) for B, T, D in K4_SHAPES]
+    d8 = [k4_bf16_row(k4, gen, dev, B, T, 8, H) for B, T, H in D8_SHAPES]
+    rows += d8
     worst = max(r["max_abs_err"] for r in rows)
     # host time a call at B=1, T=56 (D=64), beside SDPA's
     q, k, v = (torch.randn((1, 56, 8, 64), generator=gen, device=dev).bfloat16() for _ in range(3))
@@ -435,8 +463,14 @@ def check_k4(dev) -> dict:
     print(f"K4 host time a call at B=1 T=56 D=64: fused_attention {host:.2f} us, "
           f"F.scaled_dot_product_attention {host_sdpa:.2f} us")
     main = rows[0]  # B=1, T=448, D=32: the tts path's largest call
-    return dict(max_abs_err=worst, rows=rows, host_us=host, library_host_us=host_sdpa, **{k: main[k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "library_device_ms", "simt_device_ms")})
+    return dict(max_abs_err=worst, rows=rows, host_us=host, library_host_us=host_sdpa, **main_keys(main),
+                **{"d8_" + k: v for k, v in main_keys(d8[0]).items()})  # B=1, T=448, H=32, D=8: the zoo's largest
+
+
+def main_keys(row: dict) -> dict:
+    """The kernels line's numbers of one timed row."""
+    return {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
+                                "library_device_ms", "simt_device_ms")}
 
 
 def k5_pairs(Tq: int, Tkv: int, causal: bool) -> int:
@@ -445,8 +479,8 @@ def k5_pairs(Tq: int, Tkv: int, causal: bool) -> int:
     return sum(min(r + 1, Tkv) for r in range(Tq)) if causal else Tq * Tkv
 
 
-def check_k5(dev) -> dict:
-    """K5 against its plain version at every K5_SHAPES entry, q/k/v strided
+def k5_row(k5, gen, dev, B: int, Tq: int, Tkv: int, H: int, D: int, causal: bool) -> dict:
+    """K5 against its plain version at (B, Tq / Tkv, H, D), q/k/v strided
     views as the UNet hands them over: f32 at atol 2e-5 (the JAX contract,
     tests/test_pallas.py); bf16 (the tensor-core kernel) against the plain
     version on the same bf16 inputs (the same f32 arithmetic, rounded once
@@ -456,49 +490,57 @@ def check_k5(dev) -> dict:
     (its is_causal is top-left aligned too; the port never calls it), back
     to back and in a CUDA graph, in turns, and the plain version, beside the
     bound: q, k, v read and out written once, 2 * 2 * D operations per
-    scored (query, key) pair and head."""
+    scored (query, key) pair and head.  Prints one line; returns its row."""
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = torch.randn((B, Tq, 3 * H * D), generator=gen, device=dev)[..., : H * D].reshape(B, Tq, H, D)
+    kv = torch.randn((B, Tkv, 2 * H * D), generator=gen, device=dev)
+    k, v = (x.reshape(B, Tkv, H, D) for x in kv.chunk(2, dim=-1))
+    out = k5.flash_attention(q, k, v, is_causal=causal)
+    ref = k5.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    e32 = (out - ref).abs().max().item()
+    shape = f"B={B} Tq={Tq} Tkv={Tkv} H={H} D={D} causal={causal}"
+    if not bool(torch.isfinite(out).all()) or e32 > 2e-5:
+        raise AssertionError(f"K5 f32 {shape}: max err {e32} (atol 2e-5)")
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    outb = k5.flash_attention(qb, kb, vb, is_causal=causal)
+    refb = k5.flash_attention_plain(qb, kb, vb, causal)
+    simtb = k5.flash_attention_simt(qb, kb, vb, is_causal=causal)
+    torch.cuda.synchronize()
+    eb, scale = (outb.float() - refb.float()).abs().max().item(), refb.float().abs().max().item()
+    share, share_simt = differing(outb, refb), differing(simtb, refb)
+    if outb.dtype != torch.bfloat16 or not bool(torch.isfinite(outb).all()) or eb > 1e-2 * scale or share > 0.02:
+        raise AssertionError(f"K5 bf16 {shape}: max err {eb} (limit 1e-2 of scale {scale}), {share:.2%} of outputs "
+                             "differ (limit 2%)")
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (qb, kb, vb))
+    t = in_turns({"simt": lambda: k5.flash_attention_simt(qb, kb, vb, is_causal=causal),
+                  "new": lambda: k5.flash_attention(qb, kb, vb, is_causal=causal),
+                  "sdpa": lambda: sdpa(qs, ks, vs, is_causal=causal)})
+    plain_ms = cuda_time_ms(lambda: k5.flash_attention_plain(qb, kb, vb, causal), iters=20)
+    bound_ms, bound_by = bound(2 * H * D * (2 * B * Tq + 2 * B * Tkv), 4 * B * H * D * k5_pairs(Tq, Tkv, causal))
+    print(f"K5 flash_attention {shape}: f32 err {e32:.2e}; bf16 err {eb:.2e} (scale {scale:.3f}), outputs differing "
+          f"from the plain version {share:.3%} (SIMT kernel {share_simt:.3%}); back-to-back / device: "
+          f"{turns_line(t)}; plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    return dict(B=B, Tq=Tq, Tkv=Tkv, H=H, D=D, causal=causal, ms=t["new"]["b2b"], device_ms=t["new"]["device"],
+                simt_ms=t["simt"]["b2b"], simt_device_ms=t["simt"]["device"],
+                library_ms=t["sdpa"]["b2b"], library_device_ms=t["sdpa"]["device"],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=eb)
+
+
+def check_k5(dev) -> dict:
+    """K5 (`k5_row`) at every K5_SHAPES entry (H=8) and, at head dim 8,
+    every D8_SHAPES entry, and the host time a call beside SDPA's."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.ops.kernels import flash_attention as k5
 
     gen = torch.Generator(device=dev).manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows, worst = [], 0.0
-    for B, Tq, Tkv, D, causal in K5_SHAPES:
-        q = torch.randn((B, Tq, 3 * 8 * D), generator=gen, device=dev)[..., : 8 * D].reshape(B, Tq, 8, D)
-        kv = torch.randn((B, Tkv, 2 * 8 * D), generator=gen, device=dev)
-        k, v = (x.reshape(B, Tkv, 8, D) for x in kv.chunk(2, dim=-1))
-        out = k5.flash_attention(q, k, v, is_causal=causal)
-        ref = k5.flash_attention_plain(q, k, v, causal)
-        torch.cuda.synchronize()
-        e32 = (out - ref).abs().max().item()
-        if not bool(torch.isfinite(out).all()) or e32 > 2e-5:
-            raise AssertionError(f"K5 f32 B={B} Tq={Tq} Tkv={Tkv} D={D} causal={causal}: max err {e32} (atol 2e-5)")
-        qb, kb, vb = (x.bfloat16() for x in (q, k, v))
-        outb = k5.flash_attention(qb, kb, vb, is_causal=causal)
-        refb = k5.flash_attention_plain(qb, kb, vb, causal)
-        simtb = k5.flash_attention_simt(qb, kb, vb, is_causal=causal)
-        torch.cuda.synchronize()
-        eb, scale = (outb.float() - refb.float()).abs().max().item(), refb.float().abs().max().item()
-        share, share_simt = differing(outb, refb), differing(simtb, refb)
-        if outb.dtype != torch.bfloat16 or not bool(torch.isfinite(outb).all()) or eb > 1e-2 * scale or share > 0.02:
-            raise AssertionError(f"K5 bf16 B={B} Tq={Tq} Tkv={Tkv} D={D} causal={causal}: max err {eb} "
-                                 f"(limit 1e-2 of scale {scale}), {share:.2%} of outputs differ (limit 2%)")
-        worst = max(worst, eb)
-        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (qb, kb, vb))
-        t = in_turns({"simt": lambda: k5.flash_attention_simt(qb, kb, vb, is_causal=causal),
-                      "new": lambda: k5.flash_attention(qb, kb, vb, is_causal=causal),
-                      "sdpa": lambda: sdpa(qs, ks, vs, is_causal=causal)})
-        plain_ms = cuda_time_ms(lambda: k5.flash_attention_plain(qb, kb, vb, causal), iters=20)
-        bound_ms, bound_by = bound(2 * 8 * D * (2 * B * Tq + 2 * B * Tkv), 4 * B * 8 * D * k5_pairs(Tq, Tkv, causal))
-        rows.append(dict(B=B, Tq=Tq, Tkv=Tkv, D=D, causal=causal, ms=t["new"]["b2b"], device_ms=t["new"]["device"],
-                         simt_ms=t["simt"]["b2b"], simt_device_ms=t["simt"]["device"],
-                         library_ms=t["sdpa"]["b2b"], library_device_ms=t["sdpa"]["device"],
-                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
-        print(f"K5 flash_attention B={B} Tq={Tq} Tkv={Tkv} H=8 D={D} causal={causal}: f32 err {e32:.2e}; bf16 err "
-              f"{eb:.2e} (scale {scale:.3f}), outputs differing from the plain version {share:.3%} (SIMT kernel "
-              f"{share_simt:.3%}); back-to-back / device: {turns_line(t)}; plain {plain_ms * 1e3:.1f} us; "
-              f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    rows = [k5_row(k5, gen, dev, B, Tq, Tkv, 8, D, causal) for B, Tq, Tkv, D, causal in K5_SHAPES]
+    d8 = [k5_row(k5, gen, dev, B, T, T, H, 8, False) for B, T, H in D8_SHAPES]
+    rows += d8
     q, k, v = (torch.randn((1, 56, 8, 64), generator=gen, device=dev).bfloat16() for _ in range(3))
     qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     with torch.no_grad():
@@ -507,8 +549,8 @@ def check_k5(dev) -> dict:
     print(f"K5 host time a call at B=1 T=56 D=64: flash_attention {host:.2f} us, "
           f"F.scaled_dot_product_attention {host_sdpa:.2f} us")
     main = rows[0]  # B=1, T=448, D=32: the tts path's largest call
-    return dict(max_abs_err=worst, rows=rows, host_us=host, library_host_us=host_sdpa, **{k: main[k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "library_device_ms", "simt_device_ms")})
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows), rows=rows, host_us=host, library_host_us=host_sdpa,
+                **main_keys(main), **{"d8_" + k: v for k, v in main_keys(d8[0]).items()})
 
 
 def hmma_counts(so_path: str) -> dict:
@@ -1214,6 +1256,110 @@ def check_general_against_plain(dev):
         raise AssertionError(f"general f32 wav K5 vs plain attention: max err {err} (scale {scale})")
     print(f"general denoiser f32 (50 tokens, 20 steps + vocoder) with K5 vs plain attention: max wav err {err:.2e} "
           f"(scale {scale:.2e})")
+
+
+def zoo_attention_modules(module) -> int:
+    """The attention modules of a built Unit2Mel: each runs one attention
+    call a denoiser forward."""
+    from latent_diffusion_speech_tpu_torch.models.diffusion import blocks as bl
+
+    return sum(isinstance(m, (bl.CrossAttention1D, bl.AttnBlock1D, bl.AddedKVAttention1D)) for m in module.modules())
+
+
+def zoo(dev, card: str) -> dict:
+    """The general denoiser's block zoo on the serve path, each ZOO
+    configuration at the shipped widths ((256, 384, 512, 512), 2 layers, 8
+    heads: attention heads of dim 8) with seeded weights, behind the serve
+    pipeline's LM, codebook and vocoder: in bf16, with attn_impl="pallas",
+    one `tts` (after a warm-up) and one `tts_batch` of 4, and with
+    attn_impl="fused" one `tts`; K5 (K4) launches equal to the model's
+    attention modules x 20 evaluations a diffusion call, no call routed to
+    the plain attention, no other attention kernel; finite waveforms of the
+    right length; per-stage wall times.  Then each in f32 on 50 tokens: the
+    20-step diffusion + vocoder with K5 against the same run with K5's plain
+    version, under check_general_against_plain's bound.  Returns the K5 and
+    K4 launches."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
+    from latent_diffusion_speech_tpu_torch.ops import attention
+    from latent_diffusion_speech_tpu_torch.ops.kernels import flash_attention as k5
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+
+    t_phase = time.perf_counter()
+    pipe = build_pipeline(dev, torch.bfloat16)
+    hop = pipe.vocoder.vocoder_hop_size
+    launches = {"flash_attention": 0, "attention_fwd": 0}
+    for name, (down, up, mid) in ZOO.items():
+        blocks = dict(denoiser="general", down_block_types=down, up_block_types=up, mid_block_type=mid)
+        stages: dict = {}
+        runs = {}
+        for impl in ("pallas", "fused"):
+            pipe.diffusion = Unit2MelSystem(Unit2MelConfig(attn_impl=impl, **blocks), dtype=torch.bfloat16, device=dev,
+                                            seed=0)
+            n_attn = zoo_attention_modules(pipe.diffusion.module)
+            pipe.diffusion.infer = timed(stages, f"{impl}_diffusion", pipe.diffusion.infer)
+            pipe.tts(TEXT, language="EN", max_length=N_TOKENS)  # warm-up
+            k5.launches = k5.plain_routes = k4.launches = 0
+            calls, d0 = stages[f"{impl}_diffusion_calls"], stages[f"{impl}_diffusion"]
+            t0 = time.perf_counter()
+            wav, sr = pipe.tts(TEXT, language="EN", max_length=N_TOKENS)
+            runs[impl] = time.perf_counter() - t0
+            if impl == "pallas":
+                t0 = time.perf_counter()
+                outs = pipe.tts_batch(BATCH_TEXTS, language="EN", spk_ids=[1, 2, 3, 4], max_length=N_TOKENS)
+                runs["batch"] = time.perf_counter() - t0
+            else:
+                outs = []
+            n_inf = stages[f"{impl}_diffusion_calls"] - calls
+            want = {"flash_attention": 20 * n_attn * n_inf if impl == "pallas" else 0,
+                    "attention_fwd": 20 * n_attn if impl == "fused" else 0, "plain_routes": 0}
+            got = {"flash_attention": k5.launches, "attention_fwd": k4.launches, "plain_routes": k5.plain_routes}
+            if got != want:
+                raise AssertionError(f"zoo {name} attn_impl={impl}: launches {got}, want {want} ({n_attn} attention "
+                                     f"modules x 20 evaluations x {n_inf} diffusion calls)")
+            for w, rate in [(wav, sr)] + list(outs):
+                if rate != 44100 or w.ndim != 1 or len(w) == 0 or len(w) % hop or not np.isfinite(w).all():
+                    raise AssertionError(f"zoo {name} attn_impl={impl}: bad output: sr {rate}, shape {w.shape}")
+            launches["flash_attention"] += k5.launches
+            launches["attention_fwd"] += k4.launches
+            print(f"zoo {name} attn_impl={impl}: {n_attn} attention modules (heads of dim 8); tts "
+                  f"{len(wav) / sr:.3f} s of audio in {runs[impl]:.3f} s" + (f", tts_batch x4 in {runs['batch']:.3f} s" if outs else "")
+                  + f"; 20-step diffusion {n_inf} calls {stages[f'{impl}_diffusion'] - d0:.4f} s; launches {got} "
+                  f"[{card}]")
+        del pipe.diffusion
+        torch.cuda.empty_cache()
+    # f32, 50 tokens: K5 against its plain version through diffusion + vocoder
+    pipe = build_pipeline(dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    units = pipe.semantic_to_units(np.arange(50) * 7 % 4096)
+    x_init = torch.randn((1, 64, 128), generator=gen, device=dev)
+    for name, (down, up, mid) in ZOO.items():
+        pipe.diffusion = Unit2MelSystem(Unit2MelConfig(attn_impl="pallas", denoiser="general", down_block_types=down,
+                                                       up_block_types=up, mid_block_type=mid),
+                                        dtype=torch.float32, device=dev, seed=0)
+        n_attn = zoo_attention_modules(pipe.diffusion.module)
+        before = k5.launches
+        got = pipe.infer(units, spk_id=2, x_init=x_init)
+        if k5.launches - before != 20 * n_attn:
+            raise AssertionError(f"zoo {name} f32 infer: {k5.launches - before} K5 launches, want {20 * n_attn}")
+        launches["flash_attention"] += k5.launches - before
+        attention.flash_attention = lambda q, k, v, bias=None, mask=None, is_causal=False, scale=None: (
+            k5.flash_attention_plain(q, k, v, is_causal, scale))
+        try:
+            ref = pipe.infer(units, spk_id=2, x_init=x_init)
+        finally:
+            attention.flash_attention = k5.flash_attention
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        within = bool(((got - ref).abs() <= 2e-3 * scale + 2e-3 * ref.abs()).all())
+        if not bool(torch.isfinite(got).all()) or not within:
+            raise AssertionError(f"zoo {name} f32 wav K5 vs plain attention: max err {err} (scale {scale})")
+        print(f"zoo {name} f32 (50 tokens, 20 steps + vocoder) with K5 vs plain attention: max wav err {err:.2e} "
+              f"(scale {scale:.2e})")
+    del pipe
+    torch.cuda.empty_cache()
+    print(f"zoo phase: {time.perf_counter() - t_phase:.1f} s; launches {launches} [{card}]")
+    return launches
 
 
 def check_trajectory(dev):
@@ -4739,6 +4885,9 @@ def main() -> int:
     del eager, flagship_k5
     check_slice_against_plain(dev)
     check_general_against_plain(dev)
+    zoo_launches = zoo(dev, card)
+    launches["flash_attention"] += zoo_launches["flash_attention"]
+    launches["attention_fwd"] += zoo_launches["attention_fwd"]
     check_trajectory(dev)
     torch.cuda.empty_cache()
     entry = serve_entry(dev, card)
@@ -4796,7 +4945,8 @@ def main() -> int:
              launches=launches["attention_fwd"], max_abs_err=k4["max_abs_err"],
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],
              library_ms=k4["library_ms"], device_ms=k4["device_ms"], library_device_ms=k4["library_device_ms"],
-             simt_device_ms=k4["simt_device_ms"], host_us=k4["host_us"]),
+             simt_device_ms=k4["simt_device_ms"], host_us=k4["host_us"],
+             **{k: v for k, v in k4.items() if k.startswith("d8_")}),
         dict(name="unet_fwd", route="cuda", source=src + "unet_fwd.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/unet1d_fused.py:712 + "
                       "latent_diffusion_speech_tpu/ops/pallas/unet1d_stream.py:519",
@@ -4815,7 +4965,8 @@ def main() -> int:
              launches=launches["flash_attention"], max_abs_err=k5["max_abs_err"],
              ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
              library_ms=k5["library_ms"], device_ms=k5["device_ms"], library_device_ms=k5["library_device_ms"],
-             simt_device_ms=k5["simt_device_ms"], host_us=k5["host_us"]),
+             simt_device_ms=k5["simt_device_ms"], host_us=k5["host_us"],
+             **{k: v for k, v in k5.items() if k.startswith("d8_")}),
         dict(name="kmeans_argmin", route="cuda", source=src + "kmeans_argmin.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/kmeans.py:54",
              launches=train["launches"]["kmeans_argmin"] + train["options"]["kmeans_argmin"]

@@ -75,8 +75,14 @@ def unit2mel_from_jax(params: Mapping) -> dict:
     general denoiser's `unet.down_blocks_0.resnets_0...` /
     `unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1.to_q` /
     `unet.down_blocks_0.downsamplers_0.conv` tree (`UNet1DCondition` with
-    the block types of `Unit2MelConfig.general_unet_config`).  The port's
-    `Unit2Mel` must be built with the same `denoiser`."""
+    any block types of `Unit2MelConfig.general_unet_config`: the zoo's
+    leaves, such as `attentions_0.add_k_proj`, `norm_cross`, `group_norm`,
+    `transformers_1`, `resnet_down`, `skip_conv`, `skip_norm`, the
+    AdaGroupNorms' `linear`, and the conditioning's `time_proj.weight`,
+    `class_embedding`, `add_embedding`, `encoder_hid_proj` and
+    `time_embedding.cond_proj`, are all ordinary Dense, conv, norm or
+    embedding leaves: none is transposed).  The port's `Unit2Mel` must be
+    built with the same `denoiser`."""
     return _convert(params)
 
 

@@ -12,7 +12,8 @@
 // Two kernels, one per entry:
 //
 // attention_fwd_bf16 (tensor cores; the serve path's).  What bounds it on
-// this card: at the UNet's shapes (T = 56..448, D = 32..64, H = 8, B = 1..4)
+// this card: at the UNet's shapes (T = 56..448, D = 32..64, H = 8, B = 1..4;
+// the general denoiser's block zoo: D = 8, H = 32..64)
 // a call moves well under 1 MB and does 0.01-0.3 GFLOP (three T x T x D
 // products per head: q.k twice, p.v once), so it is bound by latency (a
 // warp's serial walk over the keys) and, back to back, by the host's
@@ -133,6 +134,7 @@ int launch_simt(const Args& a) {
       static_cast<T*>(a.out), a.lse, a.H, a.T, a.sqb, a.sqt, a.sqh, a.skb, a.skt, a.skh,      \
       a.svb, a.svt, a.svh, a.scale)
   switch (a.D) {
+    case 8: LAUNCH_D(8); break;
     case 32: LAUNCH_D(32); break;
     case 48: LAUNCH_D(48); break;
     case 64: LAUNCH_D(64); break;
@@ -152,6 +154,7 @@ int launch_mma(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.out), a.lse, a.H, \
       a.T, a.sqb, a.sqt, a.sqh, a.skb, a.skt, a.skh, a.svb, a.svt, a.svh, a.scale)
   switch (a.D) {
+    case 8: LAUNCH_D(8); break;
     case 32: LAUNCH_D(32); break;
     case 48: LAUNCH_D(48); break;
     case 64: LAUNCH_D(64); break;

@@ -15,7 +15,7 @@
 // p @ v) and accumulates p * v in f32; the four partial outputs of a row
 // are summed through shared memory.  Inputs are read through (b, t, h)
 // strides, so q/k/v may be views of a fused projection; D is a template
-// parameter (32, 48 or 64).  The caller passes `smem`, at least
+// parameter (8, 32, 48 or 64).  The caller passes `smem`, at least
 // attention_smem_floats(D) floats, and all NT threads of the block call the
 // routine together (it synchronises the block).
 
@@ -98,6 +98,7 @@ __device__ __forceinline__ void attention_tile(
     long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh,
     float scale, int bh, int q_tile, float* smem) {
+  static_assert((KS - 1) * D * BQ <= 2 * BK * (D + 1), "the reduction must fit in the K/V tiles");
   float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem);
   float (*vs)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem + BK * (D + 1));
   float (*m_part)[BQ] = reinterpret_cast<float (*)[BQ]>(smem + 2 * BK * (D + 1));

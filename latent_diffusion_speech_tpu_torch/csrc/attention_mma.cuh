@@ -30,8 +30,12 @@
 //   exponential is one exp2f; masked scores are -inf and give p = 0.
 //
 // Every pointer and every b/t/h stride must be 16-byte aligned (cp.async);
-// the Python wrappers check it and raise.  D is a template parameter (32,
-// 48 or 64: a multiple of 16, the MMA's k depth).
+// the Python wrappers check it and raise.  D is a template parameter: 32,
+// 48 or 64 (a multiple of 16, the MMA's k depth), or 8.  At D = 8 a
+// shared-memory row is 16 wide, its upper 8 columns zero-filled by the
+// copies (`load_rows`), so Q K^T runs one 16-deep k-step to which the zeros
+// add nothing, and P V is one 8-wide n-tile (`pv_step`).  That wastes half
+// of each Q K^T MMA; a 16-wide row keeps the ldmatrix layout of the others.
 
 #pragma once
 
@@ -52,9 +56,10 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Dims {
-  static_assert(D % 16 == 0, "the head dim must be a multiple of 16");
-  static constexpr int DP = D + PAD;   // shared-memory row stride (elements)
-  static constexpr int KD = D / 16;    // k-steps of Q K^T
+  static_assert(D == 8 || D % 16 == 0, "the head dim must be 8 or a multiple of 16");
+  static constexpr int DK = D < 16 ? 16 : D;  // columns a shared-memory row holds (D = 8: 8 zeros after)
+  static constexpr int DP = DK + PAD;  // shared-memory row stride (elements)
+  static constexpr int KD = DK / 16;   // k-steps of Q K^T
   static constexpr int ND = D / 8;     // 8-wide n-tiles of the output
 };
 
@@ -87,6 +92,11 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+// two 8 x 8 matrices, transposed; lanes 0-15 give the row addresses
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
 }
 
 // c (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
@@ -125,18 +135,20 @@ __device__ __forceinline__ float quad_sum(float x) {
 // cp.async rows [r0, r0 + ROWS) of one (batch, head) of a (.., T, .., D)
 // tensor (`base` at row 0, row stride `st` elements) into shared memory
 // [ROWS][DP]; rows at or past T are zero-filled (so padded keys hold v = 0
-// and padded queries q = 0).  All NT threads of the block call it.
+// and padded queries q = 0), and so are the columns [D, DK) of every row.
+// All NT threads of the block call it.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base, long long st,
                                           int r0, int T) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
+  constexpr int CH = D / 8;               // 16-byte chunks of data a row
+  constexpr int CP = Dims<D>::DK / 8;     // 16-byte chunks a shared-memory row holds
 #pragma unroll
-  for (int it = 0; it < (ROWS * CH + NT - 1) / NT; ++it) {
+  for (int it = 0; it < (ROWS * CP + NT - 1) / NT; ++it) {
     const int i = it * NT + threadIdx.x;
-    if (ROWS * CH % NT != 0 && i >= ROWS * CH) break;
-    const int r = i / CH, c = i % CH;
-    const bool ok = r0 + r < T;
-    cp_async16(dst + r * Dims<D>::DP + c * 8, base + (ok ? (long long)(r0 + r) * st : 0) + c * 8, ok);
+    if (ROWS * CP % NT != 0 && i >= ROWS * CP) break;
+    const int r = i / CP, c = i % CP;
+    const bool ok = r0 + r < T && c < CH;
+    cp_async16(dst + r * Dims<D>::DP + c * 8, base + (ok ? (long long)(r0 + r) * st + c * 8 : 0), ok);
   }
 }
 
@@ -206,6 +218,12 @@ __device__ __forceinline__ void pv_step(float (&acc)[Dims<D>::ND][4], const uint
       mma_bf16(acc[2 * dp], pa[i], b[0], b[1]);
       mma_bf16(acc[2 * dp + 1], pa[i], b[2], b[3]);
     }
+  }
+  if constexpr (Dims<D>::ND % 2 != 0) {  // D = 8: one n-tile, keys [16j, 16j + 8) and [16j + 8, 16j + 16)
+    uint32_t b[2];
+    ldmatrix_x2_trans(b, vs + key * Dims<D>::DP + (Dims<D>::ND - 1) * 8);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) mma_bf16(acc[Dims<D>::ND - 1], pa[i], b[0], b[1]);
   }
 }
 

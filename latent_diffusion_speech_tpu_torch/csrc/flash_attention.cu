@@ -45,7 +45,9 @@
 // each scales by exp(m_w - m), the partial accumulators are summed through
 // shared memory, and lane i of warp 0 writes row i.
 //
-// D is a template parameter (32, 48 or 64); other head dims are refused.
+// D is a template parameter (8, 32, 48 or 64); other head dims are refused.
+// D = 8 is the general denoiser's block zoo, whose attention blocks take
+// `attention_head_dim` (8 in Unit2Mel's config) as the head width.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,6 +78,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh,
     float scale, int causal) {
+  static_assert((KS - 1) * D * BQ <= 2 * BK * (D + 1), "the reduction must fit in the K/V tiles");
   __shared__ float smem[2 * BK * (D + 1)];  // the K and V tiles, then the reduction
   __shared__ float m_part[KS][BQ];
   __shared__ float l_part[KS][BQ];
@@ -174,8 +177,6 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     }
   }
 }
-
-static_assert((KS - 1) * 64 * BQ <= 2 * BK * (64 + 1), "the reduction must fit in the K/V tiles");
 
 // ---- tensor cores (bf16)
 
@@ -337,6 +338,7 @@ int launch_simt(const Args& a) {
       static_cast<T*>(a.out), a.H, a.Tq, a.Tkv, a.sqb, a.sqt, a.sqh, a.skb, a.skt, a.skh,     \
       a.svb, a.svt, a.svh, a.scale, a.causal)
   switch (a.D) {
+    case 8: LAUNCH_D(8); break;
     case 32: LAUNCH_D(32); break;
     case 48: LAUNCH_D(48); break;
     case 64: LAUNCH_D(64); break;
@@ -356,6 +358,7 @@ int launch_mma(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.out), a.H, a.Tq,  \
       a.Tkv, a.sqb, a.sqt, a.sqh, a.skb, a.skt, a.skh, a.svb, a.svt, a.svh, a.scale, a.causal)
   switch (a.D) {
+    case 8: LAUNCH_D(8); break;
     case 32: LAUNCH_D(32); break;
     case 48: LAUNCH_D(48); break;
     case 64: LAUNCH_D(64); break;

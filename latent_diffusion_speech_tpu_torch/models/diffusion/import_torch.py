@@ -18,7 +18,8 @@ reads:
 
 `block_params_from_torch` is the JAX package's path-translating importer
 for the general block zoo; its tree goes through `convert.unit2mel_from_jax`
-under `unet` for the block types the port's `UNet1DCondition` has.
+(under `unet`) for every block type and conditioning input of the port's
+`UNet1DCondition`.
 """
 
 from __future__ import annotations

@@ -7,11 +7,14 @@ condition = unit_embed(units) [+ volume_embed(volume)] [+ spk_embed(spk_id-1)]
 
 `denoiser` picks the backbone as in the JAX package: 'flagship' is the
 perf-tuned `UNet1D`; 'general' is `UNet1DCondition`, the reference's own
-block layout, built from `Unit2MelConfig.general_unet_config()` (block-type
-overrides that are not ported raise).  `attn_impl` picks the UNet's
-attention: 'pallas' is the K5 kernel (f32 probabilities, no backward, so
-`loss` raises with it); 'xla' and 'fused' are K4 in the flagship, and the
-plain path ('xla') or K4 ('fused', T <= 512) in the general denoiser.
+block layout, built from `Unit2MelConfig.general_unet_config()` with any of
+the block zoo's types as overrides (`down_block_types`, `up_block_types`,
+`mid_block_type`; their attention blocks run heads of dim `n_heads`).
+`attn_impl` picks the UNet's attention: 'pallas' is the K5 kernel (f32
+probabilities, no backward, so `loss` raises with it); 'xla' and 'fused'
+are K4 in the flagship, and the plain path ('xla') or K4 ('fused', T <=
+512) in the general denoiser (K4's backward takes no head dim 8, so the
+block zoo's attention blocks train with 'xla').
 `Unit2MelSystem(unet_impl=...)` picks how the sampler runs the flagship
 denoiser: 'xla' (and 'auto') the eager module, 'pallas' the fused
 whole-UNet kernel (`ops/kernels/unet_fused.py`) for B=1.  `Unit2MelSystem.loss`
@@ -61,7 +64,7 @@ class Unit2MelConfig:
     # Denoiser backbone: 'flagship' = the perf-tuned effective architecture
     # (UNet1D); 'general' = the reference-layout block-graph UNet
     # (UNet1DCondition), with the block-type overrides below (None = the
-    # reference's effective types; only those five are ported).
+    # reference's effective types).
     denoiser: str = "flagship"
     down_block_types: Optional[Tuple[str, ...]] = None
     up_block_types: Optional[Tuple[str, ...]] = None

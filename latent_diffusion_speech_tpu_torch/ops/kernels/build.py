@@ -37,7 +37,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["load_library", "build_info", "entry", "check_aligned", "attention_strides", "attention_plan",
-           "launch_packed", "PACKED_ARGTYPES", "HEAD_DIMS", "CSRC_DIR"]
+           "launch_packed", "PACKED_ARGTYPES", "HEAD_DIMS", "BWD_HEAD_DIMS", "CSRC_DIR"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -46,7 +46,8 @@ NVCC_FLAGS = [
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-HEAD_DIMS = (32, 48, 64)  # the attention kernels' head dims (a template parameter each)
+HEAD_DIMS = (8, 32, 48, 64)  # the attention forward kernels' head dims (a template parameter each)
+BWD_HEAD_DIMS = (32, 48, 64)  # the K4 backward's
 PACKED_ARGTYPES = [ctypes.c_char_p]  # a C entry that takes one packed struct
 
 _lock = threading.Lock()
@@ -154,15 +155,16 @@ def check_aligned(what: str, strides: Sequence[int], pointers: Sequence[int]) ->
         )
 
 
-def attention_strides(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dtypes) -> tuple:
+def attention_strides(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dtypes,
+                      head_dims: Sequence[int] = HEAD_DIMS) -> tuple:
     """Check q, k, v (B, T, H, D) of one dtype in `dtypes`, a head dim in
-    HEAD_DIMS, one device and a contiguous head dim; return their nine
+    `head_dims`, one device and a contiguous head dim; return their nine
     (b, t, h) strides in elements.  The caller checks the shapes."""
     dtype = q.dtype
     if dtype not in dtypes or k.dtype != dtype or v.dtype != dtype:
         raise TypeError(f"{what} takes bf16 or f32, got {q.dtype} {k.dtype} {v.dtype}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {q.shape[3]} not in {HEAD_DIMS}")
+    if q.shape[3] not in head_dims:
+        raise ValueError(f"{what}: head dim {q.shape[3]} not in {tuple(head_dims)}")
     if k.get_device() != q.get_device() or v.get_device() != q.get_device():
         raise ValueError(f"{what}: q, k, v on different devices")
     sq, sk, sv = q.stride(), k.stride(), v.stride()

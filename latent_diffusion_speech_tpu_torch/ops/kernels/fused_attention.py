@@ -33,6 +33,10 @@ runs them on one stream.
 through `FusedAttention`, the counterpart of the JAX `custom_vjp`, which
 saves (q, k, v, out, lse) and runs the backward kernel; otherwise (serving,
 `torch.no_grad()`) it launches the forward kernel alone, saving nothing.
+The forward takes head dims 8, 32, 48 and 64 (`SUPPORTED_HEAD_DIMS`), the
+backward 32, 48 and 64 (`BWD_HEAD_DIMS`): on CUDA tensors a call that
+needs a gradient at head dim 8 raises ValueError before the forward runs
+(ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
@@ -57,9 +61,11 @@ __all__ = [
     "plan",
     "launch_args",
     "SUPPORTED_HEAD_DIMS",
+    "BWD_HEAD_DIMS",
 ]
 
 SUPPORTED_HEAD_DIMS = build.HEAD_DIMS
+BWD_HEAD_DIMS = build.BWD_HEAD_DIMS
 ENTRIES = {torch.bfloat16: "attention_fwd_bf16", torch.float32: "attention_fwd_f32"}
 SIMT_BF16 = "attention_fwd_simt_bf16"
 _BWD = {torch.bfloat16: "attention_bwd_bf16", torch.float32: "attention_bwd_f32"}
@@ -225,7 +231,7 @@ def attention_bwd(
     if q.device.type != "cuda":
         raise RuntimeError(f"attention_bwd: no kernel for device {q.device}")
     _check_shapes(q, k, v)
-    strides = build.attention_strides("attention_bwd", q, k, v, _BWD)
+    strides = build.attention_strides("attention_bwd", q, k, v, _BWD, BWD_HEAD_DIMS)
     B, T, H, D = q.shape
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"out {out.shape} {out.dtype} and dout {dout.shape} {dout.dtype} must match q")
@@ -289,5 +295,8 @@ def fused_attention(
     version on CPU; differentiable through `FusedAttention` when a
     gradient is needed, the forward alone otherwise."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.is_cuda and q.shape[-1] not in BWD_HEAD_DIMS:
+            raise ValueError(f"fused_attention: the K4 backward takes head dims {BWD_HEAD_DIMS}, not head dim "
+                             f"{q.shape[-1]}; train with attn_impl='xla' (ROADMAP.md Queue 2)")
         return FusedAttention.apply(q, k, v, scale)
     return fused_attention_with_lse(q, k, v, scale)[0]

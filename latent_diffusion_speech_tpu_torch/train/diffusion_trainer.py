@@ -41,7 +41,9 @@ The per-step generator is a pure function of (seed, step), the counterpart
 of `fold_in(PRNGKey(seed), step)`, so an interrupted and resumed run gives
 the same parameters as an uninterrupted one.
 
-Not ported (ROADMAP.md): the sharded checkpoint.
+Not ported (ROADMAP.md Queue 1, item 10): the sharded checkpoint, and any
+mesh axis of `cfg.parallel` above 1, which raises when the trainer is built
+(`train/devices.py`), where the JAX trainer builds its mesh from it.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from latent_diffusion_speech_tpu_torch.train.debug import check_step, install
+from latent_diffusion_speech_tpu_torch.train.devices import check_one_device
 from latent_diffusion_speech_tpu_torch.train.optim import AdamWUpdates, global_norm, step_generator
 from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
 from latent_diffusion_speech_tpu_torch.utils.flops import FlopsByShape, step_mfu
@@ -96,6 +99,7 @@ class DiffusionTrainer(AdamWUpdates):
         `VectorQuantize` (its state is made here from seed + 1), or None.
         dtype: the compute dtype (the weights stay f32).  remat: recompute
         the UNet's blocks in the backward."""
+        check_one_device(cfg, "diffusion")
         self.cfg = cfg
         tcfg = cfg.diffusion.train
         if quantizer is not None and not isinstance(quantizer, (EuclideanCodebook, VectorQuantize)):

@@ -58,6 +58,7 @@ from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from latent_diffusion_speech_tpu_torch.train.debug import check_step, install
+from latent_diffusion_speech_tpu_torch.train.devices import check_one_device
 from latent_diffusion_speech_tpu_torch.train.optim import AdamWUpdates, step_generator
 from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
 from latent_diffusion_speech_tpu_torch.utils.flops import FlopsByShape, step_mfu
@@ -93,16 +94,6 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
 
 
-def _check_one_device(cfg: Config) -> None:
-    par = cfg.parallel
-    axes = {"data": par.data, "model": par.model, "seq": par.seq, "pipe": par.pipe, "expert": par.expert,
-            "dcn_data": par.dcn_data}
-    spread = {k: v for k, v in axes.items() if v > 1}
-    if spread:
-        raise NotImplementedError(f"parallel {spread}: the LM trainer runs on one device; mesh, sequence, "
-                                  "pipeline and expert parallelism are not ported (ROADMAP.md Queue 1, item 10)")
-
-
 class LMTrainer(AdamWUpdates):
     # the NaN guard reads the loss back every N steps (one device sync), so
     # the other steps never wait for the card; a NaN raises within N steps
@@ -115,7 +106,7 @@ class LMTrainer(AdamWUpdates):
         `text2semantic.model.type`).  codebook: the k-means centroids that
         warm-start the semantic embeddings.  dtype: the compute dtype (the
         weights stay f32)."""
-        _check_one_device(cfg)
+        check_one_device(cfg, "LM")
         self.cfg = cfg
         tcfg = cfg.text2semantic.train
         self.lm_type = cfg.text2semantic.model.type

@@ -142,9 +142,12 @@ def _jax_k5(q, k, v, causal):
 
 
 # (B, Tq, Tkv, H, D, causal): the serve widths' head dims, a ragged T, Tq !=
-# Tkv, causal self-attention and top-left causal with Tq != Tkv both ways
+# Tkv, causal self-attention and top-left causal with Tq != Tkv both ways;
+# head dim 8 (the block zoo's: one 16-deep k-step over 8 zero-padded
+# columns) at a zoo shape and causal with Tq != Tkv
 K5_CASES = [(1, 200, 200, 2, 32, False), (2, 64, 64, 2, 64, False), (1, 100, 260, 2, 48, False),
-            (1, 96, 96, 2, 32, True), (1, 70, 200, 2, 64, True), (1, 200, 70, 2, 48, True)]
+            (1, 96, 96, 2, 32, True), (1, 70, 200, 2, 64, True), (1, 200, 70, 2, 48, True),
+            (1, 56, 56, 48, 8, False), (2, 70, 130, 2, 8, True)]
 
 
 @pytest.mark.parametrize("case", K5_CASES, ids=lambda c: "B{}-Tq{}-Tkv{}-H{}-D{}-causal{}".format(*c))
@@ -168,7 +171,7 @@ def test_k5_bf16_p_variant_fails_the_bound(rng):
     assert _differing(k5_model(q, k, v, p_bf16=True), ref) >= 0.20
 
 
-@pytest.mark.parametrize("T,D", [(56, 64), (130, 32), (200, 48)])
+@pytest.mark.parametrize("T,D", [(56, 64), (130, 32), (200, 48), (56, 8), (130, 8)])
 def test_k4_model_matches_the_pallas_kernel_bf16(rng, T, D):
     """Outputs and LSE both from the JAX forward (the custom_vjp's
     `_fused_fwd`, whose residuals hold the LSE rows the backward reads)."""

@@ -62,7 +62,7 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("T,D", [(448, 32), (224, 48), (112, 64), (56, 64), (1024, 64), (13, 32)])
+@pytest.mark.parametrize("T,D", [(448, 32), (224, 48), (112, 64), (56, 64), (1024, 64), (13, 32), (224, 8), (56, 8)])
 def test_k4_kernel_matches_plain(dev, T, D):
     """f32 at atol 2e-5 (out) / 1e-4 (LSE), strided q/k/v views."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -88,7 +88,8 @@ def test_k4_rejects_unsupported_head_dim(dev):
 
 @pytest.mark.parametrize("B,Tq,Tkv,D,causal", [
     (1, 448, 448, 32, False), (4, 224, 224, 48, False), (1, 112, 112, 64, False), (1, 100, 260, 64, False),
-    (1, 96, 96, 32, True), (2, 70, 200, 64, True), (2, 200, 70, 48, True), (1, 13, 5, 32, False)])
+    (1, 96, 96, 32, True), (2, 70, 200, 64, True), (2, 200, 70, 48, True), (1, 13, 5, 32, False),
+    (1, 224, 224, 8, False), (2, 70, 130, 8, True), (1, 13, 5, 8, False)])
 def test_k5_kernel_matches_plain(dev, B, Tq, Tkv, D, causal):
     """Strided q/k/v views (a fused projection's slices, a transposed v)."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -114,6 +115,82 @@ def test_k5_rejects_unsupported_head_dim_and_gradients(dev):
     y = torch.zeros((1, 8, 2, 32), device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         k5.flash_attention(y, y, y)
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 224, 48), (4, 56, 64), (1, 448, 32)])
+def test_head_dim_8_kernels_at_zoo_shapes(dev, B, T, H):
+    """K5 and the K4 forward at the block zoo's head dim 8 and head counts:
+    f32 against the plain versions (atol 2e-5, K4's LSE 1e-4); bf16 within
+    1e-2 (K5) / 3e-2 (K4) of max|out| of the plain version on the same
+    inputs, at most 2% of the bf16 outputs differing from it."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (x.reshape(B, T, H, 8) for x in torch.randn((B, T, 3 * H * 8), generator=gen, device=dev).chunk(3, -1))
+    with torch.no_grad():
+        torch.testing.assert_close(k5.flash_attention(q, k, v), k5.flash_attention_plain(q, k, v), atol=2e-5, rtol=0)
+        out, lse = k4.fused_attention_with_lse(q, k, v)
+        ref, ref_lse = k4.fused_attention_plain(q, k, v)
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+        qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+        for got, plain, tol in ((k5.flash_attention(qb, kb, vb), k5.flash_attention_plain(qb, kb, vb), 1e-2),
+                                (k4.fused_attention(qb, kb, vb), k4.fused_attention_plain(qb, kb, vb)[0], 3e-2)):
+            assert got.dtype == torch.bfloat16
+            assert (got.float() - plain.float()).abs().max().item() <= tol * plain.float().abs().max().item()
+            assert (got != plain).float().mean().item() <= 0.02
+
+
+def test_k4_backward_refuses_head_dim_8(dev):
+    """The K4 backward takes head dims 32, 48 and 64: a call that needs a
+    gradient at head dim 8 raises before the forward runs."""
+    x = torch.zeros((1, 16, 4, 8), device=dev, requires_grad=True)
+    before = k4.launches
+    with pytest.raises(ValueError, match="head dim 8"):
+        k4.fused_attention(x, x, x)
+    assert k4.launches == before
+
+
+ZOO_ON_CARD = {  # two of the block zoo's configurations: every attention block type between them
+    "zoo_attn": (("ResnetDownsampleBlock2D", "AttnDownBlock2D", "SimpleCrossAttnDownBlock2D", "DownBlock2D"),
+                 ("UpBlock2D", "SimpleCrossAttnUpBlock2D", "AttnUpBlock2D", "ResnetUpsampleBlock2D"),
+                 "UNetMidBlock2DSimpleCrossAttn"),
+    "zoo_k": (("KDownBlock2D", "KCrossAttnDownBlock2D", "KCrossAttnDownBlock2D", "KCrossAttnDownBlock2D"),
+              ("KCrossAttnUpBlock2D",) * 3 + ("KUpBlock2D",), None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO_ON_CARD))
+def test_zoo_denoiser_forward_runs_k5_on_the_card(dev, name):
+    """A small zoo configuration (its attention at head dim 8): one forward
+    is one K5 launch per attention module, no call routed to the plain
+    attention, and matches the same forward with K5's plain version (f32,
+    1e-3 of the output's scale); with attn_impl="fused" the same forward is
+    that many K4 launches and matches too."""
+    from latent_diffusion_speech_tpu_torch.models.diffusion import blocks as bl
+
+    down, up, mid = ZOO_ON_CARD[name]
+    zoo = dict(denoiser="general", block_out_channels=(64, 64, 128, 128), n_layers=1, down_block_types=down,
+               up_block_types=up, mid_block_type=mid)
+    sys_ = Unit2MelSystem(Unit2MelConfig(attn_impl="pallas", **zoo), device=dev, seed=0)
+    n_attn = sum(isinstance(m, (bl.CrossAttention1D, bl.AttnBlock1D, bl.AddedKVAttention1D))
+                 for m in sys_.module.modules())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, 64, 384), generator=gen, device=dev)
+    t = torch.tensor([437], device=dev)
+    with torch.no_grad():
+        before = (k5.launches, k5.plain_routes, k4.launches)
+        got = sys_.module.denoise(x, t)
+        assert (k5.launches - before[0], k5.plain_routes - before[1], k4.launches - before[2]) == (n_attn, 0, 0)
+        real = attention.flash_attention
+        attention.flash_attention = lambda q, k, v, **kw: k5.flash_attention_plain(q, k, v)
+        try:
+            ref = sys_.module.denoise(x, t)
+        finally:
+            attention.flash_attention = real
+        torch.testing.assert_close(got, ref, atol=1e-3 * ref.abs().max().item(), rtol=0)
+        fused = Unit2MelSystem(Unit2MelConfig(attn_impl="fused", **zoo), device=dev, seed=0)
+        before = k4.launches
+        torch.testing.assert_close(fused.module.denoise(x, t), ref, atol=1e-3 * ref.abs().max().item(), rtol=0)
+        assert k4.launches - before == n_attn
 
 
 def test_general_denoiser_forward_runs_k5_on_the_card(dev):

@@ -358,6 +358,21 @@ def test_unported_options_raise(tmp_path):
     assert DiffusionTrainer(cfg, model_cfg=TINY_MODEL, device="cpu").every == 2
 
 
+@pytest.mark.parametrize("axis", ["data", "model", "seq", "pipe", "expert", "dcn_data"])
+def test_parallel_axes_raise_naming_item_10(tmp_path, axis):
+    """Any mesh axis of `cfg.parallel` above 1 raises when the trainer is
+    built (the JAX trainer builds its mesh from it; the port runs on one
+    device, ROADMAP.md Queue 1, item 10), through the entry point too; the
+    default config (data -1, the rest 1) still builds."""
+    cfg = _tiny_config(tmp_path)
+    setattr(cfg.parallel, axis, 2)
+    with pytest.raises(NotImplementedError, match=f"'{axis}': 2.*item 10"):
+        DiffusionTrainer(cfg, model_cfg=TINY_MODEL, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        build(cfg, device="cpu")
+    assert DiffusionTrainer(_tiny_config(tmp_path), model_cfg=TINY_MODEL, device="cpu").step == 0
+
+
 def test_trainer_turns_tf32_off(tmp_path):
     """Training runs in full f32: making the trainer turns TF32 off for
     CUDA matmuls and convolutions (process-wide switches)."""

@@ -6,8 +6,9 @@ tolerance, tests/test_unet_blocks.py), from the flax parameters (perturbed
 away from their initial zeros and ones) moved over leaf by leaf with the
 converter.  The whole `UNet1DCondition` at tiny widths with
 attn_impl="pallas" is held to flax with attn_impl="pallas" (K5 in interpret
-mode) at atol 2e-4 / rtol 1e-3 (tests/test_unit2mel_import.py).  What is not
-ported raises `NotImplementedError`.
+mode) at atol 2e-4 / rtol 1e-3 (tests/test_unit2mel_import.py).  The rest of
+the block zoo and the conditioning inputs are held to JAX in
+tests/test_torch_unet_zoo_blocks.py and tests/test_torch_unet_zoo_model.py.
 """
 
 import jax
@@ -198,36 +199,3 @@ def test_unet1d_condition_rejects_bad_lengths():
     model = UNet1DCondition(UNet1DConditionConfig(**TINY))
     with pytest.raises(ValueError, match="divisible"):
         model(torch.zeros((1, 6, 16)), torch.tensor([1]))
-
-
-NOT_PORTED = {
-    "down AttnDownBlock2D": lambda: bl.get_down_block("AttnDownBlock2D", 1, 8, 8, E, True, 1e-5, "silu"),
-    "down SkipDownBlock2D": lambda: bl.get_down_block("SkipDownBlock2D", 1, 8, 8, E, True, 1e-5, "silu"),
-    "down KCrossAttnDownBlock2D": lambda: bl.get_down_block("KCrossAttnDownBlock2D", 1, 8, 8, E, True, 1e-5,
-                                                            "silu"),
-    "up SimpleCrossAttnUpBlock2D": lambda: bl.get_up_block("SimpleCrossAttnUpBlock2D", 1, 8, 8, 8, E, True,
-                                                           1e-5, "silu"),
-    "up UpDecoderBlock2D": lambda: bl.get_up_block("UpDecoderBlock2D", 1, 8, 8, 8, E, True, 1e-5, "silu"),
-    "mid UNetMidBlock2D": lambda: bl.get_mid_block("UNetMidBlock2D", 8, E),
-    "resnet ada_group": lambda: bl.ResnetBlock1DFull(8, 8, E, groups=8, time_embedding_norm="ada_group"),
-    "resnet FIR down": lambda: bl.ResnetBlock1DFull(8, 8, E, groups=8, down=True, kernel="fir"),
-    "resnet up": lambda: bl.ResnetBlock1DFull(8, 8, E, groups=8, up=True),
-    "dual cross attention": lambda: bl.get_down_block("CrossAttnDownBlock2D", 1, 8, 8, E, True, 1e-5, "silu",
-                                                      num_attention_heads=2, cross_attention_dim=8,
-                                                      resnet_groups=8, dual_cross_attention=True),
-    "class embedding": lambda: UNet1DCondition(UNet1DConditionConfig(**TINY, class_embed_type="timestep")),
-    "addition embedding": lambda: UNet1DCondition(UNet1DConditionConfig(**TINY, addition_embed_type="text_time")),
-    "fourier time": lambda: UNet1DCondition(UNet1DConditionConfig(**TINY, time_embedding_type="fourier")),
-    "encoder states": lambda: UNet1DCondition(UNet1DConditionConfig(**TINY))(
-        torch.zeros((1, 8, 16)), torch.tensor([1]), encoder_hidden_states=torch.zeros((1, 3, 16))),
-    "attention mask": lambda: UNet1DCondition(UNet1DConditionConfig(**TINY))(
-        torch.zeros((1, 8, 16)), torch.tensor([1]), attention_mask=torch.ones((1, 8))),
-    "adapter residuals": lambda: UNet1DCondition(UNet1DConditionConfig(**TINY))(
-        torch.zeros((1, 8, 16)), torch.tensor([1]), down_block_additional_residuals=(torch.zeros(1),)),
-}
-
-
-@pytest.mark.parametrize("what", sorted(NOT_PORTED))
-def test_not_ported_raises(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NOT_PORTED[what]()
