@@ -198,7 +198,22 @@ with nvcc (sm_90a), then:
    on one sentence, against the CPU (the post-LN one through a local
    checkpoint directory, `get_bert_feature` and `verify_import --kind
    bert`); stage 16's `text` mode over a vocab the phase writes; and
-   `extract_f0` and MCD / LSD on a 10 s signal against the CPU.
+   `extract_f0` and MCD / LSD on a 10 s signal against the CPU;
+16. zoo_train: the block zoo's `zoo_attn` at the shipped widths trained in
+   f32 (B=48, 1 s crops) through `DiffusionTrainer` with attn_impl="fused":
+   3 steps, every attention module through the K4 forward and backward at
+   head dim 8, the losses held to the same steps with the plain attention;
+   the K4 backward also at the zoo's training shapes (B=48, T = 88-11,
+   H = 32-64, D = 8) against its plain version, timed beside SDPA's
+   backward and its bound (in `check_k4_bwd`);
+17. dp_train: data parallelism at a world of 1 (one card): the diffusion
+   CLI (flagship, B=48) and the LM CLI (the shipped RoFormer, B=32) under
+   `torch.distributed.run --nproc_per_node=1`, a real NCCL group: 2 steps,
+   a save, a second process resuming for 2 more, its checkpoint bitwise
+   equal to the same steps without any group; in this process under a
+   world-of-one NCCL group, train_step with and without the group in turns
+   and the NCCL collectives and kernels a step (torch.profiler).  Speed over
+   several cards is not measured (the machine has one).
 
 Any failure raises (exit code != 0).  The second-to-last line is a JSON
 object with one entry per kernel; the last line is
@@ -275,6 +290,9 @@ UNET_T = (64, 448, 1024)
 # resolutions of a 1 s crop (86 frames padded to 88), and the number of
 # self-attention calls at each per forward
 K4_TRAIN = [(88, 32, 10), (44, 48, 10), (22, 64, 10), (11, 64, 2)]
+# the block zoo's K4 backward shapes (T, D, H, 0) at head dim 8, B = TRAIN_B: each
+# level of a 1 s crop, H = channels / 8 (not in the flagship step's sum: 0 calls)
+K4_TRAIN_D8 = [(88, 8, 32, 0), (44, 8, 48, 0), (22, 8, 64, 0), (11, 8, 64, 0)]
 TRAIN_B, TRAIN_STEPS = 48, (3, 12)  # batch; steps before and after the resume
 PROFILED_STEPS = 5  # training steps under torch.profiler (CUDA activity only)
 # K6 on the training path: 48 crops x 86 frames against the 4096 x 1280 codebook
@@ -2077,7 +2095,9 @@ def check_k4_bwd(dev) -> dict:
     sums over T add those roundings with random signs, so the error stays a
     few roundings of the scale).  Times the f32 kernel (the trainer's
     dtype), its plain version and the backward of F.scaled_dot_product_attention
-    (autograd forward + backward minus the forward; the port never calls it)."""
+    (autograd forward + backward minus the forward; the port never calls it).
+    The same at head dim 8, the block zoo's training shapes (K4_TRAIN_D8:
+    B=48, H = channels / 8 at each level of a 1 s crop)."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
@@ -2085,8 +2105,8 @@ def check_k4_bwd(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows, worst = [], 0.0
-    for T, D, calls in K4_TRAIN:
-        q, k, v, dout = (torch.randn((TRAIN_B, T, 8, D), generator=gen, device=dev) for _ in range(4))
+    for T, D, H, calls in [(T, D, 8, c) for T, D, c in K4_TRAIN] + K4_TRAIN_D8:
+        q, k, v, dout = (torch.randn((TRAIN_B, T, H, D), generator=gen, device=dev) for _ in range(4))
         out, lse = k4.fused_attention_with_lse(q, k, v)
         out_p, lse_p = k4.fused_attention_plain(q, k, v)
         got = k4.attention_bwd(q, k, v, out, dout, lse)
@@ -2124,7 +2144,7 @@ def check_k4_bwd(dev) -> dict:
                 raise AssertionError(f"K4 bwd {args[0].dtype} T={T} D={D}: two calls differ")
         ms = cuda_time_ms(lambda: k4.attention_bwd(q, k, v, out, dout, lse), iters=50)
         device_ms = cuda_graph_time_ms(lambda: k4.attention_bwd(q, k, v, out, dout, lse))
-        if k4.bwd_plan(TRAIN_B, T, 8, D)["tile"] == 16:
+        if k4.bwd_plan(TRAIN_B, T, H, D)["tile"] == 16:
             # the 16-key path (four heads a block) against 32-key tiles, which
             # give the same gradients bit for bit: device µs in turns
             wide = functools.partial(k4.bwd_plan, tile=32)
@@ -2135,7 +2155,7 @@ def check_k4_bwd(dev) -> dict:
             for tile in (16, 32, 32, 16):
                 with mock.patch.object(k4, "bwd_plan", k4.bwd_plan if tile == 16 else wide):
                     turns[tile].append(cuda_graph_time_ms(lambda: k4.attention_bwd(q, k, v, out, dout, lse)) * 1e3)
-            print(f"K4 attention_bwd f32 B={TRAIN_B} T={T} D={D}: device us, 16-key tiles four heads a block "
+            print(f"K4 attention_bwd f32 B={TRAIN_B} T={T} H={H} D={D}: device us, 16-key tiles four heads a block "
                   f"{[round(x, 2) for x in turns[16]]} against 32-key tiles {[round(x, 2) for x in turns[32]]} "
                   f"(in turns; gradients bit-identical)")
         host = host_us(lambda: k4.attention_bwd(q, k, v, out, dout, lse))
@@ -2144,24 +2164,33 @@ def check_k4_bwd(dev) -> dict:
         dos = dout.transpose(1, 2).contiguous()
         t_fwd = cuda_time_ms(lambda: sdpa(qs, ks, vs), iters=50)
         t_both = cuda_time_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs), (qs, ks, vs), dos), iters=50)
-        n = TRAIN_B * T * 8 * D
-        bound_ms, bound_by = bound(8 * n * 4 + TRAIN_B * 8 * T * 4, 5 * 2 * T * T * D * TRAIN_B * 8, F32_FLOPS)
-        rows.append(dict(T=T, D=D, calls=calls, ms=ms, plain_ms=plain_ms, library_ms=t_both - t_fwd,
+        n = TRAIN_B * T * H * D
+        # reads q, k, v, out, dout and the lse, writes dq, dk, dv; five T x T x D products a head
+        bound_ms, bound_by = bound(8 * n * 4 + TRAIN_B * H * T * 4, 5 * 2 * T * T * D * TRAIN_B * H, F32_FLOPS)
+        earlier = f" (earlier kernel {EARLIER_K4_BWD_US[T]:.1f} us)" if D != 8 else ""
+        rows.append(dict(T=T, D=D, H=H, calls=calls, ms=ms, plain_ms=plain_ms, library_ms=t_both - t_fwd,
                          bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms))
-        print(f"K4 attention_bwd B={TRAIN_B} T={T} H=8 D={D}: forward f32 out err {e_out:.2e} lse err "
+        print(f"K4 attention_bwd B={TRAIN_B} T={T} H={H} D={D}: forward f32 out err {e_out:.2e} lse err "
               f"{e_lse:.2e}; backward f32 max err {e32:.2e}; bf16 vs f32 plain max err "
               f"{max(eb):.2e} of scale (limit 2^-5); two calls bit-identical (f32, bf16); kernel "
-              f"{ms * 1e3:.1f} us/call back to back (earlier kernel {EARLIER_K4_BWD_US[T]:.1f} us), device "
+              f"{ms * 1e3:.1f} us/call back to back{earlier}, device "
               f"{device_ms * 1e3:.1f} us (CUDA graph), host {host:.1f} us; plain {plain_ms * 1e3:.1f} us, "
               f"SDPA backward {(t_both - t_fwd) * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}); "
               f"{calls} calls per forward")
+    d8 = [r for r in rows if r["D"] == 8]
+    rows = [r for r in rows if r["D"] != 8]
     step_ms = sum(r["ms"] * r["calls"] for r in rows)
     print(f"K4 attention_bwd per training step (32 calls): {step_ms * 1e3:.1f} us of kernel time back to back, "
           f"{sum(r['device_ms'] * r['calls'] for r in rows) * 1e3:.1f} us device (earlier kernel "
           f"{sum(EARLIER_K4_BWD_US[r['T']] * r['calls'] for r in rows):.1f} us back to back; plain "
           f"{sum(r['plain_ms'] * r['calls'] for r in rows) * 1e3:.1f} us)")
-    return dict(max_abs_err=worst, rows=rows, step_ms=step_ms, **{k: rows[0][k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    print(f"K4 attention_bwd at head dim 8, B={TRAIN_B}: " + "; ".join(
+        f"T={r['T']} H={r['H']} {r['device_ms'] * 1e3:.2f} us device, {r['ms'] * 1e3:.2f} us back to back, plain "
+        f"{r['plain_ms'] * 1e3:.1f} us, SDPA backward {r['library_ms'] * 1e3:.1f} us, bound "
+        f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})" for r in d8))
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms")
+    return dict(max_abs_err=worst, rows=rows, step_ms=step_ms, d8_rows=d8, **{k: rows[0][k] for k in keys[:5]},
+                **{"d8_" + k: d8[0][k] for k in keys})  # T=88, H=32: the zoo's largest
 
 
 def f64_ties(x, cb, got, ref, what: str) -> tuple:
@@ -2244,14 +2273,14 @@ def check_k6(dev) -> dict:
     return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
 
 
-def write_train_layout(root: str, codebook: np.ndarray, seed: int = 0) -> None:
-    """A data/train layout: 4 speakers x 96 files (8 batches of 48 an epoch,
-    so most steps find their batch prefetched as on a real corpus, and not
-    every other one waits for an epoch's first batch); mel stats (T, 256) with
+def write_train_layout(root: str, codebook: np.ndarray, seed: int = 0, speakers: int = 4) -> None:
+    """A data/train layout: `speakers` x 96 files (with 4, 8 batches of 48 an
+    epoch, so most steps find their batch prefetched as on a real corpus, and
+    not every other one waits for an epoch's first batch); mel stats (T, 256) with
     T in [120, 160) latent frames (86.13 a second); units (T_u, 1280) at the
     encoder's 50 a second, each near a codebook row as k-means units are."""
     rng = np.random.default_rng(seed)
-    for spk in range(1, 5):
+    for spk in range(1, speakers + 1):
         for n in range(96):
             T = int(rng.integers(120, 160))
             T_u = int(round(T * 50 / (44100 / 512)))
@@ -4243,9 +4272,9 @@ def compare_codec_step(vcfg, audio: np.ndarray, dev) -> str:
         def recording(opt, names):
             real = opt.apply_update
 
-            def apply_update():
+            def apply_update(*args, **kwargs):
                 grads.update({n: p.grad.detach().cpu().clone() for n, p in zip(names, opt._params)})
-                return real()
+                return real(*args, **kwargs)
             return apply_update
 
         t.gen_opt.apply_update = recording(t.gen_opt, [f"encoder.{n}" for n, _ in t.encoder.named_parameters()]
@@ -4838,6 +4867,329 @@ def llama_text(dev, card: str) -> dict:
     return dict(launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# The block zoo trained through the K4 backward at head dim 8, and data
+# parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+ZOO_TRAIN = "zoo_attn"  # the block zoo configuration zoo_train trains
+ZOO_TRAIN_STEPS = 3
+DP_STEPS = (2, 2)  # steps before the save and after the resume, each trainer
+DP_AB_STEPS = 6  # train_step calls a turn in the with / without group A/B
+DP_PROFILED = 3  # steps under torch.profiler (CPU and CUDA activities) with the group
+DP_LM_UTTS = 64  # the LM corpus: two batches of 32
+DP_BACKEND = "nccl"  # the process group the card's ranks join
+
+
+def zoo_train(dev, card: str) -> dict:
+    """A few f32 steps of the ZOO_TRAIN configuration at the shipped widths
+    through `DiffusionTrainer` with attn_impl="fused", so every attention
+    module runs the K4 forward and backward at head dim 8 (B=48, 1 s crops:
+    T = 86 frames, H = 32-64), against the same steps from the same seeded
+    weights with attn_impl="xla" (the plain attention): the first loss
+    within 1e-5 relative (compare_train_step's bar), each later one within
+    1e-4 (f32 sums in another order, carried through the AdamW updates).
+    Returns the K4 launches."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.config import load_config
+    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer, step_generator
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+    down, up, mid = ZOO[ZOO_TRAIN]
+    rng = np.random.default_rng(5)
+    frames = int(cfg.data.duration * cfg.data.sampling_rate / cfg.data.block_size)
+    batches = [{"units": rng.standard_normal((TRAIN_B, frames, 1280)).astype(np.float32),
+                "mel": rng.standard_normal((TRAIN_B, frames, 128)).astype(np.float32),
+                "spk_id": rng.integers(1, 5, (TRAIN_B, 1)).astype(np.int32),
+                "aug_shift": np.zeros((TRAIN_B, 1), np.float32)} for _ in range(ZOO_TRAIN_STEPS)]
+    losses, launches, walls = {}, {}, {}
+    for impl in ("fused", "xla"):
+        model_cfg = Unit2MelConfig(attn_impl=impl, denoiser="general", down_block_types=down, up_block_types=up,
+                                   mid_block_type=mid)
+        trainer = DiffusionTrainer(cfg, model_cfg=model_cfg, device=dev)
+        n_attn = zoo_attention_modules(trainer.system.module)
+        k4.launches = k4.bwd_launches = 0
+        losses[impl], walls[impl] = [], []
+        for step, b in enumerate(batches):
+            batch = trainer.device_put_batch(b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[impl].append(trainer.train_step(batch, step_generator(0, step, dev))["loss"].item())
+            walls[impl].append(time.perf_counter() - t0)
+        launches[impl] = {"attention_fwd": k4.launches, "attention_bwd": k4.bwd_launches}
+        del trainer
+        torch.cuda.empty_cache()
+    want = {"attention_fwd": n_attn * ZOO_TRAIN_STEPS, "attention_bwd": n_attn * ZOO_TRAIN_STEPS}
+    if launches != {"fused": want, "xla": {"attention_fwd": 0, "attention_bwd": 0}}:
+        raise AssertionError(f"zoo_train launches {launches}, want {want} with attn_impl='fused' ({n_attn} "
+                             f"attention modules x {ZOO_TRAIN_STEPS} steps) and none with 'xla'")
+    fused, plain = losses["fused"], losses["xla"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(fused, plain)]
+    if not all(np.isfinite(fused)) or errs[0] > 1e-5 or max(errs) > 1e-4:
+        raise AssertionError(f"zoo_train losses with K4 {fused} against the plain attention {plain}: relative "
+                             f"errors {errs} (bars 1e-5 first, 1e-4 after)")
+    print(f"zoo_train {ZOO_TRAIN} [{card}]: f32, B={TRAIN_B}, T={frames}, {n_attn} attention modules at head dim 8; "
+          f"losses with K4 (attn_impl='fused') {[round(x, 6) for x in fused]} against the plain attention "
+          f"{[round(x, 6) for x in plain]} (relative errors {[f'{e:.1e}' for e in errs]}); launches {launches}; "
+          f"steps after the first {[round(w * 1e3, 1) for w in walls['fused'][1:]]} ms with K4, "
+          f"{[round(w * 1e3, 1) for w in walls['xla'][1:]]} ms plain; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches["fused"]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+DETERMINISTIC_MAIN = """import runpy, sys
+import torch
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+module = sys.argv.pop(1)
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def torchrun(jobs: dict) -> dict:
+    """One process a job under `torch.distributed.run` (a world of 1 on this
+    card, a real NCCL group), all at once: {name: (module, config path,
+    steps)}; each runs with cuDNN's deterministic algorithms (a script beside
+    its config sets them, then runs the module as __main__).  Returns each
+    job's output."""
+    procs = {}
+    for name, (module, cfg_path, steps) in jobs.items():
+        main = os.path.join(os.path.dirname(cfg_path), "deterministic_main.py")
+        with open(main, "w") as fh:
+            fh.write(DETERMINISTIC_MAIN)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes=1", "--nproc_per_node=1",
+               "--master_addr=localhost", f"--master_port={free_port()}", main, module, "-c", cfg_path,
+               "--max-steps", str(steps)]
+        procs[name] = (cmd, subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = {}
+    try:
+        for name, (cmd, proc) in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0 or f"rank 0 of 1: {DP_BACKEND} process group" not in out:
+                raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+            outs[name] = out
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
+
+
+def dp_ab(trainer, step, card: str, what: str) -> dict:
+    """`step()` (one train_step on a batch already on the card) timed with the
+    trainer's mesh without a group and with the world-of-one NCCL group, in
+    turns (without, with, with, without; DP_AB_STEPS calls each, the median
+    of each turn's calls), then the NCCL kernels a step under torch.profiler
+    over DP_PROFILED steps with the group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from latent_diffusion_speech_tpu_torch.parallel.mesh import Mesh, build_mesh
+
+    meshes = {"without": Mesh(build_mesh().spec), "with": build_mesh()}
+    if meshes["with"].group is None:
+        raise AssertionError("dp_ab: no process group")
+    step()  # warm-up
+    turns = {"without": [], "with": []}
+    for name in ("without", "with", "with", "without"):
+        trainer.mesh = meshes[name]
+        times = []
+        for _ in range(DP_AB_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        turns[name].append(float(np.median(times)) * 1e3)
+    trainer.mesh = meshes["with"]
+    # the reduce alone: every gradient and a loss through the group
+    tensors = [p.grad for p in trainer._params] + [torch.zeros((), device=trainer.device)]
+    host, synced = [], []
+    for _ in range(DP_AB_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.mesh.all_reduce_mean_(tensors)
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        synced.append(time.perf_counter() - t0)
+    reduce_ms = (float(np.median(host)) * 1e3, float(np.median(synced)) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(DP_PROFILED):
+            step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # the collectives as the process groups record them ("nccl:all_reduce" on
+    # the card's group, "gloo:..." on the host group), and NCCL's kernels
+    calls = {e.key: e.count / DP_PROFILED for e in events if re.match(r"(nccl|gloo):", e.key)}
+    device = {e.key: e.count / DP_PROFILED for e in events if "nccl" in e.key.lower()
+              and not e.key.startswith("nccl:") and e.device_type == torch.autograd.DeviceType.CUDA}
+    print(f"dp_train {what} [{card}]: train_step on a batch on the card, median of {DP_AB_STEPS} calls a turn: "
+          f"without a group {[round(x, 2) for x in turns['without']]} ms, with the world-of-one {DP_BACKEND} group "
+          f"{[round(x, 2) for x in turns['with']]} ms (in turns); the gradient all-reduce alone ({len(tensors)} "
+          f"tensors, {sum(t.numel() for t in tensors) * 4 / 2**20:.1f} MiB) {reduce_ms[0]:.2f} ms of host, "
+          f"{reduce_ms[1]:.2f} ms to the card's end; collectives a step {calls}, NCCL device kernels a step "
+          f"{device} (torch.profiler, {DP_PROFILED} steps)")
+    return dict(turns=turns, nccl_calls=calls, nccl_kernels=device, reduce_ms=reduce_ms)
+
+
+def dp_train(dev, card: str) -> dict:
+    """Data parallelism at a world of 1 (the card host has one card): the
+    diffusion trainer (flagship width, B=48, 1 s crops, the k-means snap)
+    and the shipped RoFormer (B=32), each through its training CLI under
+    `torch.distributed.run --nproc_per_node=1` (the CLI joins a real NCCL
+    group), DP_STEPS[0] steps, a save, then a second process that resumes
+    and trains DP_STEPS[1] more; its checkpoint must equal, bit for bit, the
+    same steps run in this process through `build` with no group at all.
+    In this process, under a world-of-one NCCL group: each trainer's
+    train_step with and without the group (`dp_ab`) and the NCCL kernels a
+    step.  Returns the kernels' launches of the in-process runs."""
+    import tempfile
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import train_diffusion, train_lm
+    from latent_diffusion_speech_tpu_torch.config import load_config, save_config
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+    from latent_diffusion_speech_tpu_torch.parallel.dist import initialize_distributed, shutdown_distributed
+    from latent_diffusion_speech_tpu_torch.train.checkpoint import load_checkpoint
+    from latent_diffusion_speech_tpu_torch.train.optim import step_generator
+
+    t_phase = time.perf_counter()
+    n = sum(DP_STEPS)
+    k4.launches = k4.bwd_launches = k6.launches = 0
+    results = {}
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        cb = np.random.default_rng(1).standard_normal((4096, 1280)).astype(np.float32)
+        write_train_layout(os.path.join(tmp, "train"), cb, speakers=1)
+        np.savez(os.path.join(tmp, "codebook.npz"), cluster_centers_=cb)
+        write_lm_corpus(os.path.join(tmp, "lm_train"), DP_LM_UTTS, 0)
+        write_lm_corpus(os.path.join(tmp, "lm_val"), 8, 1)
+        cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+        cfg.data.train_path, cfg.data.valid_path = os.path.join(tmp, "train"), os.path.join(tmp, "lm_val")
+        cfg.text2semantic.model.codebook_path = os.path.join(tmp, "codebook.npz")
+        d, lm = cfg.diffusion.train, cfg.text2semantic.train
+        d.expdir, d.interval_log, d.interval_val, d.save_opt = os.path.join(tmp, "exp_diff"), 1, 10 ** 9, True
+        lm.expdir, lm.interval_log, lm.interval_val = os.path.join(tmp, "exp_lm"), 1, 10 ** 9
+        d.loader_processes = lm.loader_processes = 0  # threaded loaders: no spawn workers to start
+        if (d.batch_size, cfg.data.duration, lm.batch_size) != (TRAIN_B, 1.0, LM_B):
+            raise AssertionError("configs/config.yaml no longer trains at B=48 on 1 s crops and the LM at B=32")
+        cfg_lm = copy.deepcopy(cfg)
+        cfg_lm.data.train_path = os.path.join(tmp, "lm_train")
+        cfg_lm.text2semantic.model.codebook_path = os.path.join(tmp, "no-codebook.npz")
+        cfg_lm.diffusion.train.expdir = os.path.join(tmp, "no-diffusion")
+        # no validation pipeline (lm_train runs it): an int8 serve setting, not
+        # ported, makes stage 21's build skip it at once instead of seeding one
+        cfg_lm.common.infer.weight_quant = "int8"
+        paths = {"diffusion": os.path.join(tmp, "diffusion.yaml"), "lm": os.path.join(tmp, "lm.yaml")}
+        save_config(cfg, paths["diffusion"])
+        save_config(cfg_lm, paths["lm"])
+
+        # the CLIs under torch.distributed.run, both trainers at once:
+        # DP_STEPS[0] steps, then a second process resumes and takes the rest
+        modules = {"diffusion": "latent_diffusion_speech_tpu_torch.cli.train_diffusion",
+                   "lm": "latent_diffusion_speech_tpu_torch.cli.train_lm"}
+        t0 = time.perf_counter()
+        legs = [torchrun({w: (m, paths[w], steps) for w, m in modules.items()}) for steps in (DP_STEPS[0], n)]
+        cli_s = time.perf_counter() - t0
+        for what in modules:
+            if f"resumed at step {DP_STEPS[0]}" not in legs[1][what]:
+                raise AssertionError(f"dp_train {what}: the second process did not resume\n{legs[1][what][-2000:]}")
+        steps_s = [1 / json.loads(x)["train/steps_per_sec"] for out in legs for x in out["diffusion"].splitlines()
+                   if x.startswith("{") and "train/steps_per_sec" in x]
+        results["diffusion"] = dict(cli_steps_ms=[round(x * 1e3, 2) for x in steps_s])
+        rows = [json.loads(x) for x in open(os.path.join(lm.expdir, "logs", "metrics.jsonl"))]
+        results["lm"] = dict(cli_steps_ms=[round(1e3 / r["train/steps_per_sec"], 2) for r in rows
+                                          if "train/steps_per_sec" in r])
+        t0 = time.perf_counter()
+
+        # the same steps in this process, no group: the reference (cuDNN's
+        # deterministic algorithms, as the CLI processes)
+        ref_dirs, differs = {}, {}
+        for what, c in (("diffusion", cfg), ("lm", cfg_lm)):
+            c = copy.deepcopy(c)
+            tc = c.diffusion.train if what == "diffusion" else c.text2semantic.train
+            tc.expdir = ref_dirs[what] = tc.expdir + "_ref"
+            with deterministic_cudnn():
+                if what == "diffusion":
+                    trainer, loader = train_diffusion.build(c, device=dev)
+                    trainer.train(loader, max_steps=n)
+                else:
+                    trainer, loader, val_loader, logger, _ = train_lm.build(c, device=dev)
+                    try:
+                        trainer.train(loader, max_steps=n)
+                    finally:
+                        val_loader.close()
+                        logger.close()
+            expdir = cfg.diffusion.train.expdir if what == "diffusion" else lm.expdir
+            (step_a, params_a, opt_a), (step_b, params_b, opt_b) = (load_checkpoint(e) for e in (ref_dirs[what],
+                                                                                                expdir))
+            differ = [k for k in params_a if not torch.equal(params_a[k].cpu(), params_b[k].cpu())]
+            if (step_a, step_b) != (n, n) or params_a.keys() != params_b.keys() or differ or not same_state(
+                    opt_a, opt_b):
+                worst = max((((params_a[k].cpu() - params_b[k].cpu()).abs().max()
+                              / params_a[k].cpu().abs().max().clamp_min(1e-30)).item() for k in differ), default=None)
+                differs[what] = (f"steps {step_a} / {step_b}, {len(differ)} of {len(params_a)} parameters differ "
+                                 f"(largest relative {worst}), optimizer state equal: {same_state(opt_a, opt_b)}")
+            results[what].update(trainer=trainer, loader=loader)
+        if differs:
+            raise AssertionError(f"dp_train: the resumed world-of-one runs differ from the uninterrupted runs without "
+                                 f"a group: {differs}")
+
+        ref_s = time.perf_counter() - t0
+
+        # with and without the group, in this process
+        t0 = time.perf_counter()
+        os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(free_port()))
+        try:
+            if not initialize_distributed(dev) or torch.distributed.get_backend() != DP_BACKEND:
+                raise AssertionError(f"dp_train: no {DP_BACKEND} process group")
+            trainer, loader = results["diffusion"].pop("trainer"), results["diffusion"].pop("loader")
+            loader.set_epoch(0)
+            batch = trainer.device_put_batch(next(iter(loader)))
+            results["diffusion"].update(dp_ab(trainer, lambda: trainer.train_step(batch, step_generator(0, 0, dev)),
+                                              card, "diffusion (flagship, B=48)"))
+            trainer, loader = results["lm"].pop("trainer"), results["lm"].pop("loader")
+            loader.set_epoch(0)
+            lm_batch = trainer.device_put_batch(next(iter(loader)))
+            results["lm"].update(dp_ab(trainer, lambda: trainer.train_step(lm_batch), card, "RoFormer LM (B=32)"))
+        finally:
+            shutdown_distributed()
+            for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+                os.environ.pop(k, None)
+            if "loader" in results["lm"]:
+                results["lm"]["loader"].close()
+        del trainer, loader
+        ab_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for what in ("diffusion", "lm"):
+        r = results[what]
+        print(f"dp_train {what} CLI under torch.distributed.run [{card}]: {DP_STEPS[0]} steps, save, a second "
+              f"process resumed and took {DP_STEPS[1]} more; step walls "
+              f"{r['cli_steps_ms']} ms; its checkpoint equals the uninterrupted run without a group, bit for bit; "
+              f"median train_step without / with the group {float(np.median(r['turns']['without'])):.2f} / "
+              f"{float(np.median(r['turns']['with'])):.2f} ms; the all-reduce alone {r['reduce_ms'][1]:.2f} ms")
+    launches = {"attention_fwd": k4.launches, "attention_bwd": k4.bwd_launches, "kmeans_argmin": k6.launches}
+    print(f"dp_train phase: {time.perf_counter() - t_phase:.1f} s (the four CLI processes, two at a time, "
+          f"{cli_s:.1f} s; the references without a group {ref_s:.1f} s; the A/B {ab_s:.1f} s); in-process "
+          f"launches {launches} [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4932,6 +5284,13 @@ def main() -> int:
     llama = llama_text(dev, card)
     launches["attention_fwd"] += llama["launches"]["attention_fwd"]
     print(f"launches with llama_text's: {launches}")
+    torch.cuda.empty_cache()
+    zoo_t = zoo_train(dev, card)
+    torch.cuda.empty_cache()
+    dp = dp_train(dev, card)
+    launches["attention_fwd"] += zoo_t["attention_fwd"] + dp["attention_fwd"]
+    print(f"launches with zoo_train's and dp_train's: {launches}, attention_bwd {zoo_t['attention_bwd']} + "
+          f"{dp['attention_bwd']}, kmeans_argmin {dp['kmeans_argmin']}")
 
     src = "latent_diffusion_speech_tpu_torch/csrc/"
     kernels = [
@@ -4956,10 +5315,12 @@ def main() -> int:
         dict(name="attention_bwd", route="cuda", source=src + "attention_bwd.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/fused_attention.py:149",
              launches=train["launches"]["attention_bwd"] + train["options"]["attention_bwd"]
-             + data["launches"]["attention_bwd"] + alt["launches"]["attention_bwd"],
+             + data["launches"]["attention_bwd"] + alt["launches"]["attention_bwd"] + zoo_t["attention_bwd"]
+             + dp["attention_bwd"],
              max_abs_err=k4_bwd["max_abs_err"],
              ms=k4_bwd["ms"], plain_ms=k4_bwd["plain_ms"], bound_ms=k4_bwd["bound_ms"],
-             bound_by=k4_bwd["bound_by"], library_ms=k4_bwd["library_ms"]),
+             bound_by=k4_bwd["bound_by"], library_ms=k4_bwd["library_ms"],
+             **{k: v for k, v in k4_bwd.items() if k.startswith("d8_") and k != "d8_rows"}),
         dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
              replaces="latent_diffusion_speech_tpu/ops/pallas/flash_attention.py:89",
              launches=launches["flash_attention"], max_abs_err=k5["max_abs_err"],
@@ -4972,7 +5333,7 @@ def main() -> int:
              launches=train["launches"]["kmeans_argmin"] + train["options"]["kmeans_argmin"]
              + svc_launches["kmeans_argmin"]
              + data["launches"]["kmeans_argmin"] + alt["launches"]["kmeans_argmin"]
-             + mig["launches"]["kmeans_argmin"],
+             + mig["launches"]["kmeans_argmin"] + dp["kmeans_argmin"],
              max_abs_err=k6["max_abs_err"],
              ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"], bound_by=k6["bound_by"],
              library_ms=k6["library_ms"], stage17_ms=s17["ms"], stage17_plain_ms=s17["plain_ms"],

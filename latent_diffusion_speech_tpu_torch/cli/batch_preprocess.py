@@ -109,11 +109,9 @@ def batch_extract(
 
 
 def _process_index_count() -> tuple:
-    import torch.distributed as dist
+    from latent_diffusion_speech_tpu_torch.parallel.dist import process_count, process_index
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return process_index(), process_count()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -1,8 +1,10 @@
-"""Codec (HiFi-VAEGAN) adversarial training on one CUDA device.
+"""Codec (HiFi-VAEGAN) adversarial training, on one CUDA device or
+data-parallel over several.
 
 Counterpart of `latent_diffusion_speech_tpu/cli/train_codec.py`:
 
     python -m latent_diffusion_speech_tpu_torch.cli.train_codec -c configs/config.yaml [--max-steps N] [--use-vq]
+    torchrun --nproc_per_node=N -m latent_diffusion_speech_tpu_torch.cli.train_codec -c configs/config.yaml
 
 random crops of the audio under `<data.train_path>/audio` (the same crop
 stream as the JAX CLI: `default_rng(0)`, restarted with each run), batched
@@ -11,7 +13,13 @@ latest checkpoint of `--expdir`; metrics every `--interval-log` steps to
 `<expdir>/logs/metrics.jsonl` and stdout, a checkpoint every
 `--interval-save` steps and at `--max-steps`.  Step k's latent noise comes
 from `step_generator(0, k)` on the CPU, where the JAX CLI splits
-`PRNGKey(0)` once a step.
+`PRNGKey(0)` once a step.  Under `torchrun` each process joins the process
+group first (NCCL on `cuda:LOCAL_RANK`, gloo with `--device cpu`) and
+trains one rank of the data axis (every process), rank 0 logging and
+writing.  As in the JAX CLI, every process draws its crops from the same
+`default_rng(0)`, so the ranks' local batches are the same crops (a
+reference-side gap, ROADMAP.md Queue 3, R15): the global batch is that
+batch N times, with different latent noise.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ __all__ = ["main"]
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    p = config_parser("train the HiFi-VAEGAN codec on one CUDA device")
+    p = config_parser("train the HiFi-VAEGAN codec")
     p.add_argument("--expdir", type=str, default="exp/codec")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--crop-sec", type=float, default=0.74)
@@ -35,9 +43,14 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--use-vq", action="store_true")
     p.add_argument("--interval-log", type=int, default=100)
     p.add_argument("--interval-save", type=int, default=5000)
-    p.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
+    p.add_argument("--device", type=str, default=None, help="torch device (default: cuda:LOCAL_RANK)")
     args = p.parse_args(argv)
     cfg = load(args)
+
+    from latent_diffusion_speech_tpu_torch.parallel.dist import initialize_distributed, is_main_process, rank_device
+
+    device = rank_device(args.device)
+    initialize_distributed(device)
 
     from latent_diffusion_speech_tpu_torch.data.files import traverse_dir
     from latent_diffusion_speech_tpu_torch.models.vaegan.config import VAEGANConfig
@@ -47,9 +60,9 @@ def main(argv: Optional[Sequence[str]] = None):
     from latent_diffusion_speech_tpu_torch.utils.logger import MetricsLogger
 
     vcfg = VAEGANConfig(sampling_rate=cfg.data.sampling_rate)
-    trainer = CodecTrainer(vcfg, expdir=args.expdir, use_vq=args.use_vq, device=args.device)
+    trainer = CodecTrainer(vcfg, expdir=args.expdir, use_vq=args.use_vq, device=device)
     trainer.resume()
-    logger = MetricsLogger(args.expdir)
+    logger = MetricsLogger(args.expdir) if is_main_process() else None
 
     root = Path(cfg.data.train_path)
     files = traverse_dir(root / "audio", extensions=tuple(cfg.data.extensions))
@@ -75,7 +88,7 @@ def main(argv: Optional[Sequence[str]] = None):
                     s = int(rng.integers(0, len(audio) - crop))
                     batch[b] = audio[s: s + crop]
             metrics = trainer.train_step(batch, step_generator(0, trainer.step, "cpu"))
-            if trainer.step % args.interval_log == 0:
+            if trainer.step % args.interval_log == 0 and logger is not None:
                 logger.log(trainer.step, metrics)
                 print(f"step {trainer.step}: {metrics}", flush=True)
             if trainer.step % args.interval_save == 0:
@@ -84,7 +97,8 @@ def main(argv: Optional[Sequence[str]] = None):
                 trainer.save()
                 return trainer
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
-"""Stage 20: diffusion training on one CUDA device.
+"""Stage 20: diffusion training, on one CUDA device or data-parallel over
+several.
 
 Counterpart of `latent_diffusion_speech_tpu/cli/train_diffusion.py`:
 
     python -m latent_diffusion_speech_tpu_torch.cli.train_diffusion -c configs/config.yaml [--max-steps N]
+    torchrun --nproc_per_node=N -m latent_diffusion_speech_tpu_torch.cli.train_diffusion -c configs/config.yaml
 
 reads the config, builds the k-means unit quantizer when
 `text2semantic.train.use_units_quantize` is set and the codebook file
@@ -11,7 +13,12 @@ exists, the trainer (resumed from the latest checkpoint of
 loader (`loader_processes` spawn workers; batches through the native
 reader, raw and finished on the card with `device_collate`, units shipped
 in `transfer_dtype`; pinned in the loader's thread), and trains, printing one JSON
-line of metrics every `interval_log` steps.  One process, one device: no multi-process setup.
+line of metrics every `interval_log` steps.  Under `torchrun` each process
+joins the process group first (`parallel.initialize_distributed`: NCCL on
+its card `cuda:LOCAL_RANK`, gloo with `--device cpu`), reads its share of
+the files with its own seed (`process_index`, `process_count`), and trains
+one rank of the data axis (`cfg.parallel.data`, -1 for every process); rank
+0 prints the metrics.
 """
 
 from __future__ import annotations
@@ -33,10 +40,11 @@ class PrintLogger:
 
 
 def build(cfg: Config, device=None):
-    """(trainer, loader) as the entry point makes them; device None means
-    `cuda`."""
+    """(trainer, loader) as the entry point makes them, for this process's
+    rank when a process group exists; device None means `cuda`."""
     from latent_diffusion_speech_tpu_torch.data.diffusion_dataset import DiffusionDataset
     from latent_diffusion_speech_tpu_torch.data.loader import DataLoader
+    from latent_diffusion_speech_tpu_torch.parallel.dist import process_count, process_index
     from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
     from latent_diffusion_speech_tpu_torch.quantize.kmeans import load_codebook
     from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer
@@ -67,6 +75,8 @@ def build(cfg: Config, device=None):
         cache=tcfg.cache_all_data,
         device_collate=tcfg.device_collate,
         transfer_dtype=tcfg.transfer_dtype,
+        process_index=process_index(),
+        process_count=process_count(),
     )
     loader = DataLoader(dataset, tcfg.batch_size, shuffle=True, seed=tcfg.seed, num_workers=tcfg.loader_processes,
                         device_put=trainer.pin_batch)
@@ -74,11 +84,22 @@ def build(cfg: Config, device=None):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    p = config_parser("train the latent diffusion model (stage 20) on one CUDA device")
+    import torch.distributed as dist
+
+    from latent_diffusion_speech_tpu_torch.parallel.dist import (initialize_distributed, is_main_process, process_count,
+                                                                process_index, rank_device)
+
+    p = config_parser("train the latent diffusion model (stage 20)")
     p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--device", type=str, default=None, help="torch device (default: cuda:LOCAL_RANK)")
     args = p.parse_args(argv)
-    trainer, loader = build(load(args))
-    trainer.train(loader, max_steps=args.max_steps, logger=PrintLogger())
+    cfg = load(args)
+    device = rank_device(args.device)
+    if initialize_distributed(device):
+        print(f"rank {process_index()} of {process_count()}: {dist.get_backend()} process group on {device}",
+              flush=True)
+    trainer, loader = build(cfg, device=device)
+    trainer.train(loader, max_steps=args.max_steps, logger=PrintLogger() if is_main_process() else None)
 
 
 if __name__ == "__main__":

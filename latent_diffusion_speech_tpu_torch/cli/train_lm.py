@@ -1,8 +1,10 @@
-"""Stage 21: LM training (RoFormer or Llama) on one CUDA device.
+"""Stage 21: LM training (RoFormer or Llama), on one CUDA device or
+data-parallel over several.
 
 Counterpart of `latent_diffusion_speech_tpu/cli/train_lm.py`:
 
     python -m latent_diffusion_speech_tpu_torch.cli.train_lm -c configs/config.yaml [--max-steps N]
+    torchrun --nproc_per_node=N -m latent_diffusion_speech_tpu_torch.cli.train_lm -c configs/config.yaml
 
 reads the config, the k-means codebook when it exists (it warm-starts the
 semantic embeddings), the trainer (resumed from the latest checkpoint of
@@ -14,8 +16,12 @@ batches when `length_sorted`, `loader_processes` spawn workers), a
 `MetricsLogger` in the experiment directory, and the frozen serve pipeline
 for validation audio (`infer/load.py::load_native_pipeline`: the diffusion
 model of `diffusion.train.expdir` when it holds a checkpoint; skipped with a
-message when the pipeline's files cannot be read), then trains.  One
-process, one device.
+message when the pipeline's files cannot be read), then trains.  Under
+`torchrun` each process joins the process group first
+(`parallel.initialize_distributed`: NCCL on `cuda:LOCAL_RANK`, gloo with
+`--device cpu`), reads its share of the utterances (`process_index`,
+`process_count`) and trains one rank of the data axis; the logger, the
+evaluation and the validation pipeline live on rank 0 only.
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ __all__ = ["build", "main"]
 
 def build(cfg: Config, device=None):
     """(trainer, loader, val_loader, logger, pipe) as the entry point makes
-    them; device None means `cuda`.  `pipe` is None when the validation
-    pipeline cannot be built."""
+    them for this process's rank; device None means `cuda`.  `logger` and
+    `pipe` are None off rank 0, and `pipe` when the validation pipeline
+    cannot be built."""
     from latent_diffusion_speech_tpu_torch.data.lm_dataset import (
         TextDataset,
         collate_llama_batch,
@@ -40,6 +47,7 @@ def build(cfg: Config, device=None):
     )
     from latent_diffusion_speech_tpu_torch.data.loader import DataLoader
     from latent_diffusion_speech_tpu_torch.infer.load import load_native_pipeline
+    from latent_diffusion_speech_tpu_torch.parallel.dist import is_main_process, process_count, process_index
     from latent_diffusion_speech_tpu_torch.quantize.kmeans import load_codebook
     from latent_diffusion_speech_tpu_torch.train.checkpoint import latest_checkpoint_step
     from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
@@ -66,12 +74,15 @@ def build(cfg: Config, device=None):
 
     def make_loader(path, shuffle):
         ds = TextDataset(path, semantic_bos=sem_bos, semantic_eos=sem_eos, n_spk=cfg.common.n_spk,
+                         process_index=process_index(), process_count=process_count(),
                          cache=tcfg.cache_all_data)
         return DataLoader(ds, tcfg.batch_size, collate=collate, shuffle=shuffle, seed=tcfg.seed,
                           num_workers=tcfg.loader_processes, length_sorted=shuffle and tcfg.length_sorted)
 
     loader = make_loader(cfg.data.train_path, True)
     val_loader = make_loader(cfg.data.valid_path, False)
+    if not is_main_process():
+        return trainer, loader, val_loader, None, None
     logger = MetricsLogger(tcfg.expdir, config_snapshot=config_to_dict(cfg))
 
     # the frozen diffusion stack behind validation audio
@@ -87,17 +98,28 @@ def build(cfg: Config, device=None):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    p = config_parser("train the text -> semantic LM (stage 21) on one CUDA device")
+    import torch.distributed as dist
+
+    from latent_diffusion_speech_tpu_torch.parallel.dist import (initialize_distributed, process_count, process_index,
+                                                                rank_device)
+
+    p = config_parser("train the text -> semantic LM (stage 21)")
     p.add_argument("--max-steps", type=int, default=None)
-    p.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
+    p.add_argument("--device", type=str, default=None, help="torch device (default: cuda:LOCAL_RANK)")
     args = p.parse_args(argv)
-    trainer, loader, val_loader, logger, pipe = build(load(args), device=args.device)
+    cfg = load(args)
+    device = rank_device(args.device)
+    if initialize_distributed(device):
+        print(f"rank {process_index()} of {process_count()}: {dist.get_backend()} process group on {device}",
+              flush=True)
+    trainer, loader, val_loader, logger, pipe = build(cfg, device=device)
     try:
         trainer.train(loader, val_loader=val_loader, max_steps=args.max_steps, logger=logger, tts_pipeline=pipe)
     finally:
         loader.close()
         val_loader.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":

@@ -10,7 +10,8 @@
 //   dq    = ds k,   dk = ds^T q         (f32 accumulation, input-dtype out)
 //
 // What bounds it on this card: at the training shapes (B = 48, H = 8,
-// T = 11..88, D = 32..64) a call moves 2-9 MB and does 0.05-0.5 GFLOP
+// T = 11..88, D = 32..64; the block zoo's H = 32..64 at D = 8) a call
+// moves 1-9 MB and does 0.05-0.5 GFLOP
 // (five T x T x D products per head) on the CUDA cores in f32 (the trainer
 // turns TF32 off), a few to 14 µs of bound; the work per head is small, so
 // what sets the time is how much of the card runs at once and the latency
@@ -32,6 +33,13 @@
 // only warp barriers.  Inputs are read through their (b, t, h) strides, as
 // the forward reads them, so q/k/v may be views of a fused projection and
 // dout may come from autograd with any row stride.
+//
+// Head dim 8 (the block zoo's attention heads): a row is two 16-byte
+// chunks, but its shared-memory row is 32 floats wide, so the 3-bit chunk
+// swizzle stays inside the row (only chunks sw(r, 0) and sw(r, 1) are
+// used); a 32-key tile has 64 chunks for 128 threads, so the loads and
+// stores are masked by chunk and half the threads load nothing.  The 4 x 4
+// register tiles and their arithmetic are the same as at D = 32.
 
 #include "attention_fwd.cuh"
 
@@ -106,14 +114,15 @@ __device__ __forceinline__ float4 ld4s(const T* p) {
 // Shared memory of one head group (floats): the K, V, Q, dO and O tiles
 // (TILE x DP, 16-byte chunks of a row swizzled by `sw`), P and dS (TILE x
 // TILE, query row major), dS transposed, the lse and delta rows.
-__host__ __device__ constexpr int row_floats(int D) { return D == 48 ? 64 : D; }
+__host__ __device__ constexpr int row_floats(int D) { return D == 48 ? 64 : D == 8 ? 32 : D; }
 __host__ __device__ constexpr int group_floats(int D, int TILE) {
   return 5 * TILE * row_floats(D) + 3 * TILE * TILE + 2 * TILE;
 }
 
 // Physical 16-byte chunk of chunk c in row r: the low three bits XORed with
 // (r / 4) % 8, so the rows a warp reads together (4 apart, or consecutive
-// quads) fall in different banks.  D = 48 rows are padded to 16 chunks.
+// quads) fall in different banks.  D = 48 rows are padded to 16 chunks,
+// D = 8 rows to 8.
 __device__ __forceinline__ int sw(int r, int c) { return (c & ~7) | ((c ^ (r >> 2)) & 7); }
 
 template <int D, int TILE>
@@ -122,7 +131,8 @@ struct Group {
   static constexpr int Q = TILE / 4;           // 4-row (4-key) quads of a tile
   static constexpr int D4 = D / 4;             // 4-dim quads of a row
   static constexpr int DP = row_floats(D);     // floats a smem row
-  static constexpr int NCH = TILE * D4 / NG;   // 4-element chunks a thread loads per tile
+  static constexpr int CH = TILE * D4;          // 4-element chunks of a tile
+  static constexpr int NCH = (CH + NG - 1) / NG;  // chunks a thread loads per tile (masked where CH % NG)
   static constexpr int SA = (2 * Q * D4 + NG - 1) / NG;  // dv / dk quad pairs a thread
   static constexpr int SQ = (Q * D4 + NG - 1) / NG;      // dq quad pairs a thread
 };
@@ -144,6 +154,7 @@ __device__ __forceinline__ void fetch(float4 (&dst)[Group<D, TILE>::NCH], const 
   for (int i = 0; i < G::NCH; ++i) {
     const int c = gt + G::NG * i, r = c / G::D4, col = (c % G::D4) * 4;
     const T* p = src + (long long)(r0 + r) * st + col;
+    // a chunk past the tile (c >= CH) has r >= TILE >= n: zero, never read
     dst[i] = r < n ? (vec ? ld4v(p) : ld4s(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
@@ -154,6 +165,7 @@ __device__ __forceinline__ void store(float* dst, const float4 (&src)[Group<D, T
 #pragma unroll
   for (int i = 0; i < G::NCH; ++i) {
     const int c = gt + G::NG * i, r = c / G::D4;
+    if (G::CH % G::NG != 0 && c >= G::CH) continue;  // past the tile (D = 8, 32-key tiles)
     *reinterpret_cast<float4*>(dst + r * G::DP + sw(r, c % G::D4) * 4) = src[i];
   }
 }
@@ -443,6 +455,7 @@ int launch(const BwdArgs* args) {
   if ((n_kt > 1) != (a.dq_part != nullptr) || (n_kt > 1 && a.counters == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (a.D) {
+    case 8: return launch_d<T, 8>(a);
     case 32: return launch_d<T, 32>(a);
     case 48: return launch_d<T, 48>(a);
     case 64: return launch_d<T, 64>(a);

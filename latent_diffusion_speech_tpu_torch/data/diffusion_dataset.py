@@ -20,9 +20,10 @@ int32 (the nearest-alignment gather index into it), `spk_id`, `aug_shift`.
 `transfer_dtype="bfloat16"` ships `units_raw` as bf16 bits in a uint16
 array (numpy has no bfloat16; the trainer views them as `torch.bfloat16`).
 The JAX package's options that its training entry point leaves at their
-defaults are fixed here: no `aug_mel/` draw (`use_aug`), fixed-length
-crops (no `whole_audio`) and seed 0.  Per-process sharding of the file
-list is not ported (ROADMAP.md).
+defaults are fixed here: no `aug_mel/` draw (`use_aug`) and fixed-length
+crops (no `whole_audio`).  Under data parallelism each process reads
+`paths[process_index::process_count]` (speaker ids still from every path)
+and draws from seed + process_index, as the JAX dataset does.
 """
 
 from __future__ import annotations
@@ -57,19 +58,25 @@ class DiffusionDataset:
         cache: bool = False,
         device_collate: bool = False,
         transfer_dtype: Optional[str] = None,
+        process_index: int = 0,
+        process_count: int = 1,
+        seed: int = 0,
     ):
         """device_collate: `fast_batch` returns the raw form; transfer_dtype:
         None (f32), "bfloat16" (uint16 bits) or a numpy dtype name for the
-        raw form's `units_raw`."""
+        raw form's `units_raw`; process_index, process_count: this process's
+        share of the files; seed: the item draws' seed (plus process_index)."""
         self.root = Path(path_root)
         self.frame_len = int(waveform_sec * sample_rate / hop_size)
         self.units_forced_mode = units_forced_mode
         self.only_mean = only_mean
         self.clamp = clamp
 
-        self.paths = traverse_dir(self.root / "audio", extensions=extensions)
-        self.spk_map = speaker_id_map(self.paths) if (n_spk and n_spk > 1) else {}
-        # per-item draws are keyed on (seed 0, epoch, index): set_epoch and
+        all_paths = traverse_dir(self.root / "audio", extensions=extensions)
+        self.spk_map = speaker_id_map(all_paths) if (n_spk and n_spk > 1) else {}
+        self.paths = all_paths[process_index::process_count]
+        self.seed = seed + process_index
+        # per-item draws are keyed on (seed, epoch, index): set_epoch and
         # the loader's epoch-keyed shuffle make the stream reproducible
         self.epoch = 0
         self._cache: Optional[Dict] = {} if cache else None
@@ -94,7 +101,7 @@ class DiffusionDataset:
         self.epoch = int(epoch)
 
     def _item_rng(self, idx) -> np.random.Generator:
-        return np.random.default_rng([0, self.epoch, int(idx)])
+        return np.random.default_rng([self.seed, self.epoch, int(idx)])
 
     def _load(self, name_ext: str, kind: str) -> np.ndarray:
         if self._cache is not None and (name_ext, kind) in self._cache:

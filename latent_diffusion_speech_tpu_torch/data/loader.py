@@ -249,7 +249,8 @@ class DataLoader:
                 return
             put(sentinel)
 
-        threading.Thread(target=producer, daemon=True).start()
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
         try:
             while True:
                 item = q.get()
@@ -260,4 +261,7 @@ class DataLoader:
                     raise item
                 yield item
         finally:
+            # the producer finishes its batch in flight and returns: none is
+            # left inside the native reader when the process exits
             stop.set()
+            thread.join()

@@ -34,6 +34,7 @@ from latent_diffusion_speech_tpu_torch.models.diffusion.samplers import (
     unipc_vary_sample,
 )
 from latent_diffusion_speech_tpu_torch.models.diffusion.schedule import DiffusionSchedule, NoiseSchedule
+from latent_diffusion_speech_tpu_torch.parallel import mesh as rows
 
 __all__ = ["GaussianDiffusion"]
 
@@ -88,14 +89,15 @@ class GaussianDiffusion:
     ) -> torch.Tensor:
         """Training loss, differentiable in the denoiser's parameters.
         gt_spec (B, T, M), cond (B, T, H); t and the noise are drawn from
-        `generator` (on the tensors' device)."""
+        `generator` (on the tensors' device; a `parallel.mesh.RowGenerator`
+        draws them for the global batch and keeps this rank's rows)."""
         if loss_type not in ("l1", "l2"):
             raise NotImplementedError(loss_type)
         B = gt_spec.shape[0]
         t_max = k_step or self.k_step
-        t = torch.randint(0, t_max, (B,), generator=generator, device=gt_spec.device)
+        t = rows.randint(0, t_max, (B,), generator, device=gt_spec.device)
         x_start = self.norm_spec(gt_spec)
-        noise = torch.randn(x_start.shape, generator=generator, device=x_start.device, dtype=x_start.dtype)
+        noise = rows.randn(x_start.shape, generator, device=x_start.device, dtype=x_start.dtype)
         x_noisy = self.q_sample(x_start, t, noise)
 
         x_noisy, cond, orig_T = self._pad(x_noisy, cond)

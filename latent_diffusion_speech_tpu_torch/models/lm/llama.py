@@ -296,21 +296,23 @@ class LlamaSystem:
     # the shifted next-token CE in f32 with -100 ignored: the RoFormer's
     _ce = staticmethod(RoformerSystem._ce)
 
-    def loss_of(self, logits: torch.Tensor, aux: List[torch.Tensor], labels: torch.Tensor) -> torch.Tensor:
-        """The CE plus `moe_aux_weight` times the mean of the layers' Switch
-        auxiliary losses (with experts)."""
-        ce = self._ce(logits, labels)
+    def loss_of(self, logits: torch.Tensor, aux: List[torch.Tensor], labels: torch.Tensor,
+                denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The CE (over `denom`, `RoformerSystem._ce`) plus `moe_aux_weight`
+        times the mean of the layers' Switch auxiliary losses (with experts)."""
+        ce = self._ce(logits, labels, denom)
         if self.cfg.moe_experts <= 0:
             return ce
         return ce + self.cfg.moe_aux_weight * (sum(aux) / max(len(aux), 1))
 
-    def loss(self, batch: Dict[str, torch.Tensor], generator=None) -> torch.Tensor:
+    def loss(self, batch: Dict[str, torch.Tensor], generator=None,
+             denom: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Causal CE with -100 ignored, plus the MoE auxiliary loss, of a
         collated device batch (`data/lm_dataset.py::collate_llama_batch`).  The
         Llama has no dropout: `generator` is taken for the trainer's sake
-        and unused."""
+        and unused.  denom: the CE's divisor (`loss_of`)."""
         logits, aux = self.module(batch["input_ids"], batch.get("attention_mask"))
-        return self.loss_of(logits, aux, batch["labels"])
+        return self.loss_of(logits, aux, batch["labels"], denom)
 
     def loss_pp(self, *args, **kwargs):
         """The JAX package's pipeline-parallel loss (GPipe over a mesh

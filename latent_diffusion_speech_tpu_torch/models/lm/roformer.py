@@ -381,14 +381,16 @@ class RoformerSystem:
         self.module = cast_compute_dtype(module, dtype).to(self.device).train(training)
 
     @staticmethod
-    def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    def _ce(logits: torch.Tensor, labels: torch.Tensor, denom: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Shifted next-token CE (logits[:, :-1] against labels[:, 1:]) in
-        f32 over the positions whose label is not -100."""
+        f32 over the positions whose label is not -100: the sum of their
+        nll over their count, or over `denom` when given (a data-parallel
+        rank's share of the global count, `train/lm_trainer.py`)."""
         logits, targets = logits[:, :-1], labels[:, 1:]
         valid = targets != -100
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, torch.where(valid, targets, 0).long()[..., None])[..., 0]
-        return (nll * valid).sum() / valid.sum().clamp_min(1)
+        return (nll * valid).sum() / (valid.sum().clamp_min(1) if denom is None else denom)
 
     def logits(self, batch: Dict[str, torch.Tensor], generator: Generator = None) -> torch.Tensor:
         """The teacher-forced logits (B, S, V) of a collated device batch
@@ -398,11 +400,12 @@ class RoformerSystem:
             batch.get("encoder_attention_mask"), batch.get("attention_mask"), generator=generator,
         )
 
-    def loss(self, batch: Dict[str, torch.Tensor], generator: Generator = None) -> torch.Tensor:
+    def loss(self, batch: Dict[str, torch.Tensor], generator: Generator = None,
+             denom: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Causal CE with -100 ignored (HF convention).  generator: dropout
         when the module is in training mode; None is deterministic, as the
-        JAX loss with dropout_rng=None."""
-        return self._ce(self.logits(batch, generator), batch["labels"])
+        JAX loss with dropout_rng=None.  denom: the CE's divisor (`_ce`)."""
+        return self._ce(self.logits(batch, generator), batch["labels"], denom)
 
     @torch.no_grad()
     def generate(

@@ -29,6 +29,7 @@ import torch
 
 from latent_diffusion_speech_tpu_torch.ops.kernels.flash_attention import flash_attention
 from latent_diffusion_speech_tpu_torch.ops.kernels.fused_attention import fused_attention
+from latent_diffusion_speech_tpu_torch.parallel import mesh as rows
 
 __all__ = ["dot_product_attention", "dropout", "rotate_half", "apply_rotary", "MAX_FUSED_T"]
 
@@ -85,10 +86,12 @@ def dot_product_attention(
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax nn.Dropout: keep ~ Bernoulli(1 - rate), kept values divided by
-    (1 - rate); the identity without a generator or at rate 0."""
+    (1 - rate); the identity without a generator or at rate 0.  A
+    `parallel.mesh.RowGenerator` draws the mask for the global batch (x's
+    leading dimension is the batch) and keeps this rank's rows."""
     if generator is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = rows.rand(x.shape, generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -47,7 +47,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 HEAD_DIMS = (8, 32, 48, 64)  # the attention forward kernels' head dims (a template parameter each)
-BWD_HEAD_DIMS = (32, 48, 64)  # the K4 backward's
+BWD_HEAD_DIMS = HEAD_DIMS  # the K4 backward's (a template parameter each)
 PACKED_ARGTYPES = [ctypes.c_char_p]  # a C entry that takes one packed struct
 
 _lock = threading.Lock()

@@ -33,10 +33,8 @@ runs them on one stream.
 through `FusedAttention`, the counterpart of the JAX `custom_vjp`, which
 saves (q, k, v, out, lse) and runs the backward kernel; otherwise (serving,
 `torch.no_grad()`) it launches the forward kernel alone, saving nothing.
-The forward takes head dims 8, 32, 48 and 64 (`SUPPORTED_HEAD_DIMS`), the
-backward 32, 48 and 64 (`BWD_HEAD_DIMS`): on CUDA tensors a call that
-needs a gradient at head dim 8 raises ValueError before the forward runs
-(ROADMAP.md Queue 2).
+The forward and the backward take head dims 8, 32, 48 and 64
+(`SUPPORTED_HEAD_DIMS`, `BWD_HEAD_DIMS`); head dim 8 is the block zoo's.
 """
 
 from __future__ import annotations
@@ -295,8 +293,5 @@ def fused_attention(
     version on CPU; differentiable through `FusedAttention` when a
     gradient is needed, the forward alone otherwise."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q.is_cuda and q.shape[-1] not in BWD_HEAD_DIMS:
-            raise ValueError(f"fused_attention: the K4 backward takes head dims {BWD_HEAD_DIMS}, not head dim "
-                             f"{q.shape[-1]}; train with attn_impl='xla' (ROADMAP.md Queue 2)")
         return FusedAttention.apply(q, k, v, scale)
     return fused_attention_with_lse(q, k, v, scale)[0]

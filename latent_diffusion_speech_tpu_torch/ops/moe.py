@@ -1,9 +1,8 @@
 """Mixture-of-Experts feed-forward (GShard / Switch routing) in PyTorch.
 
-Counterpart of `latent_diffusion_speech_tpu/ops/moe.py::MoEMLP` on one
-device: every expert lives on it, so there is no `mesh` and no expert
-sharding (the trainer raises for `parallel.expert > 1`).  Routing is the
-JAX module's:
+Counterpart of `latent_diffusion_speech_tpu/ops/moe.py::MoEMLP`: every
+expert lives on each device, so there is no expert sharding (the trainer
+raises for `parallel.expert > 1`).  Routing is the JAX module's:
 
 * a softmax router in f32 whatever the compute dtype;
 * top-k experts a token, ties broken toward the lower expert index (as
@@ -26,10 +25,24 @@ that empty slots read, and that dropped tokens point at), the experts run
 as batched products, and each token gathers its k outputs back.  Every
 index operation is a gather whose backward accumulates through PyTorch's
 `index_put_`, which is deterministic under `torch.use_deterministic_algorithms`.
+
+Under data parallelism (`mesh`, set for a training forward by
+`data_parallel`) JAX's S is the global batch's tokens, so the capacity and
+each choice's slot are global: every rank gathers every rank's (choice,
+expert) counts (one all-gather a layer) and offsets its own slots by the
+choices that rank after rank, slot after slot, come before them; a choice
+is kept when its global slot is below the global capacity.  Kept choices
+are a prefix of the rank's own in slot-major order, so its bank holds them
+at their local positions.  The Switch loss takes f_e from the gathered
+counts and p_e over the global batch: each rank returns E sum_e f_e times
+its share of p_e scaled by the world, whose mean over the ranks (the
+gradient all-reduce's average) is the global loss and its gradient.  A
+per-rank capacity would drop other tokens: another model.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Tuple
 
@@ -39,7 +52,7 @@ from torch import nn
 
 from latent_diffusion_speech_tpu_torch.ops.layers import ComputeDtype
 
-__all__ = ["MoEMLP", "top_k_lowest_index"]
+__all__ = ["MoEMLP", "top_k_lowest_index", "data_parallel"]
 
 
 def top_k_lowest_index(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,6 +91,7 @@ class MoEMLP(ComputeDtype, nn.Module):
         self.w_up = nn.Parameter(torch.empty(E, C, F_))
         self.w_down = nn.Parameter(torch.empty(E, F_, C))
         self.drop_fraction = None
+        self.mesh = None  # a data-parallel `parallel.mesh.Mesh` with a group, set by `data_parallel`
 
     @torch.no_grad()
     def init_flax(self, generator: torch.Generator) -> None:
@@ -111,12 +125,25 @@ class MoEMLP(ComputeDtype, nn.Module):
         gate_vals, gate_idx = top_k_lowest_index(probs, k)  # (S, k)
         gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
 
-        cap = self.capacity(S)
         # slot-major order: every token's first choice, then every second one
         expert = gate_idx.t().reshape(k * S)
         onehot = F.one_hot(expert, E)  # (k S, E), the only routing tensor
         pos = torch.gather(torch.cumsum(onehot, dim=0), 1, expert[:, None])[:, 0] - 1
-        keep = pos < cap
+        if self.mesh is None:
+            cap = self.capacity(S)
+            keep = pos < cap
+        else:
+            counts = onehot.view(k, S, E).sum(dim=1)  # (k, E): this rank's choices by slot and expert
+            everyone = self.mesh.all_gather(counts)  # (W, k, E)
+            total = everyone.sum(dim=0)
+            # choices before each of this rank's: the slots before its own on
+            # every rank, and its own slot on the ranks before it, less the
+            # rank's own earlier slots (which `pos` already counts)
+            base = (total.cumsum(0) - total) + everyone[:self.mesh.index].sum(0) - (counts.cumsum(0) - counts)
+            slot = torch.arange(k * S, device=x.device) // S
+            global_cap = self.capacity(S * self.mesh.size)
+            keep = pos + base[slot, expert] < global_cap
+            cap = min(global_cap, k * S)
         # row of each choice in the (E, cap + 1) bank; a dropped choice points
         # at its expert's zero row (index cap)
         row = expert * (cap + 1) + torch.where(keep, pos, cap)
@@ -134,8 +161,29 @@ class MoEMLP(ComputeDtype, nn.Module):
         weight = (gate_vals.t().reshape(k * S) * keep).to(dtype)
         y = (out[row] * weight[:, None]).view(k, S, C).sum(dim=0)
 
-        f_e = F.one_hot(gate_idx[:, 0], E).float().mean(dim=0)
-        p_e = probs.mean(dim=0)
+        if self.mesh is None:
+            f_e = F.one_hot(gate_idx[:, 0], E).float().mean(dim=0)
+            p_e = probs.mean(dim=0)
+            self.drop_fraction = 1.0 - keep.float().mean().detach()
+        else:
+            S_all = S * self.mesh.size
+            f_e = total[0].float() / S_all
+            p_e = probs.sum(dim=0) * (self.mesh.size / S_all)
+            self.drop_fraction = 1.0 - total.sum(0).clamp_max(global_cap).sum().float() / (k * S_all)
         aux = E * torch.sum(f_e * p_e)
-        self.drop_fraction = 1.0 - keep.float().mean().detach()
         return y.reshape(B, T, C), aux
+
+
+@contextlib.contextmanager
+def data_parallel(module: nn.Module, mesh):
+    """Route every `MoEMLP` of `module` over the global batch of `mesh` (a
+    `parallel.mesh.Mesh` with a group) for the block: a training forward
+    that every rank runs together.  Restored after."""
+    layers = [m for m in module.modules() if isinstance(m, MoEMLP)]
+    for m in layers:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.mesh = None

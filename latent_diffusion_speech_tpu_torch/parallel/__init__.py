@@ -1,0 +1,33 @@
+"""Data parallelism on `torch.distributed`: the process group, the mesh over
+it, and the batch's rows.
+
+Counterpart of `latent_diffusion_speech_tpu/parallel/`.  The reference's
+only parallelism is DDP through HF accelerate; the JAX package lays it out
+as a mesh whose `data` axis runs one global program, with XLA inserting the
+gradient all-reduce.  Here each process drives one device (`torchrun`
+starts one a device), the `data` axis runs over the processes, and the
+trainers take the collectives themselves: one coalesced gradient
+all-reduce a step (`train/optim.py`), the random draws made for the global
+batch with each rank keeping its rows (`mesh.RowGenerator`), and the
+losses and statistics that JAX takes over the global batch reduced across
+ranks (the LM's token count, the MoE's routing counts, the learned VQ's
+EMA statistics).  Tensor, sequence, pipeline and expert parallelism are not
+ported (ROADMAP.md Queue 1, item 10).
+"""
+
+from latent_diffusion_speech_tpu_torch.parallel.dist import (  # noqa: F401
+    initialize_distributed,
+    is_main_process,
+    local_device_count,
+    process_count,
+    process_index,
+    rank_device,
+    sync_global_devices,
+)
+from latent_diffusion_speech_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    MeshSpec,
+    RowGenerator,
+    build_mesh,
+    shard_batch,
+)

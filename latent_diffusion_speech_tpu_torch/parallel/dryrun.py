@@ -1,0 +1,133 @@
+"""A data-parallel dry run over CPU processes: one step of each trainer.
+
+The port's counterpart of `__graft_entry__.dryrun_multichip`, which runs one
+real train step of the diffusion trainer and of the LM trainer in each of
+its mesh layouts on virtual CPU devices.  Here `dryrun_multichip(n)` starts
+n CPU processes in a gloo group (`torch.multiprocessing`, spawned) and
+runs one data-parallel step on tiny shapes of the diffusion trainer, then
+of the RoFormer and the Llama, dense and with experts, each rank on its
+rows of one global batch; rank 0 prints each loss, and every loss must be
+finite and the same on every rank.  JAX's other layouts (sequence, tensor,
+pipeline and expert parallelism and their compositions) raise
+NotImplementedError naming ROADMAP.md Queue 1, item 10.
+
+    python -m latent_diffusion_speech_tpu_torch.parallel.dryrun 2
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import socket
+import sys
+import tempfile
+from typing import Sequence
+
+import numpy as np
+
+__all__ = ["dryrun_multichip", "LAYOUTS", "NOT_PORTED"]
+
+LAYOUTS = ("data-parallel",)
+NOT_PORTED = ("seq-parallel", "pipeline", "roformer-pipeline", "expert-parallel", "dp-tp-pp", "pp-ep")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _lm_step(name, lm_type, expdir, rng, moe_experts=0):
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.config import Config
+    from latent_diffusion_speech_tpu_torch.parallel.mesh import shard_batch
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
+
+    cfg = Config()
+    m = cfg.text2semantic.model
+    m.type, m.semantic_kmeans_num = lm_type, 16
+    for stack in (m.encoder, m.decoder):
+        stack.hidden_size, stack.num_attention_heads, stack.intermediate_size = 32, 2, 48
+        stack.num_hidden_layers = 2
+        stack.hidden_dropout_prob = stack.attention_probs_dropout_prob = 0.0
+    if moe_experts:
+        m.moe_experts, m.moe_capacity_factor = moe_experts, 4.0
+    cfg.text2semantic.train.expdir = expdir
+    trainer = LMTrainer(cfg, device="cpu")
+    B, L = max(4 * trainer.mesh.size, 8), 16
+    if lm_type == "llama":
+        ids = rng.integers(0, trainer.lm_cfg.vocab_size, (B, L)).astype(np.int32)
+        batch = {"input_ids": ids, "labels": ids.copy(), "attention_mask": np.ones_like(ids)}
+    else:
+        batch = {
+            "phone": rng.integers(1, 40, (B, L)).astype(np.int32),
+            "tone": rng.integers(0, 5, (B, L)).astype(np.int32),
+            "semantic": rng.integers(0, 16, (B, L)).astype(np.int32),
+            "labels": rng.integers(0, 16, (B, L)).astype(np.int32),
+            "spk_id": np.ones((B, L), np.int32),
+            "encoder_attention_mask": np.ones((B, L), np.int32),
+            "attention_mask": np.ones((B, L), np.int32),
+        }
+    loss = trainer.train_step(trainer.device_put_batch(shard_batch(trainer.mesh, batch)))["loss"]
+    return name, loss, dict(trainer.mesh.shape)
+
+
+def _rank(index: int, n: int, port: int, expdir: str) -> None:
+    os.environ.update(RANK=str(index), LOCAL_RANK=str(index), WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.config import Config
+    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig
+    from latent_diffusion_speech_tpu_torch.parallel.dist import initialize_distributed
+    from latent_diffusion_speech_tpu_torch.parallel.mesh import shard_batch
+    from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer
+    from latent_diffusion_speech_tpu_torch.train.optim import step_generator
+
+    torch.set_num_threads(1)
+    initialize_distributed("cpu")
+    cfg = Config()
+    cfg.diffusion.train.expdir = f"{expdir}/diffusion"
+    tiny = Unit2MelConfig(input_channel=16, n_spk=4, out_dims=8, n_hidden=16, block_out_channels=(16, 16),
+                          n_heads=2, timesteps=20, k_step=20)
+    trainer = DiffusionTrainer(cfg, model_cfg=tiny, device="cpu")
+    rng = np.random.default_rng(0)
+    B, T = n * 2, 32
+    batch = {"units": rng.standard_normal((B, T, 16)).astype(np.float32),
+             "mel": rng.standard_normal((B, T, 8)).astype(np.float32),
+             "spk_id": np.ones((B, 1), np.int32), "aug_shift": np.zeros((B, 1), np.float32)}
+    loss = trainer.train_step(trainer.device_put_batch(shard_batch(trainer.mesh, batch)),
+                              step_generator(0, 0, "cpu"))["loss"]
+    results = [("diffusion", loss, dict(trainer.mesh.shape))]
+    for name, lm_type, experts in (("roformer", "roformer", 0), ("llama", "llama", 0), ("llama-moe", "llama", 4)):
+        results.append(_lm_step(name, lm_type, f"{expdir}/{name}", rng, experts))
+    losses = torch.stack([r[1] for r in results])
+    everyone = [torch.empty_like(losses) for _ in range(n)]
+    torch.distributed.all_gather(everyone, losses)
+    for name, loss, shape in results:
+        value = float(loss)
+        if not math.isfinite(value):
+            raise RuntimeError(f"dryrun_multichip({n}): {name} non-finite loss {value}")
+        if index == 0:
+            print(f"dryrun_multichip({n}): {name} ok, loss={value:.4f}, mesh={shape}", flush=True)
+    if not all(torch.equal(e, losses) for e in everyone):
+        raise RuntimeError(f"dryrun_multichip({n}): the ranks' losses differ: {[e.tolist() for e in everyone]}")
+    torch.distributed.destroy_process_group()
+
+
+def dryrun_multichip(n_devices: int, layouts: Sequence[str] = LAYOUTS) -> None:
+    """One data-parallel step of each trainer on `n_devices` CPU ranks over
+    gloo; raises for a layout that is not ported."""
+    for layout in layouts:
+        if layout not in LAYOUTS:
+            raise NotImplementedError(f"dryrun layout {layout!r}: only data parallelism is ported; sequence, "
+                                      "tensor, pipeline and expert parallelism are not (ROADMAP.md Queue 1, item 10)")
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as expdir:
+        mp.start_processes(_rank, args=(n_devices, _free_port(), expdir), nprocs=n_devices, start_method="spawn")
+
+
+if __name__ == "__main__":
+    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 2)

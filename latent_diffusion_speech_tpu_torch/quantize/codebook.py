@@ -101,13 +101,15 @@ class VectorQuantize:
         return state.codebook[ids.long()] @ state.proj_out
 
     def __call__(
-        self, state: VQState, x: torch.Tensor, train: bool = True
+        self, state: VQState, x: torch.Tensor, train: bool = True, mesh=None
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, VQState]:
         """Quantize with the straight-through estimator: (quantized (..., D),
         ids (...), commitment loss, new state).  The gradient reaches `x`
         through the projection (straight through the snap, and through the
         commitment loss); with `train` the codebook and counts take one EMA
-        step from this batch."""
+        step from this batch, or under a data-parallel `mesh`
+        (`parallel.mesh.Mesh`) from the global batch: the code counts and
+        sums are summed over its ranks (one all-reduce)."""
         flat = x.reshape(-1, self.dim).float()
         z = flat @ state.proj_in
         zn = _l2norm(z)
@@ -121,6 +123,8 @@ class VectorQuantize:
                 onehot = torch.nn.functional.one_hot(ids, self.codebook_size).float()
                 counts = onehot.sum(dim=0)
                 sums = onehot.T @ zn
+                if mesh is not None:
+                    mesh.all_reduce_sum_([counts, sums])
                 new_counts = state.ema_counts * self.decay + counts * (1 - self.decay)
                 means = sums / counts.clamp_min(1.0)[:, None]
                 updated = torch.where((counts > 0)[:, None],

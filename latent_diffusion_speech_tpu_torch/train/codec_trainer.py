@@ -1,7 +1,9 @@
 """HiFi-VAEGAN codec trainer: alternating discriminator and generator steps.
 
-Counterpart of `latent_diffusion_speech_tpu/train/codec_trainer.py` on one
-device, in f32 (TF32 off, as the other trainers):
+Counterpart of `latent_diffusion_speech_tpu/train/codec_trainer.py`, on one
+device or data-parallel over every process (the JAX trainer spreads over
+every device, `build_mesh()` without the config), in f32 (TF32 off, as the
+other trainers):
 * the discriminator step reconstructs the batch without the VQ (as the JAX
   step does, so with `use_vq` the discriminator sees unquantised fakes),
   then steps on the LSGAN loss of real against the detached fakes;
@@ -18,8 +20,13 @@ device, in f32 (TF32 off, as the other trainers):
   state, as in the JAX trainer (ROADMAP.md R9).
 The encoder's latent noise of each step is drawn from a generator the caller
 passes; `train_step` draws it on the CPU and moves it over, so a step on the
-card and the same step on the CPU see the same noise.  The JAX trainer's
-`mesh` is the port's `device` (None means `cuda`).
+card and the same step on the CPU see the same noise.  `device` (None means
+`cuda`) is a rank's device.  Under data parallelism (`mesh`, default
+`build_mesh()`) each rank holds its rows of the global batch (the same shape
+on every rank), the noise is drawn for the global batch and each rank keeps
+its rows, the VQ's EMA statistics are summed over the ranks, and both steps
+average their gradients and losses over the ranks (one all-reduce each);
+`save` writes on rank 0, then a barrier.
 """
 
 from __future__ import annotations
@@ -41,6 +48,10 @@ from latent_diffusion_speech_tpu_torch.models.vaegan.losses import (
 )
 from latent_diffusion_speech_tpu_torch.models.vaegan.models import Generator, VAEEncoder
 from latent_diffusion_speech_tpu_torch.ops.layers import init_weights, no_tf32, resolve_device
+from latent_diffusion_speech_tpu_torch.parallel import mesh as rows
+from latent_diffusion_speech_tpu_torch.parallel.dist import is_main_process, sync_global_devices
+from latent_diffusion_speech_tpu_torch.parallel.mesh import Mesh, RowGenerator, build_mesh
+from latent_diffusion_speech_tpu_torch.parallel.multihost import gather_to_host, global_shard_batch
 from latent_diffusion_speech_tpu_torch.quantize.codebook import VectorQuantize
 from latent_diffusion_speech_tpu_torch.train.checkpoint import latest_checkpoint_step, load_checkpoint, save_checkpoint
 from latent_diffusion_speech_tpu_torch.train.optim import AdamW
@@ -63,11 +74,14 @@ class CodecTrainer:
         disc_scales=((1024, 256, 1024), (512, 128, 512)),
         disc_periods=(2, 3, 5, 7, 11),
         device=None,
+        mesh: Optional[Mesh] = None,
     ):
         """Seeded weights (flax's initialisers, from one CPU generator
         seeded with `seed`: the encoder, the generator, the bank, then the
-        VQ state).  device: None means `cuda` (raises without a card)."""
+        VQ state).  device: None means `cuda` (raises without a card).
+        mesh: the data-parallel mesh (default: every process)."""
         self.cfg = cfg or VAEGANConfig()
+        self.mesh = mesh if mesh is not None else build_mesh()
         self.device = resolve_device(device)
         no_tf32()  # f32 as the JAX trainer computes
         self.expdir = expdir
@@ -84,6 +98,7 @@ class CodecTrainer:
         self.gen_params = list(self.encoder.parameters()) + list(self.generator.parameters())
         self.gen_opt = AdamW(self.gen_params, lr, betas=(0.8, 0.99))
         self.disc_opt = AdamW(self.disc.parameters(), lr, betas=(0.8, 0.99))
+        self.gen_opt.mesh = self.disc_opt.mesh = self.mesh
         self.step = 0
 
     def _reconstruct(self, audio: torch.Tensor, eps: torch.Tensor, vq: bool):
@@ -92,14 +107,18 @@ class CodecTrainer:
         z = m + eps * torch.exp(logs)
         commit, vq_state = 0.0, None
         if vq and self.vq is not None:
-            z, _, commit, vq_state = self.vq(self.vq_state, z, train=True)
+            z, _, commit, vq_state = self.vq(self.vq_state, z, train=True,
+                                             mesh=self.mesh if self.mesh.group is not None else None)
         return self.generator(z), m, logs, commit, vq_state
 
     def latent_noise(self, audio: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         """One step's encoder noise, (B, T // hop, inter_channels), drawn
-        from a CPU `generator` and moved to the trainer's device."""
+        from a CPU `generator` (by rows under a mesh) and moved to the
+        trainer's device."""
         shape = (audio.shape[0], audio.shape[-1] // self.cfg.hop_size, self.cfg.inter_channels)
-        return torch.randn(shape, generator=generator).to(self.device)
+        if self.mesh.group is not None:
+            generator = RowGenerator(generator, self.mesh)
+        return rows.randn(shape, generator).to(self.device)
 
     def disc_step(self, audio: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         """One discriminator update; returns its loss (a device scalar)."""
@@ -110,8 +129,9 @@ class CodecTrainer:
         fake_logits, _ = self.disc(fake)
         loss, _ = discriminator_loss(real_logits, fake_logits)
         loss.backward()
-        self.disc_opt.apply_update()
-        return loss.detach()
+        loss = loss.detach().clone()
+        self.disc_opt.apply_update(reduce=[loss])
+        return loss
 
     def gen_step(self, audio: torch.Tensor, eps: torch.Tensor):
         """One generator (and encoder) update against the fixed
@@ -131,16 +151,18 @@ class CodecTrainer:
             total.backward()
         finally:
             self.disc.requires_grad_(True)
-        self.gen_opt.apply_update()
+        aux = {"gen/adv": adv, "gen/fm": fm, "gen/kl": kl, "gen/mel": mel}
+        total, aux = total.detach().clone(), {k: v.detach().clone() for k, v in aux.items()}
+        self.gen_opt.apply_update(reduce=[total, *aux.values()])
         if vq_state is not None:
             self.vq_state = vq_state
-        aux = {"gen/adv": adv, "gen/fm": fm, "gen/kl": kl, "gen/mel": mel}
-        return total.detach(), {k: v.detach() for k, v in aux.items()}
+        return total, aux
 
     def train_step(self, audio, generator: torch.Generator) -> Dict[str, float]:
         """One alternating D/G step on (B, T) audio (T a hop multiple), the
         two steps' latent noise drawn in turn from the CPU `generator`."""
-        audio = torch.as_tensor(np.asarray(audio, np.float32)).to(self.device)
+        audio = global_shard_batch(self.mesh, {"audio": torch.as_tensor(np.asarray(audio, np.float32))})["audio"]
+        audio = audio.to(self.device)
         eps_d = self.latent_noise(audio, generator)
         eps_g = self.latent_noise(audio, generator)
         d_loss = self.disc_step(audio, eps_d)
@@ -149,9 +171,12 @@ class CodecTrainer:
         return {"disc/loss": float(d_loss), "gen/loss": float(g_loss), **{k: float(v) for k, v in aux.items()}}
 
     def save(self, keep: int = 4):
-        params = {"gen": {"encoder": self.encoder.state_dict(), "generator": self.generator.state_dict()},
-                  "disc": self.disc.state_dict()}
-        save_checkpoint(self.expdir, self.step, params, keep=keep)
+        """The weights, written by rank 0, then a barrier over the processes."""
+        if is_main_process():
+            params = {"gen": {"encoder": self.encoder.state_dict(), "generator": self.generator.state_dict()},
+                      "disc": self.disc.state_dict()}
+            save_checkpoint(self.expdir, self.step, gather_to_host(params), keep=keep)
+        sync_global_devices("save")
 
     def resume(self) -> bool:
         """Load the latest checkpoint's weights; False when there is none."""

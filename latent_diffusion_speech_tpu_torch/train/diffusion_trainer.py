@@ -1,7 +1,8 @@
-"""Diffusion trainer on one device.
+"""Diffusion trainer, on one device or data-parallel over processes.
 
 Counterpart of `latent_diffusion_speech_tpu/train/diffusion_trainer.py`
-for one device (no mesh, no sharding), in f32 as the JAX training entry
+over the data axis of `cfg.parallel` (one device a process, `parallel/`),
+in f32 as the JAX training entry
 point runs it (TF32 off for CUDA matmuls and convolutions), or with
 `dtype=torch.bfloat16` in bf16 from f32 weights (flax's `dtype`: the
 products run in bf16, the norms' statistics and the loss in f32; K4 takes
@@ -41,9 +42,23 @@ The per-step generator is a pure function of (seed, step), the counterpart
 of `fold_in(PRNGKey(seed), step)`, so an interrupted and resumed run gives
 the same parameters as an uninterrupted one.
 
+Data parallelism (a `parallel.mesh.Mesh` from `cfg.parallel`, or given):
+each rank holds its rows of the global batch, checked to be the same shape
+on every rank (`global_shard_batch`); the step's draws (the timesteps and
+noise of `p_losses`, device collation's eps) are made for the global batch
+and each rank keeps its rows; the learned VQ's EMA statistics are summed
+over the ranks; the gradients and the loss are averaged in one coalesced
+all-reduce before clipping (`train/optim.py`), so every rank takes the same
+update, and the EMA with it.  A world of N gives the losses and parameters
+of a world of one fed the same global batch, up to f32 reassociation.
+`save` writes on rank 0, then a barrier; `resume` reads on every rank; the
+loop validates on rank 0 only; `train/samples_per_sec` counts the whole
+world's rows, and `train/mfu` (a rank's products over its card's peak) is
+the world's products over the world's peak.
+
 Not ported (ROADMAP.md Queue 1, item 10): the sharded checkpoint, and any
-mesh axis of `cfg.parallel` above 1, which raises when the trainer is built
-(`train/devices.py`), where the JAX trainer builds its mesh from it.
+axis of `cfg.parallel` but `data` above 1, which raises when the trainer is
+built (`train/devices.py`).
 """
 
 from __future__ import annotations
@@ -59,6 +74,10 @@ from latent_diffusion_speech_tpu_torch.config import Config
 from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
 from latent_diffusion_speech_tpu_torch.models.units import get_encoder_out_channels
 from latent_diffusion_speech_tpu_torch.ops.layers import no_tf32, set_compute_dtype
+from latent_diffusion_speech_tpu_torch.parallel import mesh as rows
+from latent_diffusion_speech_tpu_torch.parallel.dist import is_main_process, sync_global_devices
+from latent_diffusion_speech_tpu_torch.parallel.mesh import Mesh, RowGenerator, build_mesh
+from latent_diffusion_speech_tpu_torch.parallel.multihost import gather_to_host, global_shard_batch
 from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook, VectorQuantize
 from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_step,
@@ -93,13 +112,17 @@ class DiffusionTrainer(AdamWUpdates):
         dtype: torch.dtype = torch.float32,
         remat: bool = False,
         device=None,
+        mesh: Optional[Mesh] = None,
     ):
         """device: None means `cuda` (raises without a card).  quantizer: a
         frozen k-means `EuclideanCodebook` (on the same device), a learned
         `VectorQuantize` (its state is made here from seed + 1), or None.
         dtype: the compute dtype (the weights stay f32).  remat: recompute
-        the UNet's blocks in the backward."""
+        the UNet's blocks in the backward.  mesh: the data-parallel mesh
+        (default: `build_mesh(cfg.parallel)` over the process group, a
+        world of one without one)."""
         check_one_device(cfg, "diffusion")
+        self.mesh = mesh if mesh is not None else build_mesh(cfg.parallel)
         self.cfg = cfg
         tcfg = cfg.diffusion.train
         if quantizer is not None and not isinstance(quantizer, (EuclideanCodebook, VectorQuantize)):
@@ -177,7 +200,7 @@ class DiffusionTrainer(AdamWUpdates):
         if vcfg.only_mean:
             mel = m
         else:
-            mel = m + torch.randn(m.shape, generator=generator, device=m.device, dtype=m.dtype) * torch.exp(logs)
+            mel = m + rows.randn(m.shape, generator, device=m.device, dtype=m.dtype) * torch.exp(logs)
         if vcfg.clamp and vcfg.clamp > 0:
             mel = mel.clamp(-vcfg.clamp, vcfg.clamp)
         return units, mel
@@ -194,7 +217,8 @@ class DiffusionTrainer(AdamWUpdates):
         state after its EMA step (None without the learned VQ))."""
         (units, mel), commit, vq_state = self.finalize(batch, generator), 0.0, None
         if self._vq is not None:
-            units, _, commit, vq_state = self._vq(self.vq_state, units, train=True)
+            units, _, commit, vq_state = self._vq(self.vq_state, units, train=True,
+                                                  mesh=self.mesh if self.mesh.group is not None else None)
         elif self.quantizer is not None:
             units = self.quantizer(units)
         loss = self.system.loss(units, mel, generator, spk_id=batch.get("spk_id"),
@@ -208,20 +232,28 @@ class DiffusionTrainer(AdamWUpdates):
     def train_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """One micro-step from one device batch (an update on every
         `gradient_accumulation_steps`-th); returns the loss and this
-        batch's gradient global norm (before clipping) as device scalars."""
+        batch's gradient global norm (before clipping) as device scalars.
+        Under a mesh the batch is this rank's rows, the draws of
+        `generator` are made for the global batch, and the loss returned is
+        the global batch's."""
+        if self.mesh.group is not None:
+            global_shard_batch(self.mesh, batch)
+            generator = RowGenerator(generator, self.mesh)
         self.optimizer.zero_grad(set_to_none=True)
         loss, vq_state = self.loss_and_vq_state(batch, generator)
         loss.backward()
         if vq_state is not None:
             self.vq_state = vq_state
-        gnorm = self.apply_update()
+        loss = loss.detach().clone()
+        gnorm = self.apply_update(reduce=[loss])
         self.step += 1
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        return {"loss": loss, "grad_norm": gnorm}
 
-    def apply_update(self) -> torch.Tensor:
-        """Clip, take one AdamW step (`AdamWUpdates.apply_update`) and
-        update the EMA; returns the global norm before clipping."""
-        gnorm = super().apply_update()
+    def apply_update(self, reduce=(), guard=None) -> torch.Tensor:
+        """Clip, take one AdamW step (`AdamWUpdates.apply_update`, which
+        averages the gradients and `reduce` over a mesh) and update the EMA;
+        returns the global norm before clipping."""
+        gnorm = super().apply_update(reduce, guard)
         if self.ema is not None:
             with torch.no_grad():
                 for n, p in self.system.module.named_parameters():
@@ -295,22 +327,25 @@ class DiffusionTrainer(AdamWUpdates):
     # -- checkpoints -----------------------------------------------------------
 
     def save(self) -> None:
+        """The checkpoint, written by rank 0 (every rank holds the same
+        replicated state), then a barrier over the processes."""
         tcfg = self.cfg.diffusion.train
-        opt_state = self._opt_state() if tcfg.save_opt else None
-        save_checkpoint(
-            tcfg.expdir,
-            self.step,
-            self.system.module.state_dict(),
-            opt_state,
-            keep=tcfg.last_save_model_num,
-            meta={"epoch": self._epoch, "batch_in_epoch": self._batch_in_epoch},
-            extra={"ema": self.ema} if self.ema is not None else None,
-        )
-        if self.vq_state is not None:
-            # the learned codebook beside the model, as the reference keeps
-            # `model_<step>_semantic_codebook.pt`
-            torch.save({k: v.cpu() for k, v in self.vq_state._asdict().items()},
-                       f"{tcfg.expdir}/model_{self.step}_semantic_codebook.ckpt")
+        if is_main_process():
+            save_checkpoint(
+                tcfg.expdir,
+                self.step,
+                gather_to_host(self.system.module.state_dict()),
+                self._opt_state() if tcfg.save_opt else None,
+                keep=tcfg.last_save_model_num,
+                meta={"epoch": self._epoch, "batch_in_epoch": self._batch_in_epoch},
+                extra={"ema": gather_to_host(self.ema)} if self.ema is not None else None,
+            )
+            if self.vq_state is not None:
+                # the learned codebook beside the model, as the reference keeps
+                # `model_<step>_semantic_codebook.pt`
+                torch.save(gather_to_host(self.vq_state._asdict()),
+                           f"{tcfg.expdir}/model_{self.step}_semantic_codebook.ckpt")
+        sync_global_devices("save")
 
     def resume(self) -> bool:
         """Load the latest checkpoint of `expdir`; False when there is none."""
@@ -368,7 +403,7 @@ class DiffusionTrainer(AdamWUpdates):
                         self.save()
                         return
                     device_batch = self.device_put_batch(batch)
-                    batch_size = int(next(iter(device_batch.values())).shape[0])
+                    batch_size = int(next(iter(device_batch.values())).shape[0]) * self.mesh.size
                     generator = step_generator(tcfg.seed, self.step, self.device)
                     metrics, flops = counter.step(device_batch, lambda: self.train_step(device_batch, generator),
                                                   self._snap_flops(device_batch))
@@ -391,7 +426,7 @@ class DiffusionTrainer(AdamWUpdates):
                         logger.log(self.step, log)
                     if self.step % tcfg.interval_val == 0:
                         self.save()
-                        if val_loader is not None:
+                        if val_loader is not None and is_main_process():
                             self.validate_full(val_loader, step_generator(tcfg.seed, self.step, self.device, 1),
                                                logger=logger)
                     if max_steps and self.step >= max_steps:

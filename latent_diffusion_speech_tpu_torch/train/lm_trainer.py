@@ -1,7 +1,9 @@
-"""LM trainer (RoFormer or Llama) on one device.
+"""LM trainer (RoFormer or Llama), on one device or data-parallel over
+processes.
 
-Counterpart of `latent_diffusion_speech_tpu/train/lm_trainer.py` for one
-device, `type: roformer` (encoder-decoder, `collate_text_batch` batches) or
+Counterpart of `latent_diffusion_speech_tpu/train/lm_trainer.py` over the
+data axis of `cfg.parallel` (one device a process, `parallel/`),
+`type: roformer` (encoder-decoder, `collate_text_batch` batches) or
 `type: llama` (one token stream, `collate_llama_batch` batches; dense or
 with the MoE feed-forward, whose auxiliary loss the Llama's `loss` adds),
 in f32 as the JAX entry point builds it (TF32 off
@@ -32,8 +34,23 @@ for CUDA matmuls, process-wide, as in the diffusion trainer), or with
 The attention runs the plain path (the JAX LMs' `impl="xla"`): no Pallas
 kernel is on the JAX LMs' training path.
 
-Raises for what is not ported (ROADMAP.md Queue 1, item 10): any mesh axis
-(data, model, sequence, pipeline or expert parallelism).
+Data parallelism (a `parallel.mesh.Mesh` from `cfg.parallel`, or given):
+each rank holds its rows of the global batch (the same padded shape on
+every rank, `global_shard_batch`).  The loss is JAX's over the global batch,
+sum(nll valid) / max(sum(valid), 1): the count of valid targets is summed
+over the ranks, and each rank's loss is its numerator times the world over
+that count, so the ranks' mean (the gradient all-reduce's average) is the
+global loss and its gradient; a mean of per-rank means would weigh the
+ranks' tokens unequally.  The RoFormer's dropout masks are drawn for the
+global batch and each rank keeps its rows.  The MoE layers route with the
+global batch's capacity and slots and take the Switch auxiliary loss's
+statistics over it (`ops/moe.py`).  `evaluate` and `validate_audio` run
+where they are called (the loop calls them on rank 0), with no collective;
+`save` writes on rank 0, then a barrier; `train/samples_per_sec` counts the
+world's rows.
+
+Raises for what is not ported (ROADMAP.md Queue 1, item 10): a mesh axis
+other than `data` (tensor, sequence, pipeline or expert parallelism).
 """
 
 from __future__ import annotations
@@ -51,6 +68,10 @@ from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaSystem
 from latent_diffusion_speech_tpu_torch.models.lm.registry import llama_config_from, roformer_config_from
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerSystem
 from latent_diffusion_speech_tpu_torch.ops.layers import no_tf32, set_compute_dtype
+from latent_diffusion_speech_tpu_torch.ops.moe import data_parallel
+from latent_diffusion_speech_tpu_torch.parallel.dist import is_main_process, sync_global_devices
+from latent_diffusion_speech_tpu_torch.parallel.mesh import Mesh, RowGenerator, build_mesh
+from latent_diffusion_speech_tpu_torch.parallel.multihost import gather_to_host, global_shard_batch
 from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_step,
     load_checkpoint,
@@ -100,13 +121,16 @@ class LMTrainer(AdamWUpdates):
     nan_check_interval: int = 50
 
     def __init__(self, cfg: Config, lm_cfg=None, codebook=None,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, mesh: Optional[Mesh] = None):
         """device: None means `cuda` (raises without a card).  lm_cfg: a
         `RoformerConfig` or `LlamaConfig` (default: from `cfg`, by
         `text2semantic.model.type`).  codebook: the k-means centroids that
         warm-start the semantic embeddings.  dtype: the compute dtype (the
-        weights stay f32)."""
+        weights stay f32).  mesh: the data-parallel mesh (default:
+        `build_mesh(cfg.parallel)` over the process group, a world of one
+        without one)."""
         check_one_device(cfg, "LM")
+        self.mesh = mesh if mesh is not None else build_mesh(cfg.parallel)
         self.cfg = cfg
         tcfg = cfg.text2semantic.train
         self.lm_type = cfg.text2semantic.model.type
@@ -144,14 +168,31 @@ class LMTrainer(AdamWUpdates):
         on a guarded step raises before the update."""
         generator = step_generator(self.cfg.text2semantic.train.seed, self.step, self.device)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.system.loss(batch, generator)
+        loss = self.loss(batch, generator)
         with deterministic_algorithms():
             loss.backward()
-        if self.step % self.nan_check_interval == 0 and not torch.isfinite(loss).item():
-            raise RuntimeError(f"NaN/Inf LM loss at step {self.step}")
-        gnorm = self.apply_update()
+        loss = loss.detach().clone()
+
+        def guard():
+            if not torch.isfinite(loss).item():
+                raise RuntimeError(f"NaN/Inf LM loss at step {self.step}")
+
+        gnorm = self.apply_update(reduce=[loss], guard=guard if self.step % self.nan_check_interval == 0 else None)
         self.step += 1
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        return {"loss": loss, "grad_norm": gnorm}
+
+    def loss(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+        """The training loss of one device batch (differentiable); under a
+        mesh this rank's share of the global batch's loss: the ranks' mean
+        is the global loss, and the mean of their gradients its gradient."""
+        if self.mesh.group is None:
+            return self.system.loss(batch, generator)
+        global_shard_batch(self.mesh, batch)
+        count = (batch["labels"][:, 1:] != -100).sum().float()
+        self.mesh.all_reduce_sum_([count])
+        with data_parallel(self.system.module, self.mesh):
+            return self.system.loss(batch, RowGenerator(generator, self.mesh),
+                                    denom=count.clamp_min(1.0) / self.mesh.size)
 
     @torch.no_grad()
     def evaluate(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -205,15 +246,19 @@ class LMTrainer(AdamWUpdates):
     # -- checkpoints -----------------------------------------------------------
 
     def save(self) -> None:
+        """The checkpoint, written by rank 0 (every rank holds the same
+        replicated state), then a barrier over the processes."""
         tcfg = self.cfg.text2semantic.train
-        save_checkpoint(
-            tcfg.expdir,
-            self.step,
-            self.system.module.state_dict(),
-            self._opt_state() if tcfg.save_opt else None,
-            keep=tcfg.last_save_model_num,
-            meta={"epoch": self._epoch, "batch_in_epoch": self._batch_in_epoch},
-        )
+        if is_main_process():
+            save_checkpoint(
+                tcfg.expdir,
+                self.step,
+                gather_to_host(self.system.module.state_dict()),
+                self._opt_state() if tcfg.save_opt else None,
+                keep=tcfg.last_save_model_num,
+                meta={"epoch": self._epoch, "batch_in_epoch": self._batch_in_epoch},
+            )
+        sync_global_devices("save")
 
     def resume(self) -> bool:
         """Load the latest checkpoint of `expdir`; False when there is none."""
@@ -272,7 +317,8 @@ class LMTrainer(AdamWUpdates):
                             "train/loss": float(metrics["loss"]),
                             "train/grad_norm": float(metrics["grad_norm"]),
                             "train/steps_per_sec": steps_per_sec,
-                            "train/samples_per_sec": steps_per_sec * int(next(iter(device_batch.values())).shape[0]),
+                            "train/samples_per_sec": (steps_per_sec * self.mesh.size
+                                                      * int(next(iter(device_batch.values())).shape[0])),
                         }
                         mfu = step_mfu(flops, steps_per_sec, self.device)
                         if mfu is not None:

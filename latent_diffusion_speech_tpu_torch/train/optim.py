@@ -16,6 +16,16 @@ accumulator and its position ride in the optimizer state, so a run
 interrupted between micro-steps resumes where it stopped.
 `step_generator` is the per-step random stream, the counterpart of
 `fold_in(PRNGKey(seed), step)`.
+
+Under data parallelism (`mesh`, a `parallel.mesh.Mesh` with a group) the
+gradients are averaged over the ranks before the norm, so the norm, the
+clipping and the step are the global batch's, as in JAX's one global
+program: one coalesced all-reduce an update, the scalars the caller passes
+(`reduce`, its loss) averaged in the same buffer.  With accumulation only
+the update's accumulated mean is reduced (the mean over ranks of the
+micro-steps' means, which is MultiSteps' mean of global gradients), each
+micro-step reduces its scalars alone, and the norm returned for a
+micro-step is its local gradients'.
 """
 
 from __future__ import annotations
@@ -48,6 +58,8 @@ class AdamWUpdates:
     `_train_cfg()` (its `TrainConfig`): `_init_optimizer` once, then
     `apply_update()` after each backward.  `_configure_optimizer` sets the
     chain up from explicit values instead (`AdamW`)."""
+
+    mesh = None  # a `parallel.mesh.Mesh` whose ranks average their gradients (None: one process)
 
     def _train_cfg(self):
         raise NotImplementedError
@@ -88,19 +100,31 @@ class AdamWUpdates:
         acc = state.get("acc")
         self._acc = None if acc is None else [a.to(p.device) for a, p in zip(acc, self._params)]
 
-    def apply_update(self) -> torch.Tensor:
+    def _average(self, tensors) -> None:
+        if self.mesh is not None:
+            self.mesh.all_reduce_mean_(tensors)
+
+    def apply_update(self, reduce: Sequence[torch.Tensor] = (),
+                     guard: Optional[Callable[[], None]] = None) -> torch.Tensor:
         """Clip the parameters' `.grad` (or, with accumulation, their
         running mean on every k-th call) by their global norm (when clip is
         set) and take one AdamW step at the schedule's rate; returns the
-        global norm of this call's gradients before clipping."""
+        global norm of this call's gradients before clipping.  Under a mesh
+        the gradients and the tensors of `reduce` are averaged over its
+        ranks first (in place).  `guard`, when given, runs after that
+        average and before anything changes: it may raise (the LM's
+        non-finite loss check, the same on every rank)."""
         for p in self._params:
             # a parameter the batch does not reach gets a zero gradient, as
             # under jax.grad, so AdamW updates every parameter the same way
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self._params]
-        gnorm = global_norm(grads)
         if self.every > 1:
+            gnorm = global_norm(grads)
+            self._average(list(reduce))
+            if guard is not None:
+                guard()
             if self._acc is None:
                 self._acc = [torch.zeros_like(g) for g in grads]
             # acc + (g - acc) / (n + 1), MultiSteps' running mean
@@ -112,9 +136,13 @@ class AdamWUpdates:
             for p, a in zip(self._params, self._acc):
                 p.grad = a
             grads, self._acc, self.mini_step = self._acc, None, 0
+            self._average(grads)
             norm = global_norm(grads)
         else:
-            norm = gnorm
+            self._average(grads + list(reduce))
+            if guard is not None:
+                guard()
+            gnorm = norm = global_norm(grads)
         if self.clip is not None:
             # g * min(1, max / |g|), on the device: no host sync
             torch._foreach_mul_(grads, torch.clamp(self.clip / norm, max=1.0))

@@ -47,7 +47,9 @@ def device_peak_flops(device) -> Optional[float]:
 
 def step_mfu(flops: Optional[float], steps_per_sec: float, device) -> Optional[float]:
     """Model FLOP utilisation of a step rate: FLOPs a step x steps/s over
-    the card's bf16 peak; None when either is unknown."""
+    the card's bf16 peak; None when either is unknown.  Under data
+    parallelism a rank's FLOPs over its card's peak is the world's FLOPs
+    over the world's peak."""
     peak = device_peak_flops(device)
     return None if flops is None or not peak else flops * steps_per_sec / peak
 

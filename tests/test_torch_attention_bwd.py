@@ -5,7 +5,8 @@ Inputs are made with numpy from a seed.  `fused_attention_bwd_plain` is held
 to the JAX `_fused_bwd` (Pallas interpret mode, as tests/test_pallas.py runs
 it) on the same (q, k, v, out, lse, dout) at atol 3e-5 / rtol 1e-4 in f32,
 the JAX contract (tests/test_pallas.py:73-93): at its shapes and at the
-diffusion trainer's (T, D) at H=8, B cut to 2.  `FusedAttention` on the CPU
+diffusion trainer's (T, D) at H=8, B cut to 2, and at the block zoo's head
+dim 8.  `FusedAttention` on the CPU
 is held to torch.autograd through `ops/attention.py::dot_product_attention`
 at the same tolerance.
 """
@@ -31,7 +32,9 @@ def _arrays(rng, B, T, H, D, n=4):
 
 @pytest.mark.parametrize(
     "B,T,H,D",
-    [(2, 11, 4, 16), (2, 40, 4, 16)] + [(2, T, 8, D) for T, D in TRAIN_SHAPES],
+    [(2, 11, 4, 16), (2, 40, 4, 16)] + [(2, T, 8, D) for T, D in TRAIN_SHAPES]
+    # head dim 8, the block zoo's attention heads (H = 32-64 at full width)
+    + [(2, 44, 6, 8)],
 )
 def test_k4_bwd_plain_matches_pallas_kernel(rng, B, T, H, D):
     q, k, v, do = _arrays(rng, B, T, H, D)

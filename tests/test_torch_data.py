@@ -1,6 +1,7 @@
 """The port's host data path against the JAX package: the same files, seed
-and epoch give the same items (exactly), the loader the same batch order,
-and `units_forced_alignment` the same frames.
+and epoch give the same items (exactly; also for a data-parallel rank's
+share of the files), the loader the same batch order, and
+`units_forced_alignment` the same frames.
 """
 
 import numpy as np
@@ -34,6 +35,9 @@ def layout(tmp_path, rng):
     dict(),
     dict(only_mean=True, clamp=0.5, units_forced_mode="linear"),
     dict(clamp=0.0, cache=True),
+    # a data-parallel rank's share of the files and its own draws
+    dict(process_index=1, process_count=2),
+    dict(process_index=2, process_count=3, seed=5),
 ])
 def test_dataset_items_match_jax(layout, kw):
     common = dict(waveform_sec=1.0, hop_size=2, sample_rate=100, n_spk=4, **kw)

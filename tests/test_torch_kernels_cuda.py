@@ -139,14 +139,21 @@ def test_head_dim_8_kernels_at_zoo_shapes(dev, B, T, H):
             assert (got != plain).float().mean().item() <= 0.02
 
 
-def test_k4_backward_refuses_head_dim_8(dev):
-    """The K4 backward takes head dims 32, 48 and 64: a call that needs a
-    gradient at head dim 8 raises before the forward runs."""
-    x = torch.zeros((1, 16, 4, 8), device=dev, requires_grad=True)
-    before = k4.launches
-    with pytest.raises(ValueError, match="head dim 8"):
-        k4.fused_attention(x, x, x)
-    assert k4.launches == before
+def test_k4_backward_at_head_dim_8(dev):
+    """A call that needs a gradient at head dim 8 runs the K4 forward and
+    backward kernels, and its gradients are the plain backward's (f32, atol
+    3e-5 / rtol 1e-4)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 40, 4, 8), generator=gen, device=dev, requires_grad=True) for _ in range(3))
+    dout = torch.randn((2, 40, 4, 8), generator=gen, device=dev)
+    fwd, bwd = k4.launches, k4.bwd_launches
+    k4.fused_attention(q, k, v).backward(dout)
+    assert (k4.launches - fwd, k4.bwd_launches - bwd) == (1, 1)
+    with torch.no_grad():
+        out, lse = k4.fused_attention_plain(q, k, v)
+        ref = k4.fused_attention_bwd_plain(q, k, v, out, dout, lse)
+    for x, r, name in zip((q, k, v), ref, ("dq", "dk", "dv")):
+        torch.testing.assert_close(x.grad, r, atol=3e-5, rtol=1e-4, msg=name)
 
 
 ZOO_ON_CARD = {  # two of the block zoo's configurations: every attention block type between them
@@ -537,18 +544,11 @@ def test_unit2mel_pallas_routes_b1_through_the_kernel(dev):
 K4_BWD_SHAPES = [(88, 32), (44, 48), (22, 64), (11, 64), (13, 32), (130, 48)]
 
 
-@pytest.mark.parametrize("T,D", K4_BWD_SHAPES)
-def test_k4_bwd_kernel_matches_plain(dev, T, D):
-    """f32 at atol 3e-5 / rtol 1e-4 with strided q/k/v views and a
-    non-contiguous dout; bf16 against the f32 plain backward of the same
-    bf16 inputs within 2^-5 of each gradient's scale: p, ds, out and the
-    outputs are each rounded to bf16 once (2^-9 relative), and the sums
-    over T add those roundings with random signs, so the error stays a few
-    roundings of the scale; 2^-5 leaves a wide margin."""
+def _check_k4_bwd(dev, B, T, H, D):
     gen = torch.Generator(device=dev).manual_seed(0)
-    qkv = torch.randn((4, T, 3 * 8 * D), generator=gen, device=dev)
-    q, k, v = (x.reshape(4, T, 8, D) for x in qkv.chunk(3, dim=-1))
-    dout = torch.randn((4, 8, T, D), generator=gen, device=dev).transpose(1, 2)  # strided rows
+    qkv = torch.randn((B, T, 3 * H * D), generator=gen, device=dev)
+    q, k, v = (x.reshape(B, T, H, D) for x in qkv.chunk(3, dim=-1))
+    dout = torch.randn((B, H, T, D), generator=gen, device=dev).transpose(1, 2)  # strided rows
     out, lse = k4.fused_attention_with_lse(q, k, v)
     before = k4.bwd_launches
     got = k4.attention_bwd(q, k, v, out, dout, lse)
@@ -565,7 +565,30 @@ def test_k4_bwd_kernel_matches_plain(dev, T, D):
         assert (g.float() - r).abs().max().item() <= 2**-5 * r.abs().max().item(), name
 
 
-@pytest.mark.parametrize("T,D", [(11, 64), (16, 32)])
+@pytest.mark.parametrize("T,D", K4_BWD_SHAPES)
+def test_k4_bwd_kernel_matches_plain(dev, T, D):
+    """f32 at atol 3e-5 / rtol 1e-4 with strided q/k/v views and a
+    non-contiguous dout; bf16 against the f32 plain backward of the same
+    bf16 inputs within 2^-5 of each gradient's scale: p, ds, out and the
+    outputs are each rounded to bf16 once (2^-9 relative), and the sums
+    over T add those roundings with random signs, so the error stays a few
+    roundings of the scale; 2^-5 leaves a wide margin."""
+    _check_k4_bwd(dev, 4, T, 8, D)
+
+
+# the block zoo's training shapes at head dim 8 (B = 48, a 1 s crop: T at
+# each level, H = channels / 8), and a ragged multi-tile T
+K4_BWD_ZOO_SHAPES = [(88, 32), (44, 48), (22, 64), (11, 64), (130, 4)]
+
+
+@pytest.mark.parametrize("T,H", K4_BWD_ZOO_SHAPES)
+def test_k4_bwd_kernel_matches_plain_at_head_dim_8(dev, T, H):
+    """Head dim 8 at the zoo's training shapes, held as
+    `test_k4_bwd_kernel_matches_plain` holds the other head dims."""
+    _check_k4_bwd(dev, 48, T, H, 8)
+
+
+@pytest.mark.parametrize("T,D", [(11, 64), (16, 32), (11, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_bwd_16_key_tiles_equal_32_key_tiles(dev, T, D, dtype):
     """Where T <= 16 the plan takes 16-key tiles, four heads a block; 32-key

@@ -67,6 +67,7 @@ def test_importing_the_port_loads_no_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert len(MODULES) >= 15
+    assert {f"{port.__name__}.parallel.{m}" for m in ("dist", "mesh", "multihost", "dryrun")} <= set(MODULES)
 
 
 def test_no_jax_imports_in_the_source():
@@ -137,6 +138,7 @@ CLIS = {
     "cli.preprocess_mel": ["-c", CONFIG],
     "cli.preprocess_cluster": ["-c", CONFIG],
     "cli.preprocess_val": ["-c", CONFIG],
+    "cli.train_diffusion": ["-c", CONFIG],
     "cli.train_lm": ["-c", CONFIG],
     "cli.train_codec": ["-c", CONFIG],
     "cli.batch_preprocess": ["-c", CONFIG],

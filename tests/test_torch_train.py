@@ -20,6 +20,7 @@ import optax
 import pytest
 import torch
 
+from latent_diffusion_speech_tpu.models.diffusion.unit2mel import Unit2Mel as JUnit2Mel
 from latent_diffusion_speech_tpu.models.diffusion.unit2mel import Unit2MelConfig as JUnit2MelConfig
 from latent_diffusion_speech_tpu.models.diffusion.unit2mel import Unit2MelSystem as JUnit2MelSystem
 from latent_diffusion_speech_tpu.train.schedule import warmup_step_decay as j_warmup_step_decay
@@ -37,12 +38,23 @@ from latent_diffusion_speech_tpu_torch.train.checkpoint import (
 )
 from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer, step_generator
 from latent_diffusion_speech_tpu_torch.train.schedule import warmup_step_decay
+from tests.test_torch_unet_zoo_blocks import draw
 
 SMALL = dict(input_channel=12, n_spk=4, out_dims=6, n_hidden=10, block_out_channels=(16, 32),
              n_heads=2, timesteps=100, k_step=100)
 UNIT_DIM, MEL_DIM = 8, 4
 TINY_MODEL = Unit2MelConfig(input_channel=UNIT_DIM, n_spk=4, out_dims=MEL_DIM, n_hidden=8,
                             block_out_channels=(8, 8), n_heads=2, timesteps=20, k_step=20)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small models: one intra-op thread (the parallel test run's workers
+    would otherwise spin against each other on every small op)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _layout(root, rng, unit_dim=UNIT_DIM, speakers=("1", "2"), files=3):
@@ -101,9 +113,17 @@ class _DetDataset:
 
 
 def _pair(**kw):
-    jsys = JUnit2MelSystem(JUnit2MelConfig(**SMALL, **kw), seed=0)
-    state = unit2mel_from_jax(jax.tree_util.tree_map(np.asarray, jsys.params))
-    return jsys, Unit2MelSystem(Unit2MelConfig(**SMALL, **kw), state_dict=state, device="cpu")
+    """(JAX system, port system) with the same weights: numpy draws over
+    `jax.eval_shape` of the flax init (tests/test_torch_unet_zoo_blocks.py::draw),
+    as a jitted init costs seconds of compile."""
+    jcfg = JUnit2MelConfig(**SMALL, **kw)
+    units, spk, scalar = jnp.zeros((1, 8, jcfg.input_channel)), jnp.ones((1, 8), jnp.int32), jnp.zeros((1, 8))
+    shapes = jax.eval_shape(lambda: JUnit2Mel(jcfg).init(
+        jax.random.PRNGKey(0), units, volume=None if jcfg.is_tts else scalar, spk_id=spk,
+        aug_shift=scalar if jcfg.use_pitch_aug else None))["params"]
+    params = draw(shapes)
+    jsys = JUnit2MelSystem(jcfg, params=jax.tree_util.tree_map(jnp.asarray, params))
+    return jsys, Unit2MelSystem(Unit2MelConfig(**SMALL, **kw), state_dict=unit2mel_from_jax(params), device="cpu")
 
 
 def _inputs(rng, B=2, T=13):
@@ -360,15 +380,18 @@ def test_unported_options_raise(tmp_path):
 
 @pytest.mark.parametrize("axis", ["data", "model", "seq", "pipe", "expert", "dcn_data"])
 def test_parallel_axes_raise_naming_item_10(tmp_path, axis):
-    """Any mesh axis of `cfg.parallel` above 1 raises when the trainer is
-    built (the JAX trainer builds its mesh from it; the port runs on one
-    device, ROADMAP.md Queue 1, item 10), through the entry point too; the
-    default config (data -1, the rest 1) still builds."""
+    """A mesh axis of `cfg.parallel` other than data above 1 raises when the
+    trainer is built (the JAX trainer builds its mesh from it; the port
+    serves the data axis only, ROADMAP.md Queue 1, item 10), through the
+    entry point too; a data axis of 2 on a world of one process raises
+    JAX's ValueError; the default config (data -1, the rest 1) builds."""
     cfg = _tiny_config(tmp_path)
     setattr(cfg.parallel, axis, 2)
-    with pytest.raises(NotImplementedError, match=f"'{axis}': 2.*item 10"):
+    error, match = ((ValueError, r"mesh: data\(2\).* != devices\(1\)") if axis == "data"
+                    else (NotImplementedError, f"'{axis}': 2.*item 10"))
+    with pytest.raises(error, match=match):
         DiffusionTrainer(cfg, model_cfg=TINY_MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(error, match=match):
         build(cfg, device="cpu")
     assert DiffusionTrainer(_tiny_config(tmp_path), model_cfg=TINY_MODEL, device="cpu").step == 0
 

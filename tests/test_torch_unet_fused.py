@@ -17,7 +17,10 @@ counterpart of K2 `unet1d_fused.py::unet_fwd_pallas` and K3
   max |a-b| < 0.15 max(|a|, 1), tests/test_pallas_unet.py:89-108) and the
   eager route at B > 1.
 
-Weights go across with `convert.unit2mel_from_jax`; inputs are made with
+Weights go across with `convert.unit2mel_from_jax`; the flax parameters are
+drawn with numpy over `jax.eval_shape` of the init (kernels N(0, 1/fan_in),
+norm scales and biases near 1 and 0: tests/test_torch_unet_zoo_blocks.py::draw),
+since a flax init of these UNets costs tens of seconds; inputs are made with
 numpy from a seed.
 """
 
@@ -47,6 +50,7 @@ from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2Mel
 from latent_diffusion_speech_tpu_torch.ops.kernels import unet_fused as uf
 from latent_diffusion_speech_tpu_torch.ops.kernels.fused_attention import fused_attention_plain
 from latent_diffusion_speech_tpu_torch.ops.layers import cast_compute_dtype, seeded
+from tests.test_torch_unet_zoo_blocks import draw
 
 CONFIGS = {
     # tests/test_pallas_unet.py: TINY and the uneven-channel config
@@ -59,6 +63,16 @@ CONFIGS = {
                           n_heads=4, norm_num_groups=8, cross_attn=(True, False)), 16),
 }
 T_STEP = 437.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small models: one intra-op thread (the parallel test run's workers
+    would otherwise spin against each other on every small op)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _module(name, dtype, seed=0):
@@ -255,14 +269,14 @@ def _jax_refs(name, stream=False, seed=0):
     xb = jnp.asarray(x, jnp.bfloat16)
     t = jnp.array([T_STEP], jnp.float32)
     mod = JUNet1D(jcfg, dtype=jnp.bfloat16)
-    params = mod.init(jax.random.PRNGKey(seed), xb, t)["params"]
-    ref = np.asarray(mod.apply({"params": params}, xb, t), np.float32)
-    ref32 = np.asarray(JUNet1D(jcfg, dtype=jnp.float32).apply({"params": params}, xb.astype(jnp.float32), t),
+    shapes = jax.eval_shape(mod.init, jax.random.PRNGKey(seed), xb, t)["params"]
+    params = jax.tree_util.tree_map(jnp.asarray, draw(shapes, seed))
+    # jitted: flax's eager apply and the packers compile op by op
+    ref = np.asarray(jax.jit(mod.apply)({"params": params}, xb, t), np.float32)
+    ref32 = np.asarray(jax.jit(JUNet1D(jcfg, dtype=jnp.float32).apply)({"params": params}, xb.astype(jnp.float32), t),
                        np.float32)
-    if stream:
-        kern = unet_fwd_pallas_stream(pack_unet_params_stream(params, jcfg), xb, t, jcfg, interpret=True)
-    else:
-        kern = unet_fwd_pallas(j_pack(params, jcfg), xb, t, jcfg, interpret=True)
+    pack, kernel = (pack_unet_params_stream, unet_fwd_pallas_stream) if stream else (j_pack, unet_fwd_pallas)
+    kern = kernel(jax.jit(lambda p: pack(p, jcfg))(params), xb, t, jcfg, interpret=True)
     cfg = UNet1DConfig(**kw)
     m = seeded(lambda: UNet1D(cfg), 0)
     m.load_state_dict(unit2mel_from_jax(jax.tree_util.tree_map(np.asarray, params)))
