@@ -67,12 +67,13 @@ with nvcc (sm_90a), then:
 7. serve_entry: the port's serve entry points as a user starts them, on
    `configs/config.yaml` at flagship width with seeded weights (no
    `pretrain/`): `cli/infer_tts.py::build_pipeline` behind `TTSServer` and
-   the HTTP handler of `cli/serve.py` (the CLI's defaults; UniPC, 100
-   steps): six concurrent EN /tts requests coalesced into fewer batches,
+   the HTTP handler of `cli/serve.py` (the CLI's defaults; UniPC at 20
+   steps, SERVE_SPEEDUP, where the config serves 100): six concurrent EN /tts requests coalesced into fewer batches,
    one chunked /tts/stream of three pieces, a ZH request answered 500
    (F2), /healthz and /metrics against the server's counters, with one K1
    launch a batch and 32 K4 launches a denoiser evaluation; every other
-   sampler the CLIs can name once at T=64 (DDPM through the fused kernel);
+   sampler the CLIs can name once at T=64 and SERVE_SPEEDUP (DDPM's 1000
+   steps through the fused kernel);
    the `infer_tts` CLI as a subprocess, plain and --long; K1 also at the
    server's batch sizes B=2 and B=8 (N=1024) in step 1;
 8. svc: SVC long-audio inference, `TTSPipeline.infer_from_long_audio`
@@ -83,8 +84,8 @@ with nvcc (sm_90a), then:
    resampling, log-mel, encoder, alignment, diffusion, vocoder, stitch),
    RTF, the output's rate, length, exact zeros in the silences and
    finiteness, the units' shape, 32 K4 launches a denoiser evaluation and
-   no other kernel, the encoder in bf16 against f32; the `infer_svc` CLI
-   as a subprocess; stages 10 and 19 over a layout of 8 files (one K6
+   no other kernel; the `infer_svc` CLI as a subprocess, beside the
+   encoder in bf16 against f32 and stages 10 and 19 over a layout of 8 files (one K6
    launch a file, ids against the plain version); K4 at the phase's shapes
    (T up to 1344) and K6 at stage 19's ragged N, against their plain
    versions and timed;
@@ -169,14 +170,15 @@ with nvcc (sm_90a), then:
    launch, 32 K4 launches a denoiser evaluation) and checked by
    `cli/verify_import.py` (in-process on the codebook: 1 K6 launch); the
    set in f32 on the card against the CPU (the Unit2Mel forward, K1's
-   greedy logits); `verify_import` as a process for every kind, CPU
-   goldens then the card, each within 1e-3 of its golden;
+   greedy logits); `verify_import` for every kind, CPU goldens then the
+   card, each within 1e-3 of its golden (in this process; the card's
+   unit2mel run also as a process, checked after the last phase);
 14. codec_train: the HiFi-VAEGAN codec GAN through `cli/train_codec.py::main`
    as a user runs it, at the shipped 44.1 kHz width (hop 512, 128 latent
    channels; the `CodecTrainer` bank: STFT scales 1024 and 512, periods
-   2-11), B=16 crops of 32256 samples from a synthetic WAV layout: 4
-   steps, a save, a resume and 4 more, then the same with --use-vq; one
-   D + G step on the card against the same step on the CPU (B=2, the same
+   2-11), B=16 crops of 32256 samples from a synthetic WAV layout: 2
+   steps, a save, a resume and 2 more, then the same with --use-vq; one
+   D + G step on the card against the same step on the CPU (B=1, the same
    seeded weights and latent noise, TF32 off); the step time, samples/s,
    the VQ's codebook utilisation and the peak memory.  The codec path runs
    no custom kernel (the JAX package computes it outside any Pallas kernel);
@@ -192,7 +194,7 @@ with nvcc (sm_90a), then:
    `build_pipeline(lm_ckpt=)` in bf16 (one `tts` of 430 decode steps,
    plain PyTorch as in the JAX package: no K1, 640 K4 launches; the LM's
    ms a step and the stage walls; `tts_batch` raises, R11) and greedy
-   tokens on the card against the CPU's; `verify_import` on the checkpoint
+   tokens (128 steps) on the card against the CPU's; `verify_import` on the checkpoint
    in the reference's layout (a CPU golden, then the card); a seeded BERT at
    bert-base-multilingual-cased's geometry in both layouts, f32 and bf16,
    on one sentence, against the CPU (the post-LN one through a local
@@ -208,12 +210,37 @@ with nvcc (sm_90a), then:
    backward and its bound (in `check_k4_bwd`);
 17. dp_train: data parallelism at a world of 1 (one card): the diffusion
    CLI (flagship, B=48) and the LM CLI (the shipped RoFormer, B=32) under
-   `torch.distributed.run --nproc_per_node=1`, a real NCCL group: 2 steps,
-   a save, a second process resuming for 2 more, its checkpoint bitwise
-   equal to the same steps without any group; in this process under a
-   world-of-one NCCL group, train_step with and without the group in turns
-   and the NCCL collectives and kernels a step (torch.profiler).  Speed over
-   several cards is not measured (the machine has one).
+   `torch.distributed.run --nproc_per_node=1`, a real NCCL group: 2 steps
+   and a save (the same 4 steps without any group run meanwhile in this
+   process); then this process joins a world-of-one NCCL group, where each
+   CLI's main resumes and takes 2 more, its checkpoint bitwise equal to the
+   steps without a group, and train_step runs with and without the group
+   in turns, with the NCCL collectives and kernels a step
+   (torch.profiler).  Speed over
+   several cards is not measured (the machine has one);
+18. int8_serve: the flagship eager bf16 pipeline of
+   `cli/infer_tts.py::build_pipeline(configs/config.yaml)` without and with
+   `weight_quant: int8`: `tts` (430 tokens) and `tts_batch` x4 walls, one
+   denoiser forward, the UNet's weight bytes, the latents' correlation (bar
+   0.99), JAX's ValueErrors and the CLI's `--weight-quant int8` as a process;
+19. tp_ep: tensor and expert parallelism on CPU gloo ranks with sharded
+   checkpoints: `python -m latent_diffusion_speech_tpu_torch.parallel.dryrun
+   4` (data, dp-tp, expert-parallel, tp-ep), a process beside the ranks
+   below; the flagship diffusion trainer at model=2 and the Llama with 8
+   experts at expert=2, full width, two CPU ranks each: a step, a sharded
+   save, a second step; a world of one on the card resumes each checkpoint
+   bit for bit and holds its second step to the ranks' (`train_slice`'s
+   tolerance); the checkpoint's bytes a rank against the single file's.
+
+How the time is bounded (the phases' order is not the list's): tp_ep's
+CPU ranks run while nvcc builds the kernels, at a lower priority; the
+kernel checks (steps 1 and 6, whose numbers make the kernels line) run
+alone;
+after them a second process of this script (`--phases`, CHILD_PHASES:
+codec_train and llama_text) runs beside the main process's phases;
+dp_train's CLI processes start before migrate; each phase's CLI processes
+are checked after the last phase (DEFERRED). So the walls that the other
+phases print overlap other work on the card and the host.
 
 Any failure raises (exit code != 0).  The second-to-last line is a JSON
 object with one entry per kernel; the last line is
@@ -228,6 +255,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
@@ -241,6 +269,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_TOKENS = 430  # ~5 s of 44.1 kHz audio at hop 512
+# the sampler of the serve-like phases (serve_entry's server and CLIs, svc,
+# units_alt's SVC, data_path's and migrate's tts): the shipped UniPC at
+# speedup 50, 20 steps where the shipped config serves 100 (speedup 10), a
+# depth cut that bounds the script's time
+SERVE_SPEEDUP = 50
 # K1 at the HTTP server's batch sizes (2 and 5-8 requests pad to B=2 and
 # B=8), N=1024 (the serve default max_length), over SERVE_L encoder rows
 SERVE_K1_B, SERVE_L = (2, 8), 64
@@ -308,6 +341,36 @@ EARLIER_K4_BWD_US = {88: 163.0, 44: 105.3, 22: 76.2, 11: 48.4}
 # H100 SXM peaks (NVIDIA datasheet, dense): HBM bytes/s, bf16 tensor FLOP/s,
 # f32 FLOP/s outside the tensor cores
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+
+
+# every process this script starts through start_process: main stops those
+# still running when it ends, on a failure too
+CHILDREN: list = []
+# checks of processes that a phase started, made after the last phase so
+# that the processes run beside the phases that follow
+DEFERRED: list = []
+
+
+def start_process(cmd: list, **kw) -> subprocess.Popen:
+    """`cmd` started from the checkout's root (stdout and stderr piped)."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, **kw)
+    CHILDREN.append(proc)
+    return proc
+
+
+def finish_process(proc: subprocess.Popen, cmd: list, timeout: float = 600) -> tuple:
+    """(stdout, stderr) of a `start_process` process that exits 0."""
+    stdout, stderr = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    return stdout, stderr
+
+
+def stop_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def bound(bytes_moved: float, flops: float, flops_per_s: float = BF16_FLOPS) -> tuple:
@@ -1290,7 +1353,7 @@ def zoo(dev, card: str) -> dict:
     heads: attention heads of dim 8) with seeded weights, behind the serve
     pipeline's LM, codebook and vocoder: in bf16, with attn_impl="pallas",
     one `tts` (after a warm-up) and one `tts_batch` of 4, and with
-    attn_impl="fused" one `tts`; K5 (K4) launches equal to the model's
+    attn_impl="fused" one `tts` (no warm-up); K5 (K4) launches equal to the model's
     attention modules x 20 evaluations a diffusion call, no call routed to
     the plain attention, no other attention kernel; finite waveforms of the
     right length; per-stage wall times.  Then each in f32 on 50 tokens: the
@@ -1317,9 +1380,10 @@ def zoo(dev, card: str) -> dict:
                                             seed=0)
             n_attn = zoo_attention_modules(pipe.diffusion.module)
             pipe.diffusion.infer = timed(stages, f"{impl}_diffusion", pipe.diffusion.infer)
-            pipe.tts(TEXT, language="EN", max_length=N_TOKENS)  # warm-up
+            if impl == "pallas":  # a warm-up, for the configuration's first tts and tts_batch
+                pipe.tts(TEXT, language="EN", max_length=N_TOKENS)
             k5.launches = k5.plain_routes = k4.launches = 0
-            calls, d0 = stages[f"{impl}_diffusion_calls"], stages[f"{impl}_diffusion"]
+            calls, d0 = stages.get(f"{impl}_diffusion_calls", 0), stages.get(f"{impl}_diffusion", 0.0)
             t0 = time.perf_counter()
             wav, sr = pipe.tts(TEXT, language="EN", max_length=N_TOKENS)
             runs[impl] = time.perf_counter() - t0
@@ -1493,8 +1557,9 @@ def wav_pcm(body: bytes) -> tuple:
 def serve_entry(dev, card: str) -> dict:
     """The port's serve entry points on the card, at flagship width with
     seeded weights (no `pretrain/` in the repository): the pipeline from
-    `cli/infer_tts.py::build_pipeline(configs/config.yaml)` (bf16, UniPC at
-    speedup 10: 100 steps over 1000 timesteps) behind `infer.TTSServer`
+    `cli/infer_tts.py::build_pipeline(configs/config.yaml)` (bf16; the
+    config's UniPC at speedup 10 is checked, and served at SERVE_SPEEDUP:
+    20 steps over 1000 timesteps) behind `infer.TTSServer`
     with the serve CLI's defaults (max_batch 8, max_wait_ms 30, max_queue
     64) and `cli/serve.py::make_handler` on a `TTSHTTPServer` at
     127.0.0.1:0.  After one unmeasured POST: six concurrent EN /tts POSTs
@@ -1536,6 +1601,7 @@ def serve_entry(dev, card: str) -> dict:
     method, speedup = cfg.common.infer.method, cfg.common.infer.speedup
     if (pipe.device.type, method, speedup) != ("cuda", "unipc", 10):
         raise AssertionError(f"build_pipeline on {pipe.device}, sampler {method} at speedup {speedup}")
+    speedup = SERVE_SPEEDUP
     hop, sr_want = pipe.vocoder.vocoder_hop_size, pipe.vocoder.vocoder_sample_rate
     K = pipe.lm.cfg.semantic_kmeans_num
 
@@ -1704,9 +1770,10 @@ def serve_entry(dev, card: str) -> dict:
         httpd.server_close()
         server.close()
     pipe.tts_batch, pipe.lm.generate = real_batch, real_generate
+    clis = start_cli()
+    DEFERRED.append(lambda: wait_cli(card, clis))
     launches["unet_fwd"], n = card_samplers(pipe, dev, card, count)
     launches["attention_fwd"] += n
-    run_cli(card)
     return launches
 
 
@@ -1750,8 +1817,8 @@ def card_samplers(pipe, dev, card: str, count: dict) -> tuple:
               f"{evals or unet_launches} denoiser evaluations, finite (max |mel| {mel.float().abs().max().item():.3f})")
 
     for method in CARD_SAMPLERS:
-        run(f"{method} (speedup 10)",
-            lambda: system.infer(units, spk_id=spk, method=method, infer_speedup=10, x_init=x_init))
+        run(f"{method} (speedup {SERVE_SPEEDUP})",
+            lambda: system.infer(units, spk_id=spk, method=method, infer_speedup=SERVE_SPEEDUP, x_init=x_init))
     cond = system.condition(units, spk_id=spk)
 
     @torch.no_grad()
@@ -1760,10 +1827,10 @@ def card_samplers(pipe, dev, card: str, count: dict) -> tuple:
             return system.diffusion.denoise_fn(None, torch.cat([x, cond.to(x.dtype)], dim=-1), t)
 
         ns = NoiseSchedule(system.diffusion.schedule.betas[: system.diffusion.k_step])
-        x = dpmpp_sample(eps_fn, ns, x_init.to(cond.dtype), steps=100, order=3)
+        x = dpmpp_sample(eps_fn, ns, x_init.to(cond.dtype), steps=system.diffusion.k_step // SERVE_SPEEDUP, order=3)
         return system.diffusion.denorm_spec(x)
 
-    run("dpm-solver order 3 (100 steps)", order3)
+    run(f"dpm-solver order 3 ({system.diffusion.k_step // SERVE_SPEEDUP} steps)", order3)
     # DDPM's 1000 steps through the fused kernel (build_pipeline's seed: the same weights)
     fused = Unit2MelSystem(system.cfg, dtype=torch.bfloat16, device=dev, unet_impl="pallas")
     run("ddpm (1000 steps, unet_impl=pallas)", lambda: fused.infer(
@@ -1772,29 +1839,36 @@ def card_samplers(pipe, dev, card: str, count: dict) -> tuple:
     return k23_total, k4_total
 
 
-def run_cli(card: str) -> None:
+def start_cli() -> list:
     """`python -m latent_diffusion_speech_tpu_torch.cli.infer_tts` as a user
-    runs it, plain and with --long: exit 0 and a readable 44.1 kHz WAV
-    under exp/ (removed after)."""
-    from latent_diffusion_speech_tpu_torch.ops.audio_io import read_wav
-
+    runs it, plain and with --long, both processes at once; `wait_cli`
+    checks them after the last phase (DEFERRED)."""
     os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    runs = []
     for name, text, extra in (("serve_entry_cli", CLI_TEXT, []), ("serve_entry_cli_long", STREAM_TEXT, ["--long"])):
         out = os.path.join("exp", name + ".wav")
         cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.infer_tts", "-c", "configs/config.yaml",
-               "-l", "EN", "-i", text, "-o", out, *extra]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+               "-l", "EN", "-i", text, "-o", out, "--speedup", str(SERVE_SPEEDUP), *extra]
+        runs.append((out, cmd, extra, time.perf_counter(), start_process(cmd)))
+    return runs
+
+
+def wait_cli(card: str, runs: list) -> None:
+    """Each `start_cli` process: exit 0 and a readable 44.1 kHz WAV under
+    exp/ (removed after)."""
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import read_wav
+
+    for out, cmd, extra, t0, proc in runs:
+        stdout, _ = finish_process(proc, cmd)
         took = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
         wav, sr = read_wav(os.path.join(ROOT, out))
         os.remove(os.path.join(ROOT, out))
         if sr != 44100 or wav.ndim != 1 or len(wav) == 0 or not np.isfinite(wav).all():
             raise AssertionError(f"{out}: {sr} Hz, shape {wav.shape}")
-        print(f"CLI infer_tts {' '.join(extra) or '(plain)'} [{card}]: exit 0 in {took:.1f} s (a new process: "
-              f"imports, the kernel library, build_pipeline, one request); {out}: {len(wav) / sr:.3f} s at {sr} Hz; "
-              f"{proc.stdout.strip().splitlines()[-1]}")
+        print(f"CLI infer_tts {' '.join(extra) or '(plain)'} [{card}]: exit 0, checked {took:.1f} s after its "
+              f"start (a new process, the two at once, started by serve_entry and running beside the phases "
+              f"that follow: imports, the kernel library, build_pipeline, one request); {out}: "
+              f"{len(wav) / sr:.3f} s at {sr} Hz; {stdout.strip().splitlines()[-1]}")
 
 
 # input of the svc phase: 44.1 kHz, (seconds, f0) a stretch, f0 None for
@@ -1834,7 +1908,7 @@ def svc_signal(parts=SVC_PARTS, sr: int = SVC_SR) -> tuple:
 def svc(dev, card: str) -> dict:
     """SVC long-audio inference as a user runs it, on the card at full
     width with seeded weights (no `pretrain/`): `cli/infer_tts.py::build_pipeline(configs/config.yaml)`
-    (bf16, the flagship UNet with K4, UniPC at speedup 10: 100 steps,
+    (bf16, the flagship UNet with K4, UniPC at SERVE_SPEEDUP: 20 steps,
     HiFi-VAEGAN at 44.1 kHz) with a `UnitsEncoder` over a seeded
     Whisper-large-v3 encoder (128 mels, 1280 wide, 20 heads, 32 layers,
     bf16), on `svc_signal()` written as a WAV and read back through
@@ -1846,18 +1920,17 @@ def svc(dev, card: str) -> dict:
     SVC_MARGIN_HOPS hops from voice exactly 0; all finite; units (1,
     T_16k // 320, 1280) f32; 32 K4 launches a denoiser evaluation, the same
     evaluations each segment; no unet_fwd, K5, K1, K4 backward or K6 launch.
-    The encoder in bf16 against the same weights in f32 on one segment's
-    mel (relative error <= WHISPER_BF16_REL).  Then the `infer_svc` CLI as
-    a new process on that WAV, and stages 10 and 19 (`process_units`,
-    `tokenize_units`) over a layout of SVC_FILES: one K6 launch a file, the
-    ids equal to `kmeans_argmin_plain` on the card but for f64 ties.  Last,
+    Then the `infer_svc` CLI as a new process on that WAV (checked after the
+    last phase, DEFERRED), while this process runs `svc_checks`: the
+    encoder in bf16 against the same weights
+    in f32 on one segment's mel (relative error <= WHISPER_BF16_REL), and
+    stages 10 and 19 (`process_units`, `tokenize_units`) over a layout of
+    SVC_FILES: one K6 launch a file, the ids equal to `kmeans_argmin_plain`
+    on the card but for f64 ties.  Last,
     K4 at every shape the phase launched it at and K6 at every N of stage
     19, against their plain versions and timed.  Returns the phase's launches."""
-    import shutil
-
     import torch
 
-    from latent_diffusion_speech_tpu_torch.cli import preprocess_token, preprocess_unit
     from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline as cli_build_pipeline
     from latent_diffusion_speech_tpu_torch.config import load_config
     from latent_diffusion_speech_tpu_torch.infer import tts
@@ -1871,7 +1944,6 @@ def svc(dev, card: str) -> dict:
     from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
     from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
     from latent_diffusion_speech_tpu_torch.ops.kernels import unet_fused as k23
-    from latent_diffusion_speech_tpu_torch.ops.stft import whisper_log_mel
 
     cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
     whisper_ckpt = os.path.join(ROOT, "pretrain", "large-v3_encoder.pt")
@@ -1880,7 +1952,7 @@ def svc(dev, card: str) -> dict:
     t0 = time.perf_counter()
     pipe = cli_build_pipeline(cfg)
     t_build = time.perf_counter() - t0
-    method, speedup = cfg.common.infer.method, cfg.common.infer.speedup
+    method, speedup = cfg.common.infer.method, SERVE_SPEEDUP
     t0 = time.perf_counter()
     encoder = UnitsEncoder(cfg.data.encoder, cfg.data.encoder_sample_rate, cfg.data.encoder_hop_size,
                            cfg.data.units_forced_mode, ckpt_path=whisper_ckpt, device=dev)
@@ -1998,6 +2070,53 @@ def svc(dev, card: str) -> dict:
     steps_sum = sum(sum(t) for t in steps.values())
     print(f"  svc other (host copies, mask gating, unmeasured): {(wall - steps_sum) * 1e3:.3f} ms")
 
+    # the CLI as a user runs it, a new process, checked after the last phase
+    dst = os.path.join("exp", "svc_out.wav")
+    cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.infer_svc", "-c", "configs/config.yaml",
+           "-i", os.path.join("exp", "svc_in.wav"), "-o", dst, "--speedup", str(SERVE_SPEEDUP)]
+    t_cli = time.perf_counter()
+    cli = start_process(cmd)
+
+    def check_cli() -> None:
+        stdout, _ = finish_process(cli, cmd)
+        took = time.perf_counter() - t_cli
+        wav, wav_sr = read_wav(os.path.join(ROOT, dst))
+        os.remove(os.path.join(ROOT, dst))
+        os.remove(src)
+        if wav_sr != 44100 or wav.ndim != 1 or abs(len(wav) - len(audio)) > hop * n_seg or not np.isfinite(wav).all():
+            raise AssertionError(f"{dst}: {wav_sr} Hz, shape {wav.shape}")
+        print(f"CLI infer_svc [{card}]: exit 0, checked {took:.1f} s after its start (a new process, started by svc "
+              f"and running beside the phases that follow: imports, the kernel library, build_pipeline, the Whisper "
+              f"init, {n_seg} segments); {dst}: {len(wav) / wav_sr:.3f} s at {wav_sr} Hz; "
+              f"{stdout.strip().splitlines()[-1]}")
+
+    DEFERRED.append(check_cli)
+    k4_rows = svc_checks(card, dev, cfg, pipe, encoder, whisper, audio, sr, spans, k4_shapes)
+
+    # K4 at every shape the svc call launched it at
+    gen = torch.Generator(device=dev).manual_seed(5)
+    print(f"svc K4 shapes (B, T, H, D): calls {dict(sorted(k4_shapes.items()))}")
+    for B, T, H, D in k4_rows:
+        k4_bf16_row(k4, gen, dev, B, T, D)
+    del pipe, encoder, whisper
+    torch.cuda.empty_cache()
+    return {"attention_fwd": launched["attention_fwd"], "kmeans_argmin": len(SVC_FILES)}
+
+
+def svc_checks(card: str, dev, cfg, pipe, encoder, whisper, audio, sr: int, spans, k4_shapes) -> list:
+    """svc's checks beside its CLI process: the Whisper encoder in bf16
+    against f32, stages 10 and 19 over a layout of SVC_FILES.  Returns the
+    K4 shapes to time once the CLI is done."""
+    import shutil
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import preprocess_token, preprocess_unit
+    from latent_diffusion_speech_tpu_torch.models import units as units_mod
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import write_wav
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+    from latent_diffusion_speech_tpu_torch.ops.stft import whisper_log_mel
+
     # the encoder in bf16 against the same weights in f32, on the first segment's mel
     with torch.no_grad():
         audio16 = units_mod.resample(torch.from_numpy(audio[: spans[0][1]]).to(dev)[None], sr, 16000)
@@ -2015,24 +2134,6 @@ def svc(dev, card: str) -> dict:
     print(f"svc Whisper encoder bf16 vs the same weights in f32 on the card, units {tuple(ref.shape)}: relative "
           f"error {rel:.4e} (limit {WHISPER_BF16_REL}), max abs error {max_err:.4f} at max |units| "
           f"{ref.abs().max().item():.3f}")
-
-    # the CLI as a user runs it, a new process
-    dst = os.path.join("exp", "svc_out.wav")
-    cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.infer_svc", "-c", "configs/config.yaml",
-           "-i", os.path.join("exp", "svc_in.wav"), "-o", dst]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    took = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\\n{proc.stdout[-2000:]}\\n{proc.stderr[-4000:]}")
-    wav, wav_sr = read_wav(os.path.join(ROOT, dst))
-    os.remove(os.path.join(ROOT, dst))
-    os.remove(src)
-    if wav_sr != 44100 or wav.ndim != 1 or abs(len(wav) - len(audio)) > hop * n_seg or not np.isfinite(wav).all():
-        raise AssertionError(f"{dst}: {wav_sr} Hz, shape {wav.shape}")
-    print(f"CLI infer_svc [{card}]: exit 0 in {took:.1f} s (a new process: imports, the kernel library, "
-          f"build_pipeline, the Whisper init, {n_seg} segments); {dst}: {len(wav) / wav_sr:.3f} s at {wav_sr} Hz; "
-          f"{proc.stdout.strip().splitlines()[-1]}")
 
     # stages 10 and 19 over a written layout
     root = os.path.join(ROOT, "exp", "svc_layout")
@@ -2073,15 +2174,7 @@ def svc(dev, card: str) -> dict:
               f"({differ / rows_total:.4%}, each an f64 tie)")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-
-    # K4 at every shape the svc call launched it at
-    gen = torch.Generator(device=dev).manual_seed(5)
-    print(f"svc K4 shapes (B, T, H, D): calls {dict(sorted(k4_shapes.items()))}")
-    for B, T, H, D in sorted(k4_shapes):
-        k4_bf16_row(k4, gen, dev, B, T, D)
-    del pipe, encoder, whisper
-    torch.cuda.empty_cache()
-    return {"attention_fwd": launched["attention_fwd"], "kmeans_argmin": len(SVC_FILES)}
+    return sorted(k4_shapes)
 
 
 def check_k4_bwd(dev) -> dict:
@@ -2843,6 +2936,7 @@ def compare_lm_step(cfg, batch, dev) -> str:
 def lm_train(dev, card: str) -> dict:
     """The LM training slice (stages 15, 16, 21) and the serve of its
     checkpoint through K1, at the shipped config's full LM width."""
+    import shutil
     import tempfile
 
     import torch
@@ -2976,6 +3070,31 @@ def lm_train(dev, card: str) -> dict:
         if len(lm_mfu) != n or any(x is None for x in lm_mfu):
             raise AssertionError(f"lm_train: train/mfu in metrics.jsonl {lm_mfu}")
 
+        # the infer_tts CLI with --lm-model, a process on a copy of the last
+        # checkpoint and the config, checked after the last phase
+        cli_dir = tempfile.mkdtemp(dir=os.path.join(ROOT, "exp"))
+        shutil.copy(os.path.join(tcfg.expdir, f"model_{n}.ckpt"), cli_dir)
+        shutil.copy(cfg_path, cli_dir)
+        cli_out = os.path.join(cli_dir, "lm_cli.wav")
+        cli_cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.infer_tts", "-c",
+                   os.path.join(cli_dir, os.path.basename(cfg_path)), "-l", "EN", "-i", CLI_TEXT, "-o", cli_out,
+                   "--lm-model", cli_dir]
+        t_cli = time.perf_counter()
+        cli = start_process(cli_cmd)
+
+        def check_cli() -> None:
+            finish_process(cli, cli_cmd)
+            cli_s = time.perf_counter() - t_cli
+            cli_wav, cli_sr = read_wav(cli_out)
+            shutil.rmtree(cli_dir)
+            if cli_sr != 44100 or not len(cli_wav) or not np.isfinite(cli_wav).all():
+                raise AssertionError(f"{cli_out}: {cli_sr} Hz, {cli_wav.shape}")
+            print(f"lm_train CLI infer_tts --lm-model [{card}]: exit 0, checked {cli_s:.1f} s after its start (a new "
+                  f"process, started by lm_train and running beside the phases that follow); "
+                  f"{len(cli_wav) / cli_sr:.3f} s at {cli_sr} Hz")
+
+        DEFERRED.append(check_cli)
+
         # gradient accumulation (k = 2): 5 micro-steps in one go against 3,
         # a save half-way through an update, a resume and 2 more
         acc = {}
@@ -3061,20 +3180,6 @@ def lm_train(dev, card: str) -> dict:
                 kernels += e.count
                 by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us
 
-        # the infer_tts CLI with --lm-model, as a process
-        out = os.path.join(tmp, "lm_cli.wav")
-        cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.infer_tts", "-c", cfg_path, "-l", "EN",
-               "-i", CLI_TEXT, "-o", out, "--lm-model", tcfg.expdir]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
-                                 f"{proc.stderr[-4000:]}")
-        cli_wav, cli_sr = read_wav(out)
-        if cli_sr != 44100 or not len(cli_wav) or not np.isfinite(cli_wav).all():
-            raise AssertionError(f"{out}: {cli_sr} Hz, {cli_wav.shape}")
-
     # step times: each leg's first step includes its start-up, and the step
     # after the validation includes evaluate, validate_audio and a save
     step_s = [b - a for leg in times for a, b in zip(leg, leg[1:])]
@@ -3111,8 +3216,6 @@ def lm_train(dev, card: str) -> dict:
           f"at the trained weights vs the plain decode (B=4, N={N_TOKENS}): tokens "
           f"{'identical' if same else f'agree up to step {n_cmp - 1}'}, logits max abs err {err:.3e} over {n_cmp} "
           f"steps (scale {scale:.2f}, tolerance 2% of scale), corr {corr:.6f}")
-    print(f"lm_train CLI infer_tts --lm-model [{card}]: exit 0 in {cli_s:.1f} s (a new process); "
-          f"{len(cli_wav) / cli_sr:.3f} s at {cli_sr} Hz")
     print(f"lm_train gradient_accumulation_steps=2 [{card}]: 5 micro-steps (2 updates) in one go against 3, a save "
           f"half-way through an update, a resume and 2 more: parameters and accumulator bitwise equal; train/mfu "
           f"of stage 21's steps (products a step x steps/s / bf16 peak): {[round(x, 4) for x in lm_mfu]}")
@@ -3353,7 +3456,7 @@ def alt_hubert_path(dev, card: str, tmp: str) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, out_sr = pipe.infer_from_long_audio(audio, sr, method=cfg.common.infer.method,
-                                                 infer_speedup=cfg.common.infer.speedup)
+                                                 infer_speedup=SERVE_SPEEDUP)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n4 = k4.launches
@@ -3910,7 +4013,7 @@ def data_path(dev, card: str) -> dict:
                 raise AssertionError(f"build_pipeline: vocoder {key} is not the checkpoint's")
         before = (k1.launches, k4.launches)
         t = time.perf_counter()
-        wav, sr = pipe.tts(TEXT, language="EN", method=cfg.common.infer.method, infer_speedup=cfg.common.infer.speedup)
+        wav, sr = pipe.tts(TEXT, language="EN", method=cfg.common.infer.method, infer_speedup=SERVE_SPEEDUP)
         torch.cuda.synchronize()
         walls["22 (tts)"] = time.perf_counter() - t
         wav = np.asarray(wav)
@@ -4058,24 +4161,60 @@ def write_reference_artifacts(tmp: str, cfg) -> dict:
     return paths
 
 
-def verify_processes(jobs: dict, device: str, flags) -> dict:
-    """`python -m latent_diffusion_speech_tpu_torch.cli.verify_import <path>
-    --json --device <device> <flags(kind)>` for every kind at once, as
-    processes; returns each kind's (report, wall seconds)."""
-    env = dict(os.environ, **({"OMP_NUM_THREADS": "2"} if device == "cpu" else {}))
-    procs = {}
-    for kind, path in jobs.items():
-        cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.verify_import", path, "--json",
-               "--device", device, *flags(kind)]
-        procs[kind] = (cmd, time.perf_counter(), subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                                                                  stderr=subprocess.PIPE, text=True))
+def verify_runs(jobs: dict, device: str, flags) -> dict:
+    """`cli/verify_import.py`'s main on every kind's path with `--json
+    --device <device> <flags(kind)>`, in this process; returns each kind's
+    (report, wall seconds)."""
+    from latent_diffusion_speech_tpu_torch.cli import verify_import
+
     out = {}
-    for kind, (cmd, t0, proc) in procs.items():
-        stdout, stderr = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\n{stdout[-2000:]}\n{stderr[-4000:]}")
-        out[kind] = (json.loads(stdout.strip().splitlines()[-1]), time.perf_counter() - t0)
+    for kind, path in jobs.items():
+        argv = [path, "--json", "--device", device, *flags(kind)]
+        t0, buf = time.perf_counter(), io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = verify_import.main(argv)
+        if rc != 0:
+            raise AssertionError(f"verify_import.main({argv}): {rc}\n{buf.getvalue()[-2000:]}")
+        out[kind] = (json.loads(buf.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0)
     return out
+
+
+def verify_process(card: str, ckpt: str, golden: str, want: dict) -> None:
+    """`python -m latent_diffusion_speech_tpu_torch.cli.verify_import` on the
+    card against a CPU golden, as a user runs it, on links to the files and
+    the config beside the checkpoint (they outlive migrate's directory):
+    exit 0 within VERIFY_TOL, the
+    report's kind, geometry and output shape equal to `want`'s.  Checked
+    after the last phase (DEFERRED)."""
+    import shutil
+    import tempfile
+
+    keep = tempfile.mkdtemp(dir=os.path.join(ROOT, "exp"))
+    paths = []
+    for src in (ckpt, golden, os.path.join(os.path.dirname(ckpt), "config.yaml")):  # the config beside the ckpt
+        paths.append(os.path.join(keep, os.path.basename(src)))
+        try:
+            os.link(src, paths[-1])
+        except OSError:
+            shutil.copy(src, paths[-1])
+    cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.cli.verify_import", paths[0], "--json",
+           "--device", "cuda", "--golden", paths[1]]
+    t0 = time.perf_counter()
+    proc = start_process(cmd)
+
+    def check() -> None:
+        stdout, _ = finish_process(proc, cmd)
+        took = time.perf_counter() - t0
+        shutil.rmtree(keep)
+        got = json.loads(stdout.strip().splitlines()[-1])
+        same = {k: got.get(k) == want.get(k) for k in ("kind", "geometry", "output_shape", "imported_elements")}
+        if not got.get("golden_match") or not got["golden_rel_diff"] <= VERIFY_TOL or not all(same.values()):
+            raise AssertionError(f"{' '.join(cmd)}: {got}; same as in this process {same}")
+        print(f"migrate verify_import {got['kind']} as a process on the card [{card}]: exit 0, checked {took:.1f} s "
+              f"after its start (started by migrate, running beside the phases that follow); golden_rel_diff "
+              f"{got['golden_rel_diff']:.3e} (limit {VERIFY_TOL}) against the CPU's golden")
+
+    DEFERRED.append(check)
 
 
 def migrate(dev, card: str) -> dict:
@@ -4087,9 +4226,11 @@ def migrate(dev, card: str) -> dict:
     CPU's).  Then the set in f32 on the card against the CPU: the Unit2Mel
     forward at verify_import's inputs within MIGRATE_U2M_REL of its scale,
     K1's greedy logits up to the first flipped argmax (K1_F32_REL); and
-    `verify_import` as a process for every kind, `--device cpu
-    --save-golden`, then `--device cuda --golden` (exit 0, within
-    VERIFY_TOL; the codebook's ids equal).  Returns the launches."""
+    `verify_import` for every kind, `--device cpu --save-golden`, then
+    `--device cuda --golden` (exit 0, within VERIFY_TOL; the codebook's ids
+    equal), through its `main` in this process; and the card's unit2mel
+    run once more as a process, as a user starts it (`verify_process`,
+    checked after the last phase).  Returns the launches."""
     import argparse
     import tempfile
 
@@ -4132,7 +4273,7 @@ def migrate(dev, card: str) -> dict:
         denoise = pipe.diffusion.module.denoise
         pipe.diffusion.module.denoise = lambda x, t_: evaluations.append(1) or denoise(x, t_)
         t = time.perf_counter()
-        wav, sr = pipe.tts(TEXT, language="EN", method=cfg.common.infer.method, infer_speedup=cfg.common.infer.speedup)
+        wav, sr = pipe.tts(TEXT, language="EN", method=cfg.common.infer.method, infer_speedup=SERVE_SPEEDUP)
         torch.cuda.synchronize()
         t_tts = time.perf_counter() - t
         wav = np.asarray(wav)
@@ -4149,7 +4290,7 @@ def migrate(dev, card: str) -> dict:
             raise AssertionError(f"verify_import on the codebook: kind {report['kind']}, K6 launches {k6.launches}")
         launches = {"ar_decode": k1.launches, "attention_fwd": k4.launches, "kmeans_argmin": k6.launches}
         print(f"migrate serve [{card}]: load_reference_pipeline (bf16) {t_load:.2f} s; one EN tts {t_tts:.3f} s for "
-              f"{len(wav) / sr:.3f} s of audio ({cfg.common.infer.method}, speedup {cfg.common.infer.speedup}: "
+              f"{len(wav) / sr:.3f} s of audio ({cfg.common.infer.method}, speedup {SERVE_SPEEDUP}: "
               f"{n_eval} denoiser evaluations); verify_import's verify on the codebook in-process; launches {launches}")
         del pipe
         torch.cuda.empty_cache()
@@ -4194,7 +4335,7 @@ def migrate(dev, card: str) -> dict:
         del p32, decode
         torch.cuda.empty_cache()
 
-        # 3. verify_import as a process for every kind: CPU goldens, then the card
+        # 3. verify_import for every kind: CPU goldens, then the card
         jobs = {"codebook": paths["codebook"], "unit2mel": ckpt["diffusion"], "roformer": ckpt["lm"],
                 "vaegan-encoder": os.path.join(paths["pair"], "encoder.pth"),
                 "vaegan-decoder": os.path.join(paths["pair"], "decoder.pth"), "whisper": paths["whisper"]}
@@ -4202,9 +4343,9 @@ def migrate(dev, card: str) -> dict:
         def golden(kind, where):
             return os.path.join(tmp, f"{kind}_{where}.npz")
 
-        cpu = verify_processes(jobs, "cpu", lambda k: ["--save-golden", golden(k, "cpu")])
-        gpu = verify_processes(jobs, "cuda", lambda k: ["--golden", golden(k, "cpu"), "--save-golden",
-                                                        golden(k, "cuda")])
+        cpu = verify_runs(jobs, "cpu", lambda k: ["--save-golden", golden(k, "cpu")])
+        gpu = verify_runs(jobs, "cuda", lambda k: ["--golden", golden(k, "cpu"), "--save-golden", golden(k, "cuda")])
+        verify_process(card, jobs["unit2mel"], golden("unit2mel", "cpu"), gpu["unit2mel"][0])
         for kind in jobs:
             (want, t_cpu), (got, t_gpu) = cpu[kind], gpu[kind]
             same = {key: got.get(key) == want.get(key) for key in ("kind", "geometry", "output_shape",
@@ -4212,7 +4353,7 @@ def migrate(dev, card: str) -> dict:
             if (got["kind"] != kind or not got["golden_match"] or not got["golden_rel_diff"] <= VERIFY_TOL
                     or not all(same.values())):
                 raise AssertionError(f"verify_import {kind} on the card against its CPU golden: {got}; same {same}")
-            print(f"migrate verify_import {kind} [{card}]: CPU {t_cpu:.1f} s, card {t_gpu:.1f} s (processes); "
+            print(f"migrate verify_import {kind} [{card}]: CPU {t_cpu:.1f} s, card {t_gpu:.1f} s (in this process); "
                   f"golden_rel_diff {got['golden_rel_diff']:.3e} (limit {VERIFY_TOL}); output {got['output_shape']}; "
                   f"torch elements {got.get('torch_elements')}, imported {got['imported_elements']}; unused keys "
                   f"{got.get('torch_keys_unused', 'not tracked')}")
@@ -4230,8 +4371,9 @@ def migrate(dev, card: str) -> dict:
 # codec_train: the HiFi-VAEGAN codec trained through cli/train_codec.py at the
 # shipped 44.1 kHz width (hop 512, 128 latent channels), the CodecTrainer's
 # bank (STFT scales 1024 and 512, periods 2-11), B=16 crops of 0.74 s
-CODEC_B, CODEC_CROP, CODEC_STEPS = 16, 32256, (4, 4)  # batch; samples a crop; steps before and after the resume
+CODEC_B, CODEC_CROP, CODEC_STEPS = 16, 32256, (2, 2)  # batch; samples a crop; steps before and after the resume
 CODEC_FILES = 8  # synthetic voiced WAVs of 2-3.75 s
+CODEC_CPU_B = 1  # the card-against-CPU step's batch
 
 
 def write_codec_layout(root: str, sr: int, seed: int = 0) -> None:
@@ -4318,7 +4460,7 @@ def compare_codec_step(vcfg, audio: np.ndarray, dev) -> str:
 
 def codec_train(dev, card: str) -> dict:
     """Codec GAN training through `cli/train_codec.py::main` at the shipped
-    width, on a synthetic WAV layout: 4 steps, a save, a resume and 4 more,
+    width, on a synthetic WAV layout: CODEC_STEPS (a save, a resume between),
     then again with --use-vq; one step on the card against the CPU."""
     import tempfile
 
@@ -4348,9 +4490,10 @@ def codec_train(dev, card: str) -> dict:
         save_config(cfg, cfg_path)
 
         clips = [load_audio(os.path.join(tmp, "train", "audio", f"{i}.wav"), target_sr=vcfg.sampling_rate)[0]
-                 for i in range(2)]
+                 for i in range(CODEC_CPU_B)]
         audio = np.stack([c[1000:1000 + CODEC_CROP] for c in clips]).astype(np.float32)
-        print(f"codec_train step, card vs CPU (B=2, f32, TF32 off) [{card}]: {compare_codec_step(vcfg, audio, dev)}")
+        print(f"codec_train step, card vs CPU (B={CODEC_CPU_B}, f32, TF32 off) [{card}]: "
+              f"{compare_codec_step(vcfg, audio, dev)}")
 
         times, metrics = [], []
         real_log = MetricsLogger.log
@@ -4412,6 +4555,7 @@ LLAMA_MOE = (8, 2, 1.25)  # experts, top-k, capacity factor
 LLAMA_PARAMS = {"dense": 20_624_640, "moe": 53_679_360}  # 20.6 M and 53.7 M
 LLAMA_B, LLAMA_STEPS, LLAMA_VAL_AT = 32, (3, 3), 4  # batch; steps before / after the resume; interval_val
 LLAMA_CPU_B = 2  # the card-against-CPU step's batch (the longest batch's first rows)
+LLAMA_GREEDY_N = 128  # decode steps of the greedy card-against-CPU comparison
 BERT_TEXT = "Please read the following sentence slowly and clearly, then bring the book back home."
 F0_SIGNAL_S = 10.0
 
@@ -4435,6 +4579,9 @@ def llama_corpus_config(tmp: str, moe: bool):
     tcfg.batch_size, tcfg.loader_processes, tcfg.interval_log = LLAMA_B, 0, 1
     tcfg.interval_val = LLAMA_VAL_AT if not moe else 10 ** 9
     tcfg.expdir = os.path.join(tmp, "exp_llama_moe" if moe else "exp_llama")
+    if moe:  # no validation, so no validation pipeline: a weight_quant value
+        # the diffusion model refuses (ValueError) makes stage 21's build skip it
+        cfg.common.infer.weight_quant = "none"
     return cfg
 
 
@@ -4596,7 +4743,8 @@ def llama_train_run(tmp: str, moe: bool, dev, card: str) -> dict:
 def llama_serve(cfg, params, dev, card: str) -> dict:
     """The trained dense checkpoint served through `build_pipeline(lm_ckpt=)`
     in bf16: one warm-up and one measured `tts` of N_TOKENS decode steps;
-    tts_batch raises (R11); greedy tokens on the card against the CPU's."""
+    tts_batch raises (R11); LLAMA_GREEDY_N greedy tokens on the card against
+    the CPU's."""
     import torch
 
     from latent_diffusion_speech_tpu_torch.cli.infer_tts import build_pipeline
@@ -4647,7 +4795,7 @@ def llama_serve(cfg, params, dev, card: str) -> dict:
     for where, dtype in ((dev, torch.float32), ("cpu", torch.float32), (dev, torch.bfloat16)):
         lm = LlamaSystem(pipe.lm.cfg, state_dict=params, dtype=dtype, device=where)
         t0 = time.perf_counter()
-        toks, lens = lm.generate(phones[None], max_length=N_TOKENS, do_sample=False)
+        toks, lens = lm.generate(phones[None], max_length=LLAMA_GREEDY_N, do_sample=False)
         greedy[(str(where), dtype)] = (toks[0].cpu().numpy(), int(lens[0]), time.perf_counter() - t0)
         del lm
     card32, cpu32, card16 = (greedy[k] for k in ((str(dev), torch.float32), ("cpu", torch.float32),
@@ -4655,9 +4803,10 @@ def llama_serve(cfg, params, dev, card: str) -> dict:
 
     def agree(a, b) -> str:
         diff = np.nonzero(a[0] != b[0])[0]
-        return "identical" if not len(diff) and a[1] == b[1] else f"agree up to step {int(diff[0]) if len(diff) else N_TOKENS}"
+        return ("identical" if not len(diff) and a[1] == b[1]
+                else f"agree up to step {int(diff[0]) if len(diff) else LLAMA_GREEDY_N}")
 
-    print(f"llama_text greedy decode, {N_TOKENS} steps [{card}]: f32 card vs f32 CPU tokens {agree(card32, cpu32)} "
+    print(f"llama_text greedy decode, {LLAMA_GREEDY_N} steps [{card}]: f32 card vs f32 CPU tokens {agree(card32, cpu32)} "
           f"(lengths {card32[1]} / {cpu32[1]}; {card32[2]:.3f} s on the card, {cpu32[2]:.3f} s on the CPU); bf16 "
           f"card vs f32 CPU {agree(card16, cpu32)} ({card16[2]:.3f} s)")
     return dict(k4=n_k4, t_tts=t_tts, stages=stages)
@@ -4875,7 +5024,7 @@ def llama_text(dev, card: str) -> dict:
 ZOO_TRAIN = "zoo_attn"  # the block zoo configuration zoo_train trains
 ZOO_TRAIN_STEPS = 3
 DP_STEPS = (2, 2)  # steps before the save and after the resume, each trainer
-DP_AB_STEPS = 6  # train_step calls a turn in the with / without group A/B
+DP_AB_STEPS = 3  # train_step calls a turn in the with / without group A/B
 DP_PROFILED = 3  # steps under torch.profiler (CPU and CUDA activities) with the group
 DP_LM_UTTS = 64  # the LM corpus: two batches of 32
 DP_BACKEND = "nccl"  # the process group the card's ranks join
@@ -4956,25 +5105,36 @@ runpy.run_module(module, run_name="__main__", alter_sys=True)
 """
 
 
-def torchrun(jobs: dict) -> dict:
+def torchrun_start(jobs: dict) -> dict:
     """One process a job under `torch.distributed.run` (a world of 1 on this
     card, a real NCCL group), all at once: {name: (module, config path,
     steps)}; each runs with cuDNN's deterministic algorithms (a script beside
-    its config sets them, then runs the module as __main__).  Returns each
-    job's output."""
+    its config sets them, then runs the module as __main__).  Returns the
+    processes for `torchrun_wait`."""
     procs = {}
-    for name, (module, cfg_path, steps) in jobs.items():
-        main = os.path.join(os.path.dirname(cfg_path), "deterministic_main.py")
-        with open(main, "w") as fh:
-            fh.write(DETERMINISTIC_MAIN)
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes=1", "--nproc_per_node=1",
-               "--master_addr=localhost", f"--master_port={free_port()}", main, module, "-c", cfg_path,
-               "--max-steps", str(steps)]
-        procs[name] = (cmd, subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-                                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        for name, (module, cfg_path, steps) in jobs.items():
+            main = os.path.join(os.path.dirname(cfg_path), "deterministic_main.py")
+            with open(main, "w") as fh:
+                fh.write(DETERMINISTIC_MAIN)
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes=1", "--nproc_per_node=1",
+                   "--master_addr=localhost", f"--master_port={free_port()}", main, module, "-c", cfg_path,
+                   "--max-steps", str(steps)]
+            procs[name] = (cmd, start_process(cmd, env=dict(os.environ, PYTHONPATH=ROOT)))
+    except BaseException:
+        torchrun_wait(procs, kill=True)
+        raise
+    return procs
+
+
+def torchrun_wait(procs: dict, kill: bool = False) -> dict:
+    """Each `torchrun_start` job's output once it exits 0 (all killed when
+    one fails, or at once with `kill`)."""
     outs = {}
     try:
         for name, (cmd, proc) in procs.items():
+            if kill:
+                break
             out, err = proc.communicate(timeout=600)
             if proc.returncode != 0 or f"rank 0 of 1: {DP_BACKEND} process group" not in out:
                 raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
@@ -5044,35 +5204,20 @@ def dp_ab(trainer, step, card: str, what: str) -> dict:
     return dict(turns=turns, nccl_calls=calls, nccl_kernels=device, reduce_ms=reduce_ms)
 
 
-def dp_train(dev, card: str) -> dict:
-    """Data parallelism at a world of 1 (the card host has one card): the
-    diffusion trainer (flagship width, B=48, 1 s crops, the k-means snap)
-    and the shipped RoFormer (B=32), each through its training CLI under
-    `torch.distributed.run --nproc_per_node=1` (the CLI joins a real NCCL
-    group), DP_STEPS[0] steps, a save, then a second process that resumes
-    and trains DP_STEPS[1] more; its checkpoint must equal, bit for bit, the
-    same steps run in this process through `build` with no group at all.
-    In this process, under a world-of-one NCCL group: each trainer's
-    train_step with and without the group (`dp_ab`) and the NCCL kernels a
-    step.  Returns the kernels' launches of the in-process runs."""
-    import tempfile
+class DpStart:
+    """dp_train's data layout and configs (`tmp`, `cfg`, `cfg_lm`, `paths`)
+    and its two CLI processes under `torch.distributed.run` (`procs`,
+    DP_STEPS[0] steps each), started ahead of the phase so that their
+    start-up runs beside the phases before it; `dp_train` takes them."""
 
-    import torch
+    def __init__(self):
+        import tempfile
 
-    from latent_diffusion_speech_tpu_torch.cli import train_diffusion, train_lm
-    from latent_diffusion_speech_tpu_torch.config import load_config, save_config
-    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
-    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
-    from latent_diffusion_speech_tpu_torch.parallel.dist import initialize_distributed, shutdown_distributed
-    from latent_diffusion_speech_tpu_torch.train.checkpoint import load_checkpoint
-    from latent_diffusion_speech_tpu_torch.train.optim import step_generator
+        from latent_diffusion_speech_tpu_torch.config import load_config, save_config
 
-    t_phase = time.perf_counter()
-    n = sum(DP_STEPS)
-    k4.launches = k4.bwd_launches = k6.launches = 0
-    results = {}
-    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp")) as tmp:
+        os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+        self.dir = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp"))
+        tmp = self.tmp = self.dir.name
         cb = np.random.default_rng(1).standard_normal((4096, 1280)).astype(np.float32)
         write_train_layout(os.path.join(tmp, "train"), cb, speakers=1)
         np.savez(os.path.join(tmp, "codebook.npz"), cluster_centers_=cb)
@@ -5091,34 +5236,56 @@ def dp_train(dev, card: str) -> dict:
         cfg_lm.data.train_path = os.path.join(tmp, "lm_train")
         cfg_lm.text2semantic.model.codebook_path = os.path.join(tmp, "no-codebook.npz")
         cfg_lm.diffusion.train.expdir = os.path.join(tmp, "no-diffusion")
-        # no validation pipeline (lm_train runs it): an int8 serve setting, not
-        # ported, makes stage 21's build skip it at once instead of seeding one
-        cfg_lm.common.infer.weight_quant = "int8"
+        # no validation pipeline (lm_train runs it): a weight_quant value the
+        # diffusion model refuses (ValueError) makes stage 21's build skip it
+        # at once instead of seeding one
+        cfg_lm.common.infer.weight_quant = "none"
         paths = {"diffusion": os.path.join(tmp, "diffusion.yaml"), "lm": os.path.join(tmp, "lm.yaml")}
         save_config(cfg, paths["diffusion"])
         save_config(cfg_lm, paths["lm"])
 
-        # the CLIs under torch.distributed.run, both trainers at once:
-        # DP_STEPS[0] steps, then a second process resumes and takes the rest
-        modules = {"diffusion": "latent_diffusion_speech_tpu_torch.cli.train_diffusion",
-                   "lm": "latent_diffusion_speech_tpu_torch.cli.train_lm"}
-        t0 = time.perf_counter()
-        legs = [torchrun({w: (m, paths[w], steps) for w, m in modules.items()}) for steps in (DP_STEPS[0], n)]
-        cli_s = time.perf_counter() - t0
-        for what in modules:
-            if f"resumed at step {DP_STEPS[0]}" not in legs[1][what]:
-                raise AssertionError(f"dp_train {what}: the second process did not resume\n{legs[1][what][-2000:]}")
-        steps_s = [1 / json.loads(x)["train/steps_per_sec"] for out in legs for x in out["diffusion"].splitlines()
-                   if x.startswith("{") and "train/steps_per_sec" in x]
-        results["diffusion"] = dict(cli_steps_ms=[round(x * 1e3, 2) for x in steps_s])
-        rows = [json.loads(x) for x in open(os.path.join(lm.expdir, "logs", "metrics.jsonl"))]
-        results["lm"] = dict(cli_steps_ms=[round(1e3 / r["train/steps_per_sec"], 2) for r in rows
-                                          if "train/steps_per_sec" in r])
-        t0 = time.perf_counter()
+        self.cfg, self.cfg_lm, self.paths = cfg, cfg_lm, paths
+        self.t0 = time.perf_counter()
+        self.procs = torchrun_start({w: (f"latent_diffusion_speech_tpu_torch.cli.train_{w}", paths[w], DP_STEPS[0])
+                                     for w in ("diffusion", "lm")})
 
-        # the same steps in this process, no group: the reference (cuDNN's
-        # deterministic algorithms, as the CLI processes)
-        ref_dirs, differs = {}, {}
+    def close(self) -> None:
+        torchrun_wait(self.procs, kill=True)
+        self.dir.cleanup()
+
+
+def dp_train(dev, card: str, started: DpStart) -> dict:
+    """Data parallelism at a world of 1 (the card host has one card): the
+    diffusion trainer (flagship width, B=48, 1 s crops, the k-means snap)
+    and the shipped RoFormer (B=32), each through its training CLI under
+    `torch.distributed.run --nproc_per_node=1` (the CLI joins a real NCCL
+    group), DP_STEPS[0] steps and a save, while this process runs all the
+    steps through `build` with no group at all.  Then this process joins a
+    world-of-one NCCL group: each CLI's main resumes and trains DP_STEPS[1]
+    more, its checkpoint bitwise equal to the run without a group; each
+    trainer's train_step with and without the group (`dp_ab`) and the NCCL
+    kernels a step.  Returns the kernels' launches of the in-process runs."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.cli import train_diffusion, train_lm
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.kernels import kmeans as k6
+    from latent_diffusion_speech_tpu_torch.parallel.dist import initialize_distributed, shutdown_distributed
+    from latent_diffusion_speech_tpu_torch.train.checkpoint import load_checkpoint
+    from latent_diffusion_speech_tpu_torch.train.optim import step_generator
+
+    t_phase = time.perf_counter()
+    n = sum(DP_STEPS)
+    k4.launches = k4.bwd_launches = k6.launches = 0
+    results = {}
+    cfg, cfg_lm, paths, procs, t0 = started.cfg, started.cfg_lm, started.paths, started.procs, started.t0
+    lm = cfg.text2semantic.train
+    modules = {"diffusion": train_diffusion, "lm": train_lm}
+    try:
+        # the same steps in this process with no group, the reference
+        # (cuDNN's deterministic algorithms, as the CLIs)
+        ref_dirs = {}
+        t_ref = time.perf_counter()
         for what, c in (("diffusion", cfg), ("lm", cfg_lm)):
             c = copy.deepcopy(c)
             tc = c.diffusion.train if what == "diffusion" else c.text2semantic.train
@@ -5134,30 +5301,54 @@ def dp_train(dev, card: str) -> dict:
                     finally:
                         val_loader.close()
                         logger.close()
-            expdir = cfg.diffusion.train.expdir if what == "diffusion" else lm.expdir
-            (step_a, params_a, opt_a), (step_b, params_b, opt_b) = (load_checkpoint(e) for e in (ref_dirs[what],
-                                                                                                expdir))
-            differ = [k for k in params_a if not torch.equal(params_a[k].cpu(), params_b[k].cpu())]
-            if (step_a, step_b) != (n, n) or params_a.keys() != params_b.keys() or differ or not same_state(
-                    opt_a, opt_b):
-                worst = max((((params_a[k].cpu() - params_b[k].cpu()).abs().max()
-                              / params_a[k].cpu().abs().max().clamp_min(1e-30)).item() for k in differ), default=None)
-                differs[what] = (f"steps {step_a} / {step_b}, {len(differ)} of {len(params_a)} parameters differ "
-                                 f"(largest relative {worst}), optimizer state equal: {same_state(opt_a, opt_b)}")
-            results[what].update(trainer=trainer, loader=loader)
-        if differs:
-            raise AssertionError(f"dp_train: the resumed world-of-one runs differ from the uninterrupted runs without "
-                                 f"a group: {differs}")
+            results[what] = dict(trainer=trainer, loader=loader)
+        ref_s = time.perf_counter() - t_ref
+        legs = [torchrun_wait(procs)]
+        cli_s = time.perf_counter() - t0
 
-        ref_s = time.perf_counter() - t0
-
-        # with and without the group, in this process
+        # this process joins a world-of-one NCCL group: each CLI's main
+        # resumes there and takes the other DP_STEPS[1] steps; then train_step
+        # with and without the group
         t0 = time.perf_counter()
         os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
                           MASTER_PORT=str(free_port()))
         try:
             if not initialize_distributed(dev) or torch.distributed.get_backend() != DP_BACKEND:
                 raise AssertionError(f"dp_train: no {DP_BACKEND} process group")
+            legs.append({})
+            for what, module in modules.items():
+                buf = io.StringIO()
+                with deterministic_cudnn(), contextlib.redirect_stdout(buf):
+                    module.main(["-c", paths[what], "--max-steps", str(n)])
+                legs[1][what] = buf.getvalue()
+                if f"resumed at step {DP_STEPS[0]}" not in legs[1][what]:
+                    raise AssertionError(f"dp_train {what}: main did not resume\n{legs[1][what][-2000:]}")
+            resume_s = time.perf_counter() - t0
+            differs = {}
+            for what in modules:
+                expdir = cfg.diffusion.train.expdir if what == "diffusion" else lm.expdir
+                (step_a, params_a, opt_a), (step_b, params_b, opt_b) = (load_checkpoint(e) for e in (ref_dirs[what],
+                                                                                                    expdir))
+                differ = [k for k in params_a if not torch.equal(params_a[k].cpu(), params_b[k].cpu())]
+                if (step_a, step_b) != (n, n) or params_a.keys() != params_b.keys() or differ or not same_state(
+                        opt_a, opt_b):
+                    worst = max((((params_a[k].cpu() - params_b[k].cpu()).abs().max()
+                                  / params_a[k].cpu().abs().max().clamp_min(1e-30)).item() for k in differ),
+                                default=None)
+                    differs[what] = (f"steps {step_a} / {step_b}, {len(differ)} of {len(params_a)} parameters "
+                                     f"differ (largest relative {worst}), optimizer state equal: "
+                                     f"{same_state(opt_a, opt_b)}")
+            if differs:
+                raise AssertionError(f"dp_train: the resumed world-of-one runs differ from the uninterrupted runs "
+                                     f"without a group: {differs}")
+            steps_s = [1 / json.loads(x)["train/steps_per_sec"] for out in legs for x in out["diffusion"].splitlines()
+                       if x.startswith("{") and "train/steps_per_sec" in x]
+            results["diffusion"].update(cli_steps_ms=[round(x * 1e3, 2) for x in steps_s])
+            rows = [json.loads(x) for x in open(os.path.join(lm.expdir, "logs", "metrics.jsonl"))]
+            results["lm"].update(cli_steps_ms=[round(1e3 / r["train/steps_per_sec"], 2) for r in rows
+                                               if "train/steps_per_sec" in r])
+
+            t0 = time.perf_counter()
             trainer, loader = results["diffusion"].pop("trainer"), results["diffusion"].pop("loader")
             loader.set_epoch(0)
             batch = trainer.device_put_batch(next(iter(loader)))
@@ -5175,40 +5366,512 @@ def dp_train(dev, card: str) -> dict:
                 results["lm"]["loader"].close()
         del trainer, loader
         ab_s = time.perf_counter() - t0
+    finally:
+        started.close()
     torch.cuda.empty_cache()
     for what in ("diffusion", "lm"):
         r = results[what]
-        print(f"dp_train {what} CLI under torch.distributed.run [{card}]: {DP_STEPS[0]} steps, save, a second "
-              f"process resumed and took {DP_STEPS[1]} more; step walls "
+        print(f"dp_train {what} CLI under torch.distributed.run [{card}]: {DP_STEPS[0]} steps, save; its main "
+              f"in this process under the world-of-one group resumed and took {DP_STEPS[1]} more; step walls "
               f"{r['cli_steps_ms']} ms; its checkpoint equals the uninterrupted run without a group, bit for bit; "
               f"median train_step without / with the group {float(np.median(r['turns']['without'])):.2f} / "
               f"{float(np.median(r['turns']['with'])):.2f} ms; the all-reduce alone {r['reduce_ms'][1]:.2f} ms")
     launches = {"attention_fwd": k4.launches, "attention_bwd": k4.bwd_launches, "kmeans_argmin": k6.launches}
-    print(f"dp_train phase: {time.perf_counter() - t_phase:.1f} s (the four CLI processes, two at a time, "
-          f"{cli_s:.1f} s; the references without a group {ref_s:.1f} s; the A/B {ab_s:.1f} s); in-process "
+    print(f"dp_train phase: {time.perf_counter() - t_phase:.1f} s (the two CLI processes, started before migrate, "
+          f"done {cli_s:.1f} s after their start; the references without a group {ref_s:.1f} s; the resumes in this "
+          f"process {resume_s:.1f} s; the A/B {ab_s:.1f} s); in-process "
           f"launches {launches} [{card}]")
     return launches
 
 
-def main() -> int:
+# int8_serve: the flagship eager bf16 pipeline without and with int8 UNet
+# weights; tp_ep: tensor and expert parallelism with sharded checkpoints
+INT8_CORR = 0.99  # the JAX package's bar for int8 latents against bf16 (tests/test_weight_quant.py)
+TP_DIFF_B, TP_DIFF_F = 2, 86  # the flagship diffusion step over two CPU ranks: B=2 crops of 1 s (86 frames)
+TP_LLAMA_B, TP_LLAMA_T = 4, 64  # the Llama with 8 experts over two CPU ranks
+
+
+def int8_serve(dev, card: str) -> dict:
+    """int8 serving weights on the card, at flagship width with seeded
+    weights: `cli/infer_tts.py::build_pipeline(configs/config.yaml)` (bf16)
+    without and with `common.infer.weight_quant: int8`.  For each: one
+    unmeasured `tts`, then the `tts` walls (430 tokens) and a `tts_batch` of
+    4, one denoiser forward at the tts's shape (B=1, T=432; for int8 the
+    dequantization to bf16 included), and the UNet's weight bytes (int8
+    values and bf16 scales against bf16).  The latents of one 20-step
+    DPM-Solver++ call from one x_init correlate above 0.99 between the two;
+    `Unit2MelSystem` raises JAX's ValueErrors (another value, int8 with
+    unet_impl="pallas"); the `infer_tts` CLI with `--weight-quant int8`
+    writes its WAV as a process.  Returns the int8 pipeline's launches
+    (counted from zero just before its `tts` and `tts_batch`)."""
     import torch
 
+    from latent_diffusion_speech_tpu_torch.cli import infer_tts
+    from latent_diffusion_speech_tpu_torch.config import load_config
+    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig, Unit2MelSystem
+    from latent_diffusion_speech_tpu_torch.ops.audio_io import read_wav
+    from latent_diffusion_speech_tpu_torch.ops.kernels import ar_decode as k1
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+    from latent_diffusion_speech_tpu_torch.ops.weight_quant import tree_bytes
+
+    t_phase = time.perf_counter()
+    errors = []
+    for kw in (dict(weight_quant="fp4"), dict(weight_quant="int8", unet_impl="pallas")):
+        try:
+            Unit2MelSystem(Unit2MelConfig(), device=dev, **kw)
+        except ValueError as e:
+            errors.append(str(e))
+        else:
+            raise AssertionError(f"Unit2MelSystem({kw}) did not raise")
+    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+    res, latents, launches = {}, {}, {}
+    for quant in ("bf16", "int8"):
+        cfg.common.infer.weight_quant = "int8" if quant == "int8" else ""
+        pipe = infer_tts.build_pipeline(cfg)
+        diffusion = pipe.diffusion
+        if diffusion.weight_quant != ("int8" if quant == "int8" else None):
+            raise AssertionError(f"build_pipeline: weight_quant {diffusion.weight_quant}")
+        pipe.tts(TEXT, language="EN", max_length=N_TOKENS)  # warm-up
+        torch.cuda.synchronize()
+        calls, real_infer = [], diffusion.infer
+        diffusion.infer = lambda *a, **kw: (calls.append(1), real_infer(*a, **kw))[1]
+        k1.launches = k4.launches = k4.bwd_launches = 0
+        t0 = time.perf_counter()
+        wav, sr = pipe.tts(TEXT, language="EN", max_length=N_TOKENS)
+        torch.cuda.synchronize()
+        t_tts = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = pipe.tts_batch(BATCH_TEXTS, language="EN", spk_ids=[1, 2, 3, 4], max_length=N_TOKENS)
+        torch.cuda.synchronize()
+        t_batch = time.perf_counter() - t0
+        launches[quant] = {"ar_decode": k1.launches, "attention_fwd": k4.launches}
+        diffusion.infer, n_inf = real_infer, len(calls)
+        # 20 denoiser evaluations a diffusion call, 32 K4 launches each; one K1 launch a generate
+        if k4.launches != 640 * n_inf or k1.launches != 2 or k4.bwd_launches:
+            raise AssertionError(f"{quant} serve launches {launches[quant]} over {n_inf} diffusion calls")
+        for w, s in [(wav, sr)] + list(outs):
+            if s != 44100 or w.ndim != 1 or not len(w) or not np.isfinite(w).all():
+                raise AssertionError(f"{quant} serve: {s} Hz, shape {w.shape}")
+        with torch.no_grad():
+            prepared = diffusion._prepare_sample_params()
+            mc = diffusion.cfg
+            g = torch.Generator(device=dev).manual_seed(0)
+            x = torch.randn((1, 432, mc.out_dims + mc.n_hidden), generator=g, device=dev, dtype=torch.bfloat16)
+            t = torch.full((1,), 500, device=dev, dtype=torch.long)
+            fwd_ms = cuda_time_ms(lambda: diffusion._denoise(prepared, x, t), iters=20, warmup=3)
+            unet = dict(diffusion.module.unet.named_parameters())
+            nbytes = tree_bytes(prepared.qparams) if quant == "int8" else tree_bytes(unet)
+            table = pipe.codebook.codebook  # the k-means centroids (EuclideanCodebook)
+            rows = torch.as_tensor(np.random.default_rng(3).integers(0, table.shape[0], 432), device=table.device)
+            units = table[rows][None].to(dev, torch.bfloat16)
+            x0 = torch.randn((1, 432, mc.out_dims), generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+            latents[quant] = diffusion.infer(units, torch.Generator(device=dev).manual_seed(5),
+                                             spk_id=torch.ones((1, 432), dtype=torch.long, device=dev),
+                                             method="dpm-solver", infer_speedup=50, x_init=x0).float().cpu()
+        res[quant] = dict(t_tts=t_tts, t_batch=t_batch, fwd_ms=fwd_ms, bytes=nbytes, audio_s=len(wav) / sr)
+        del pipe, diffusion, prepared
+        torch.cuda.empty_cache()
+    cfg.common.infer.weight_quant = ""
+    corr = float(np.corrcoef(latents["bf16"].flatten().numpy(), latents["int8"].flatten().numpy())[0, 1])
+    if not np.isfinite(latents["int8"].numpy()).all() or corr <= INT8_CORR:
+        raise AssertionError(f"int8 latents against bf16: correlation {corr} (bar {INT8_CORR})")
+    os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+    out = os.path.join(ROOT, "exp", "int8_serve_cli.wav")
+    built = []  # the CLI's pipeline, in this process (the kernel library is loaded)
+    real_build = infer_tts.build_pipeline
+    t0 = time.perf_counter()
+    with mock.patch.object(infer_tts, "build_pipeline", lambda *a, **kw: built.append(real_build(*a, **kw)) or built[-1]):
+        infer_tts.main(["-c", os.path.join(ROOT, "configs", "config.yaml"), "-l", "EN", "-i", CLI_TEXT, "-o", out,
+                        "--weight-quant", "int8"])
+    cli_s = time.perf_counter() - t0
+    if [p.diffusion.weight_quant for p in built] != ["int8"]:
+        raise AssertionError(f"the CLI's --weight-quant int8 built {[p.diffusion.weight_quant for p in built]}")
+    del built
+    cli_wav, cli_sr = read_wav(out)
+    os.remove(out)
+    if cli_sr != 44100 or not len(cli_wav) or not np.isfinite(cli_wav).all():
+        raise AssertionError(f"{out}: {cli_sr} Hz, shape {cli_wav.shape}")
+    for quant in ("bf16", "int8"):
+        r = res[quant]
+        print(f"int8_serve {quant} [{card}]: tts {r['t_tts']:.3f} s ({r['audio_s']:.3f} s of audio, {N_TOKENS} "
+              f"tokens max); tts_batch x4 {r['t_batch']:.3f} s; one denoiser forward B=1 T=432 {r['fwd_ms']:.3f} ms"
+              f"{' (dequantization included)' if quant == 'int8' else ''}; UNet weights {r['bytes'] / 1e6:.3f} MB")
+    print(f"int8_serve [{card}]: int8 / bf16 tts {res['int8']['t_tts'] / res['bf16']['t_tts']:.3f}x, denoiser "
+          f"forward {res['int8']['fwd_ms'] / res['bf16']['fwd_ms']:.3f}x, UNet bytes "
+          f"{res['int8']['bytes'] / res['bf16']['bytes']:.3f}x; latents' correlation {corr:.6f} (bar {INT8_CORR}); "
+          f"launches {launches}; the CLI's main with --weight-quant int8 in {cli_s:.1f} s, "
+          f"{len(cli_wav) / cli_sr:.3f} s of audio; ValueErrors: {errors}")
+    print(f"int8_serve phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches["int8"]
+
+
+def tp_config(case: str, tmp: str, layout: bool):
+    """The shipped config for tp_ep's `case`: 'diffusion' (the flagship
+    Unit2Mel, model=2 when `layout`) or 'llama' (the Llama with 8 experts at
+    LLAMA_GEOM, expert=2 when `layout`).  The second step's loss and
+    gradients need only the weights, so `save_opt` stays as shipped (off
+    for the diffusion, on for the LM)."""
+    from latent_diffusion_speech_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+    if case == "diffusion":
+        cfg.diffusion.train.expdir = os.path.join(tmp, "diffusion")
+    else:
+        m = cfg.text2semantic.model
+        m.type = "llama"
+        d = m.decoder
+        d.hidden_size, d.num_attention_heads, d.num_hidden_layers, d.intermediate_size = LLAMA_GEOM
+        m.moe_experts, m.moe_top_k, m.moe_capacity_factor = LLAMA_MOE
+        cfg.text2semantic.train.expdir = os.path.join(tmp, "llama")
+    if layout:
+        cfg.parallel.data = 1
+        setattr(cfg.parallel, "model" if case == "diffusion" else "expert", 2)
+    return cfg
+
+
+def tp_trainer(case: str, tmp: str, device, layout: bool):
+    from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
+
+    cfg = tp_config(case, tmp, layout)
+    return DiffusionTrainer(cfg, device=device) if case == "diffusion" else LMTrainer(cfg, device=device)
+
+
+def tp_batches(case: str, vocab: int = 0) -> list:
+    """tp_ep's two global batches (numpy, seeded)."""
+    g = np.random.default_rng(7)
+    if case == "diffusion":
+        B, F = TP_DIFF_B, TP_DIFF_F
+        return [{"units": g.standard_normal((B, F, 1280)).astype(np.float32),
+                 "mel": (0.5 * g.standard_normal((B, F, 128))).astype(np.float32),
+                 "spk_id": g.integers(1, 5, (B, 1)).astype(np.int32), "aug_shift": np.zeros((B, 1), np.float32)}
+                for _ in range(2)]
+    ids = [g.integers(0, vocab, (TP_LLAMA_B, TP_LLAMA_T)).astype(np.int64) for _ in range(2)]
+    return [{"input_ids": i, "labels": i.copy(), "attention_mask": np.ones_like(i)} for i in ids]
+
+
+def tp_step(trainer, case: str, batch, step: int) -> tuple:
+    """One train_step (the diffusion draws from a CPU generator, which
+    draws on the host: the card's step draws the CPU's numbers); returns
+    (loss, the gradients AdamW saw, the MoE's expert choices)."""
+    from latent_diffusion_speech_tpu_torch.ops import moe
+    from latent_diffusion_speech_tpu_torch.train.optim import step_generator
+
+    seen, choices = {}, []
+    real_step, real_top_k = trainer.optimizer.step, moe.top_k_lowest_index
+
+    def opt_step(*a, **k):
+        seen.update({n: p.grad.detach().cpu().clone() for n, p in trainer.system.module.named_parameters()})
+        return real_step(*a, **k)
+
+    def top_k(probs, k):
+        vals, idx = real_top_k(probs, k)
+        choices.append(idx.cpu())
+        return vals, idx
+
+    trainer.optimizer.step = opt_step
+    try:
+        with mock.patch.object(moe, "top_k_lowest_index", top_k):
+            b = trainer.device_put_batch(batch)
+            if case == "diffusion":
+                out = trainer.train_step(b, step_generator(0, step, "cpu"))
+            else:
+                out = trainer.train_step(b)
+    finally:
+        trainer.optimizer.step = real_step
+    return float(out["loss"]), seen, choices
+
+
+def tp_rank(process: int, tmp: str, ports: dict) -> None:
+    """One CPU process of tp_ep: processes 0-1 are the two gloo ranks of the
+    'diffusion' case, 2-3 those of 'llama' (each case its own group, on
+    `ports[case]`).  The rank takes `case` at full width: one step, a
+    sharded save, a second step; writes its chunks at the save, the second
+    step's loss, gradient chunks and expert choices, its coordinates and the
+    shardings to `<tmp>/<case>_rank<index>.pt`."""
+    case, index, n = ("diffusion", "llama")[process // 2], process % 2, 2
+    os.nice(10)  # below the kernels' build, which runs beside the ranks
+    os.environ.update(RANK=str(index), LOCAL_RANK=str(index), WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(ports[case]), CUDA_VISIBLE_DEVICES="")
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.parallel.dist import initialize_distributed
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    initialize_distributed("cpu")
+    trainer = tp_trainer(case, tmp, "cpu", layout=True)
+    batches = tp_batches(case, getattr(getattr(trainer, "lm_cfg", None), "vocab_size", 0))
+    t0 = time.perf_counter()
+    first = tp_step(trainer, case, batches[0], 0)[0]
+    step_s = time.perf_counter() - t0
+    trainer.save()
+    saved = {k: p.detach().clone() for k, p in trainer.system.module.named_parameters()}
+    loss, grads, choices = tp_step(trainer, case, batches[1], 1)
+    torch.save(dict(saved=saved, loss=loss, first=first, grads=grads, choices=choices, step_s=step_s,
+                    shardings=trainer.shardings, coords=trainer.mesh.coords, spec=dataclasses.asdict(trainer.mesh.spec)),
+               os.path.join(tmp, f"{case}_rank{index}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def tp_whole(ranks: list, key: str) -> dict:
+    """A tree put together from the ranks' chunks (each split leaf's chunk at
+    its rank's coordinate)."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.parallel.mesh import Mesh, MeshSpec
+    from latent_diffusion_speech_tpu_torch.parallel.sharding import global_shape, local_chunk
+
+    out = {}
+    for name, t0 in ranks[0][key].items():
+        spec = ranks[0]["shardings"].get(name, (None,) * t0.dim())
+        meshes = [Mesh(MeshSpec(**r["spec"]), coords=r["coords"]) for r in ranks]
+        whole = torch.empty(global_shape(t0.shape, spec, meshes[0]), dtype=t0.dtype)
+        for r, mesh in zip(ranks, meshes):
+            local_chunk(whole, spec, mesh).copy_(r[key][name])
+        out[name] = whole
+    return out
+
+
+class TpRanks:
+    """tp_ep's CPU part, started in the background before the kernels are
+    built (it needs none of them, and the build leaves cores idle): the
+    dry run as `python -m latent_diffusion_speech_tpu_torch.parallel.dryrun
+    4` and tp_ep's four gloo rank processes (`tp_rank`), each case's
+    ranks writing to `tmp`.  `wait` joins both and checks the dry run."""
+
+    def __init__(self):
+        import tempfile
+
+        import torch.multiprocessing as mp
+
+        os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+        self.dir = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp"))
+        self.tmp = self.dir.name
+        self.t0 = time.perf_counter()
+        self.dry_cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.parallel.dryrun", "4"]
+        self.dry = start_process(self.dry_cmd, preexec_fn=lambda: os.nice(10))
+        ports = {"diffusion": free_port()}
+        while (port := free_port()) == ports["diffusion"]:
+            pass
+        ports["llama"] = port
+        try:
+            self.ranks = mp.start_processes(tp_rank, args=(self.tmp, ports), nprocs=4, start_method="spawn",
+                                            join=False)
+        except BaseException:
+            self.close()
+            raise
+        self.done = None
+
+    def wait(self) -> None:
+        from latent_diffusion_speech_tpu_torch.parallel.dryrun import LAYOUTS
+
+        try:
+            while not self.ranks.join():
+                pass
+            self.ranks_s = time.perf_counter() - self.t0
+            out, err = self.dry.communicate(timeout=600)
+            self.dry_s = time.perf_counter() - self.t0
+        except BaseException:
+            self.close()
+            raise
+        done = [line for line in out.splitlines() if line.startswith("dryrun_multichip(4): ")]
+        ran = {line.split()[1].split("/")[0] if "/" in line.split()[1] else "data-parallel" for line in done}
+        if self.dry.returncode != 0 or ran != set(LAYOUTS) or not all(line.split()[2] == "ok," for line in done):
+            self.close()
+            raise AssertionError(f"{' '.join(self.dry_cmd)}: exit {self.dry.returncode}, cases {done}, want every "
+                                 f"layout of {LAYOUTS}\n{out[-2000:]}\n{err[-3000:]}")
+        self.done = done
+
+    def close(self) -> None:
+        """Stops what still runs and removes the ranks' files."""
+        if self.dry.poll() is None:
+            self.dry.kill()
+            self.dry.communicate()
+        ranks = getattr(self, "ranks", None)
+        for proc in ranks.processes if ranks is not None else ():
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        self.dir.cleanup()
+
+
+def tp_ep(dev, card: str, cpu: TpRanks) -> dict:
+    """Tensor and expert parallelism (`cpu`: the CPU part, `TpRanks`, done):
+    (a) `parallel/dryrun.py`'s main with 4 CPU gloo ranks, every ported
+    layout (data, dp-tp, expert-parallel, tp-ep); (b) at full width, two CPU
+    gloo ranks with model=2 take one
+    step of the flagship diffusion trainer (the shipped config, B=2 crops of
+    1 s, clipping at 1.0 over the global gradients) and save a sharded
+    checkpoint, then a second step; a world of one on the card resumes the
+    checkpoint: its parameters equal the ranks' chunks put together, bit for
+    bit, and its second step holds `train_slice`'s tolerance against the
+    ranks' (the loss within 1e-5 relative, every gradient tensor within 1e-3
+    of its norm and all within 1e-4 of the global norm; the same draws, from
+    a CPU generator); (c) the same for the Llama with 8 experts at JAX's
+    geometry (LLAMA_GEOM) under expert=2 (the gradients held where no
+    expert choice differs, as `compare_llama_step`).  Prints the checkpoint's
+    bytes a rank against the single file a world of one writes.  Returns the
+    card's launches."""
+    import shutil
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.ops.kernels import fused_attention as k4
+
+    t_phase = time.perf_counter()
+    launches = {"attention_fwd": 0, "attention_bwd": 0}
+    tmp, ranks_s, dry_s = cpu.tmp, cpu.ranks_s, cpu.dry_s
+    print("\n".join(cpu.done))
+    for case in ("diffusion", "llama"):
+        ranks = [torch.load(os.path.join(tmp, f"{case}_rank{r}.pt"), weights_only=False) for r in range(2)]
+        if ranks[0]["loss"] != ranks[1]["loss"] or ranks[0]["first"] != ranks[1]["first"]:
+            raise AssertionError(f"tp_ep {case}: the ranks' losses differ")
+        saved, grads_p = tp_whole(ranks, "saved"), tp_whole(ranks, "grads")
+        split = [k for k, s in ranks[0]["shardings"].items() if any(s)]
+        ckpt = os.path.join(tmp, case, "model_1.sharded")
+        shard_mb = [os.path.getsize(os.path.join(ckpt, f"shard_p{r}.pt")) / 1e6 for r in range(2)]
+
+        trainer = tp_trainer(case, tmp, dev, layout=False)
+        if not trainer.resume() or trainer.step != 1 or trainer.shardings:
+            raise AssertionError(f"tp_ep {case}: the world of one did not resume the sharded checkpoint")
+        for k, p in trainer.system.module.named_parameters():
+            if not torch.equal(p.detach().cpu(), saved[k]):
+                raise AssertionError(f"tp_ep {case}: resumed {k} differs from the ranks' chunks")
+        # the single file a world of one writes of the same state
+        tcfg = trainer.cfg.diffusion.train if case == "diffusion" else trainer.cfg.text2semantic.train
+        tcfg.expdir = os.path.join(tmp, case + "_single")
+        trainer.save()
+        single_mb = sum(os.path.getsize(os.path.join(tcfg.expdir, f)) for f in os.listdir(tcfg.expdir)
+                        if f.endswith(".ckpt")) / 1e6
+        batch = tp_batches(case, getattr(getattr(trainer, "lm_cfg", None), "vocab_size", 0))[1]
+        k4.launches = k4.bwd_launches = 0
+        t0 = time.perf_counter()
+        loss, grads, choices = tp_step(trainer, case, batch, 1)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches["attention_fwd"] += k4.launches
+        launches["attention_bwd"] += k4.bwd_launches
+        if case == "diffusion" and (k4.launches, k4.bwd_launches) != (32, 32):
+            raise AssertionError(f"tp_ep diffusion step: K4 {k4.launches} / {k4.bwd_launches}, want 32 / 32")
+        flips = sum(int((a != b).sum()) for a, b in zip(choices, ranks[0]["choices"]))
+        routed = sum(a.numel() for a in choices)
+        loss_p = ranks[0]["loss"]
+        loss_rel = abs(loss - loss_p) / abs(loss_p)
+        rel = {k: ((g - grads_p[k]).norm() / grads_p[k].norm().clamp_min(1e-30)).item() for k, g in grads.items()}
+        worst = max(rel, key=rel.get)
+        total = (sum(((g - grads_p[k]) ** 2).sum() for k, g in grads.items()).sqrt()
+                 / sum((g ** 2).sum() for g in grads_p.values()).sqrt()).item()
+        if loss_rel > (1e-5 if not flips else 1e-4) or (not flips and (rel[worst] > 1e-3 or total > 1e-4)):
+            raise AssertionError(f"tp_ep {case}: the card's second step against the ranks': loss {loss} vs "
+                                 f"{loss_p}, worst gradient {worst} {rel[worst]:.3e}, global {total:.3e}, "
+                                 f"{flips} of {routed} expert choices differ")
+        routing = f"; expert choices: {flips} of {routed} differ" if routed else ""
+        print(f"tp_ep {case} [{card}]: two CPU gloo ranks ({dict(ranks[0]['spec'])}; both cases' four "
+              f"processes at once in {ranks_s:.1f} s, during the kernels' build) "
+              f"(first step {ranks[0]['step_s']:.2f} s a rank), {len(split)} of {len(saved)} parameters split; "
+              f"losses {ranks[0]['first']:.6f}, {loss_p:.6f}; the sharded checkpoint {shard_mb[0]:.1f} + "
+              f"{shard_mb[1]:.1f} MB (rank 0, rank 1) against the single file's {single_mb:.1f} MB; the world "
+              f"of one on the card resumed it bit for bit and its second step {card_s * 1e3:.1f} ms: loss "
+              f"{loss:.7f} (relative {loss_rel:.2e}), worst gradient {rel[worst]:.2e} ({worst}), global "
+              f"{total:.2e}{routing}")
+        del trainer
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(tmp, case), ignore_errors=True)
+    print(f"tp_ep phase: {time.perf_counter() - t_phase:.1f} s on the card; its CPU part before, during the "
+          f"kernels' build: the ranks {ranks_s:.1f} s, dryrun_multichip(4), a process beside them, {dry_s:.1f} s; "
+          f"card launches "
+          f"{launches} [{card}]")
+    return launches
+
+
+# phases that a second process of this script runs (`--phases`), started
+# after the kernel checks and beside the main process's phases: they share
+# nothing with those; their launches come back in its last line
+CHILD_PHASES = ("codec_train", "llama_text")
+
+
+def start_child_phases() -> tuple:
+    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--phases", ",".join(CHILD_PHASES)]
+    return cmd, time.perf_counter(), start_process(cmd)
+
+
+def finish_child_phases(started: tuple) -> dict:
+    """The second process's lines, printed here, and each phase's result."""
+    cmd, t0, proc = started
+    stdout, _ = finish_process(proc, cmd, timeout=1200)
+    lines = stdout.rstrip().splitlines()
+    print("\n".join(lines[:-1]))
+    print(f"{', '.join(CHILD_PHASES)}: a second process, started after the kernel checks, done "
+          f"{time.perf_counter() - t0:.1f} s after its start")
+    return json.loads(lines[-1])["phases"]
+
+
+def run_child_phases(dev, card: str, names: list) -> int:
+    """`--phases`: each named phase, then a last line {"phases": {name: {"launches": ...}}}."""
+    from latent_diffusion_speech_tpu_torch.ops.kernels.build import load_library
+
+    load_library()  # built by the parent
+    t0, results = time.perf_counter(), {}
+    for name in names:
+        if name not in CHILD_PHASES:
+            raise ValueError(f"--phases: {name!r} is not one of {CHILD_PHASES}")
+        out = globals()[name](dev, card)
+        results[name] = {"launches": out["launches"]} if isinstance(out, dict) and "launches" in out else {}
+        print(f"timeline: {name} done at {time.perf_counter() - t0:.1f} s of the second process", flush=True)
+    print(json.dumps({"phases": results}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description="Chip smoke run of the PyTorch port on one NVIDIA Hopper card.")
+    ap.add_argument("--phases", default=None,
+                    help=f"run only these phases, comma-separated, of {CHILD_PHASES} (the script's second process)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig
-    from latent_diffusion_speech_tpu_torch.ops.kernels.build import build_info, load_library
+    import latent_diffusion_speech_tpu_torch  # noqa: F401 - fails here outside a checkout
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
+    t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:  # where the script's time goes, phase by phase
+        print(f"timeline: {phase} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     print(f"card: {card}")
     cap = torch.cuda.get_device_capability(0)
     print(f"capability: {cap}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if cap != (9, 0):
         raise AssertionError(f"the kernels are built for sm_90a; this card is {cap}")
+    if args.phases:
+        try:
+            return run_child_phases(dev, card, args.phases.split(","))
+        finally:
+            stop_children()
+    tp_cpu = TpRanks()  # tp_ep's CPU ranks meanwhile: the build leaves cores idle
+    try:
+        return run_phases(dev, card, tp_cpu, mark)
+    finally:
+        tp_cpu.close()
+        stop_children()
+
+
+def run_phases(dev, card: str, tp_cpu: TpRanks, mark) -> int:
+    """Every phase after the card's checks (see the module's docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.models.diffusion.unit2mel import Unit2MelConfig
+    from latent_diffusion_speech_tpu_torch.ops.kernels.build import build_info, load_library
+
     t0 = time.perf_counter()
     load_library()
     info = build_info()
@@ -5216,8 +5879,12 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas: " + line.strip())
-    hmma = hmma_counts(info["path"])
+    with ThreadPoolExecutor(1) as pool:  # cuobjdump while tp_ep's CPU ranks finish
+        hmma = pool.submit(hmma_counts, info["path"])
+        tp_cpu.wait()
+        hmma = hmma.result()
     print(f"HMMA instructions (cuobjdump -sass): {hmma if hmma else 'not measured (no cuobjdump)'}")
+    mark("kernel build, tp_ep's CPU ranks")
 
     k4 = check_k4(dev)
     k5 = check_k5(dev)
@@ -5225,6 +5892,8 @@ def main() -> int:
     k6 = check_k6(dev)
     k1 = check_k1(dev)
     k23 = check_unet(dev)
+    mark("kernel checks")
+    child = start_child_phases()  # CHILD_PHASES in a second process, beside the phases below
     eager = serve(dev, card)
     launches = eager["launches"]
     launches["unet_fwd"] = serve_fused(dev, card, eager)
@@ -5241,26 +5910,31 @@ def main() -> int:
     launches["flash_attention"] += zoo_launches["flash_attention"]
     launches["attention_fwd"] += zoo_launches["attention_fwd"]
     check_trajectory(dev)
+    mark("serve, fused, K5, zoo")
     torch.cuda.empty_cache()
     entry = serve_entry(dev, card)
     for name, n in entry.items():
         launches[name] += n
     print(f"launches with serve_entry's: {launches}")
+    mark("serve_entry")
     torch.cuda.empty_cache()
     svc_launches = svc(dev, card)
     launches["attention_fwd"] += svc_launches["attention_fwd"]
     print(f"launches with svc's: {launches}, kmeans_argmin {svc_launches['kmeans_argmin']} (stage 19)")
+    mark("svc")
     torch.cuda.empty_cache()
     train = train_slice(dev, card, k4_bwd, k6)
     print(f"attention_fwd launches: {launches['attention_fwd']} serving (svc {svc_launches['attention_fwd']}) "
           f"+ {train['launches']['attention_fwd']} training; kmeans_argmin launches: "
           f"{svc_launches['kmeans_argmin']} stage 19 + {train['launches']['kmeans_argmin']} training")
     launches["attention_fwd"] += train["launches"]["attention_fwd"] + train["options"]["attention_fwd"]
+    mark("train_slice")
     torch.cuda.empty_cache()
     lm = lm_train(dev, card)
     launches["ar_decode"] += lm["launches"]["ar_decode"]
     launches["attention_fwd"] += lm["launches"]["attention_fwd"]
     print(f"launches with lm_train's: {launches}")
+    mark("lm_train")
     torch.cuda.empty_cache()
     data = data_path(dev, card)
     for name in ("ar_decode", "attention_fwd"):
@@ -5268,29 +5942,45 @@ def main() -> int:
     print(f"launches with data_path's: {launches}, attention_bwd {data['launches']['attention_bwd']}, "
           f"kmeans_argmin {data['launches']['kmeans_argmin']} (stage 17 {data['k6_stage17_launches']})")
     s17 = data["k6_stage17"]
+    mark("data_path")
     torch.cuda.empty_cache()
     alt = units_alt(dev, card)
     launches["attention_fwd"] += alt["launches"]["attention_fwd"]
     print(f"launches with units_alt's: {launches}, attention_bwd {alt['launches']['attention_bwd']}, "
           f"kmeans_argmin {alt['launches']['kmeans_argmin']}")
+    mark("units_alt")
     torch.cuda.empty_cache()
+    dp_started = DpStart()  # dp_train's CLI processes, beside migrate
     mig = migrate(dev, card)
     for name in ("ar_decode", "attention_fwd"):
         launches[name] += mig["launches"][name]
     print(f"launches with migrate's: {launches}, kmeans_argmin {mig['launches']['kmeans_argmin']} (verify_import)")
-    torch.cuda.empty_cache()
-    codec_train(dev, card)
-    torch.cuda.empty_cache()
-    llama = llama_text(dev, card)
-    launches["attention_fwd"] += llama["launches"]["attention_fwd"]
-    print(f"launches with llama_text's: {launches}")
+    mark("migrate")
     torch.cuda.empty_cache()
     zoo_t = zoo_train(dev, card)
     torch.cuda.empty_cache()
-    dp = dp_train(dev, card)
+    dp = dp_train(dev, card, dp_started)
     launches["attention_fwd"] += zoo_t["attention_fwd"] + dp["attention_fwd"]
     print(f"launches with zoo_train's and dp_train's: {launches}, attention_bwd {zoo_t['attention_bwd']} + "
           f"{dp['attention_bwd']}, kmeans_argmin {dp['kmeans_argmin']}")
+    mark("zoo_train, dp_train")
+    torch.cuda.empty_cache()
+    q8 = int8_serve(dev, card)
+    launches["ar_decode"] += q8["ar_decode"]
+    launches["attention_fwd"] += q8["attention_fwd"]
+    mark("int8_serve")
+    torch.cuda.empty_cache()
+    tp = tp_ep(dev, card, tp_cpu)
+    launches["attention_fwd"] += tp["attention_fwd"]
+    print(f"launches with int8_serve's and tp_ep's: {launches}, attention_bwd {tp['attention_bwd']}")
+    mark("tp_ep")
+    for check in DEFERRED:
+        check()
+    mark("the checks of the processes that the phases started")
+    llama = finish_child_phases(child)["llama_text"]
+    launches["attention_fwd"] += llama["launches"]["attention_fwd"]
+    print(f"launches with llama_text's: {launches}")
+    mark(f"{', '.join(CHILD_PHASES)} (a second process)")
 
     src = "latent_diffusion_speech_tpu_torch/csrc/"
     kernels = [
@@ -5316,7 +6006,7 @@ def main() -> int:
              replaces="latent_diffusion_speech_tpu/ops/pallas/fused_attention.py:149",
              launches=train["launches"]["attention_bwd"] + train["options"]["attention_bwd"]
              + data["launches"]["attention_bwd"] + alt["launches"]["attention_bwd"] + zoo_t["attention_bwd"]
-             + dp["attention_bwd"],
+             + dp["attention_bwd"] + tp["attention_bwd"],
              max_abs_err=k4_bwd["max_abs_err"],
              ms=k4_bwd["ms"], plain_ms=k4_bwd["plain_ms"], bound_ms=k4_bwd["bound_ms"],
              bound_by=k4_bwd["bound_by"], library_ms=k4_bwd["library_ms"],

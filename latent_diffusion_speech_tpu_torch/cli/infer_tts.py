@@ -79,11 +79,6 @@ def build_pipeline(cfg, diffusion_ckpt=None, lm_ckpt=None, dtype=None, device=No
     from latent_diffusion_speech_tpu_torch.ops.layers import resolve_device
     from latent_diffusion_speech_tpu_torch.quantize.kmeans import load_codebook
 
-    if getattr(cfg.common.infer, "weight_quant", ""):
-        raise NotImplementedError(
-            f"weight_quant={cfg.common.infer.weight_quant!r}: int8 serving weights are not ported yet "
-            "(ROADMAP.md Queue 1, item 11)"
-        )
     device = resolve_device(device)
     dtype = dtype or torch.bfloat16
 
@@ -117,7 +112,8 @@ def build_pipeline(cfg, diffusion_ckpt=None, lm_ckpt=None, dtype=None, device=No
     if not diffusion_ckpt:
         print("[!] no diffusion checkpoint given; seeded random weights")
     state = _native_state(diffusion_ckpt) if diffusion_ckpt else None
-    diffusion = Unit2MelSystem(model_cfg, state_dict=state, dtype=dtype, device=device)
+    diffusion = Unit2MelSystem(model_cfg, state_dict=state, dtype=dtype, device=device,
+                               weight_quant=getattr(cfg.common.infer, "weight_quant", "") or None)
 
     if not lm_ckpt:
         print("[!] no LM checkpoint given; seeded random weights")
@@ -142,7 +138,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--speedup", type=int, default=None)
     p.add_argument("--method", type=str, default=None)
     p.add_argument("--weight-quant", type=str, default=None, choices=["int8"],
-                   help="serve-only int8 UNet weights (not ported: raises)")
+                   help="serve-only int8 UNet weights (ops/weight_quant.py)")
     p.add_argument("--long", action="store_true",
                    help="segment long text into sentence-sized pieces and "
                         "synthesize them as one batched call (tts_long_text)")

@@ -293,7 +293,7 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--speedup", type=int, default=None)
     p.add_argument("--method", type=str, default=None)
     p.add_argument("--weight-quant", type=str, default=None, choices=["int8"],
-                   help="serve-only int8 UNet weights (not ported: raises)")
+                   help="serve-only int8 UNet weights (ops/weight_quant.py)")
     p.add_argument(
         "--auth-token",
         type=str,

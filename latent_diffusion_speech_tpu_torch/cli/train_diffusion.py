@@ -16,9 +16,10 @@ in `transfer_dtype`; pinned in the loader's thread), and trains, printing one JS
 line of metrics every `interval_log` steps.  Under `torchrun` each process
 joins the process group first (`parallel.initialize_distributed`: NCCL on
 its card `cuda:LOCAL_RANK`, gloo with `--device cpu`), reads its share of
-the files with its own seed (`process_index`, `process_count`), and trains
-one rank of the data axis (`cfg.parallel.data`, -1 for every process); rank
-0 prints the metrics.
+the files of its data coordinate (the mesh's `index` of `size`: the ranks
+of one model group read the same rows) and trains one rank of the mesh
+(`cfg.parallel.data`, -1 for every process the other axes leave;
+`cfg.parallel.model` splits the UNet over ranks); rank 0 prints the metrics.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ def build(cfg: Config, device=None):
     rank when a process group exists; device None means `cuda`."""
     from latent_diffusion_speech_tpu_torch.data.diffusion_dataset import DiffusionDataset
     from latent_diffusion_speech_tpu_torch.data.loader import DataLoader
-    from latent_diffusion_speech_tpu_torch.parallel.dist import process_count, process_index
     from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
     from latent_diffusion_speech_tpu_torch.quantize.kmeans import load_codebook
     from latent_diffusion_speech_tpu_torch.train.diffusion_trainer import DiffusionTrainer
@@ -75,8 +75,8 @@ def build(cfg: Config, device=None):
         cache=tcfg.cache_all_data,
         device_collate=tcfg.device_collate,
         transfer_dtype=tcfg.transfer_dtype,
-        process_index=process_index(),
-        process_count=process_count(),
+        process_index=trainer.mesh.index,  # the data coordinate: a model group reads one share
+        process_count=trainer.mesh.size,
     )
     loader = DataLoader(dataset, tcfg.batch_size, shuffle=True, seed=tcfg.seed, num_workers=tcfg.loader_processes,
                         device_put=trainer.pin_batch)

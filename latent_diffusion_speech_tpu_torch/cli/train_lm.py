@@ -19,9 +19,11 @@ model of `diffusion.train.expdir` when it holds a checkpoint; skipped with a
 message when the pipeline's files cannot be read), then trains.  Under
 `torchrun` each process joins the process group first
 (`parallel.initialize_distributed`: NCCL on `cuda:LOCAL_RANK`, gloo with
-`--device cpu`), reads its share of the utterances (`process_index`,
-`process_count`) and trains one rank of the data axis; the logger, the
-evaluation and the validation pipeline live on rank 0 only.
+`--device cpu`), reads the utterances of its data coordinate (the mesh's
+`index` of `size`: the ranks of one model or expert group read the same
+rows) and trains one rank of the mesh; the logger and the validation
+pipeline live on rank 0 only (under tensor or expert parallelism its model
+group evaluates with it).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def build(cfg: Config, device=None):
     )
     from latent_diffusion_speech_tpu_torch.data.loader import DataLoader
     from latent_diffusion_speech_tpu_torch.infer.load import load_native_pipeline
-    from latent_diffusion_speech_tpu_torch.parallel.dist import is_main_process, process_count, process_index
+    from latent_diffusion_speech_tpu_torch.parallel.dist import is_main_process
     from latent_diffusion_speech_tpu_torch.quantize.kmeans import load_codebook
     from latent_diffusion_speech_tpu_torch.train.checkpoint import latest_checkpoint_step
     from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
@@ -74,7 +76,7 @@ def build(cfg: Config, device=None):
 
     def make_loader(path, shuffle):
         ds = TextDataset(path, semantic_bos=sem_bos, semantic_eos=sem_eos, n_spk=cfg.common.n_spk,
-                         process_index=process_index(), process_count=process_count(),
+                         process_index=trainer.mesh.index, process_count=trainer.mesh.size,
                          cache=tcfg.cache_all_data)
         return DataLoader(ds, tcfg.batch_size, collate=collate, shuffle=shuffle, seed=tcfg.seed,
                           num_workers=tcfg.loader_processes, length_sorted=shuffle and tcfg.length_sorted)

@@ -80,11 +80,6 @@ def load_reference_pipeline(
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         cfg = config_from_dict(yaml.safe_load(cfg_file.read_text()))
-    if getattr(cfg.common.infer, "weight_quant", ""):
-        raise NotImplementedError(
-            f"weight_quant={cfg.common.infer.weight_quant!r}: int8 serving weights are not ported yet "
-            "(ROADMAP.md Queue 1, item 11)"
-        )
 
     vocoder = Vocoder(cfg.common.vocoder.type, VAEGANConfig(), dtype=dtype, device=device,
                       ckpt=str(vocoder_path or cfg.common.vocoder.ckpt))
@@ -110,7 +105,8 @@ def load_reference_pipeline(
     with torch.device("meta"):
         keys = Unit2Mel(model_cfg).state_dict().keys()
     diffusion = Unit2MelSystem(model_cfg, state_dict={k: v for k, v in state.items() if k in keys},
-                               dtype=dtype, device=device)
+                               dtype=dtype, device=device,
+                               weight_quant=getattr(cfg.common.infer, "weight_quant", "") or None)
 
     codebook = None
     cb_path = codebook_path or cfg.text2semantic.model.codebook_path

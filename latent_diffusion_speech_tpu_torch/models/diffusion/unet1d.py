@@ -43,7 +43,8 @@ from torch.utils.checkpoint import checkpoint
 
 from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention
 from latent_diffusion_speech_tpu_torch.ops.kernels.fused_attention import fused_attention
-from latent_diffusion_speech_tpu_torch.ops.layers import ComputeDtype, Dense, GroupNorm, LayerNorm
+from latent_diffusion_speech_tpu_torch.ops.layers import (ComputeDtype, Dense, GroupNorm, LayerNorm, dense_product,
+                                                          local_heads)
 
 __all__ = ["UNet1DConfig", "UNet1D", "timestep_embedding"]
 
@@ -88,6 +89,11 @@ class Conv1dSame(ComputeDtype, nn.Conv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self.cast_weights()
+        if self.split is not None:
+            return self.split.linear(x, weight, bias, self._conv)
+        return self._conv(x, weight, bias)
+
+    def _conv(self, x, weight, bias):
         y = F.conv1d(x.to(weight.dtype).transpose(1, 2), weight, bias, self.stride, self.padding)
         return y.transpose(1, 2)
 
@@ -127,15 +133,23 @@ class SelfAttention(nn.Module):
         self.to_v = Dense(channels, channels, bias=False)
         self.to_out = Dense(channels, channels)
 
+    def plan_tensor_parallel(self) -> None:
+        """Under tensor parallelism, run the rank's heads alone when q, k
+        and v are column-parallel, `to_out` row-parallel and the chunks hold
+        whole heads; otherwise every rank runs every head."""
+        self.heads = local_heads(self.n_heads, (self.to_q, self.to_k, self.to_v), self.to_out)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, T, C = x.shape
-        shape = (B, T, self.n_heads, C // self.n_heads)
-        q, k, v = self.to_q(x).reshape(shape), self.to_k(x).reshape(shape), self.to_v(x).reshape(shape)
+        B, T, _ = x.shape
+        H = getattr(self, "heads", self.n_heads)
+        q, k, v = (p(x) for p in (self.to_q, self.to_k, self.to_v))
+        shape = (B, T, H, q.shape[-1] // H)
+        q, k, v = q.reshape(shape), k.reshape(shape), v.reshape(shape)
         if self.attn_impl == "pallas":
             out = dot_product_attention(q, k, v, impl="pallas")
         else:
             out = fused_attention(q, k, v)
-        return self.to_out(out.reshape(B, T, C))
+        return self.to_out(out.reshape(B, T, -1))
 
 
 class GegluFF(ComputeDtype, nn.Linear):
@@ -147,8 +161,16 @@ class GegluFF(ComputeDtype, nn.Linear):
         super().__init__(channels, 8 * channels)
 
     def forward(self, x: torch.Tensor, approx_gelu: bool = False) -> torch.Tensor:
+        """Under tensor parallelism the projection's output features are
+        split in contiguous chunks, so one rank's chunk may be all value and
+        another's all gate: they are gathered before the split (the
+        column-parallel default)."""
         weight, bias = self.cast_weights()
-        a, g = F.linear(x.to(weight.dtype), weight, bias).chunk(2, dim=-1)
+        if self.split is not None:
+            y = self.split.linear(x, weight, bias, dense_product)
+        else:
+            y = dense_product(x, weight, bias)
+        a, g = y.chunk(2, dim=-1)
         return a * F.gelu(g, approximate="tanh" if approx_gelu else "none")
 
 

@@ -25,10 +25,11 @@ trains `Unit2MelSystem.module` in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from latent_diffusion_speech_tpu_torch.models.diffusion.gaussian import GaussianDiffusion
 from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import UNet1D, UNet1DConfig
@@ -38,8 +39,15 @@ from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d_condition import 
 )
 from latent_diffusion_speech_tpu_torch.ops.kernels.unet_fused import pack_unet_params, unet_fwd
 from latent_diffusion_speech_tpu_torch.ops.layers import Dense, cast_compute_dtype, resolve_device, seeded
+from latent_diffusion_speech_tpu_torch.ops.weight_quant import dequantize_tree, quantize_tree_int8
 
 __all__ = ["Unit2MelConfig", "Unit2Mel", "Unit2MelSystem"]
+
+
+class _Int8Unet(NamedTuple):
+    """The UNet's parameters as `quantize_tree_int8` leaves, for one serve call."""
+
+    qparams: dict
 
 
 @dataclass(frozen=True)
@@ -152,6 +160,7 @@ class Unit2MelSystem:
         seed: int = 0,
         unet_impl: str = "auto",
         remat: bool = False,
+        weight_quant: Optional[str] = None,
     ):
         """device: None means `cuda` (raises without a card).  remat:
         recompute the flagship UNet's blocks in the backward (as the JAX
@@ -165,13 +174,27 @@ class Unit2MelSystem:
         launch per forward on the card, its plain version on the CPU); B>1
         stays on the eager module, as in the JAX package.  'auto' resolves
         to 'xla', as it does there.  'pallas' targets the flagship layout and
-        raises with denoiser='general'."""
+        raises with denoiser='general'.
+
+        weight_quant: 'int8' quantizes the UNet's weights once per `infer`
+        call (`ops/weight_quant.py`: int8 values, a bf16 scale per output
+        channel) and runs every denoiser forward on them dequantized to the
+        compute dtype, as the JAX package does; the eager path only, with
+        the JAX package's checks (not with unet_impl='pallas', not with the
+        general denoiser).  Training and `loss` see the weights as they are."""
         if unet_impl not in ("auto", "xla", "pallas"):
             raise ValueError(f"unet_impl must be 'auto', 'xla' or 'pallas', got {unet_impl!r}")
-        if cfg.denoiser == "general" and unet_impl == "pallas":
-            raise ValueError("the fused UNet kernel targets the flagship layout; use denoiser='flagship' with it")
+        if weight_quant not in (None, "int8"):
+            raise ValueError(f"weight_quant must be None or 'int8', got {weight_quant!r}")
+        if weight_quant is not None and unet_impl == "pallas":
+            raise ValueError("weight_quant applies to the eager sampling path; not combinable with unet_impl='pallas'")
+        if cfg.denoiser == "general" and (unet_impl == "pallas" or weight_quant is not None):
+            raise ValueError("the fused UNet kernel and int8 weight packing target the flagship layout; use "
+                             "denoiser='flagship' with them")
         self.cfg = cfg
         self.unet_impl = unet_impl
+        self.weight_quant = weight_quant
+        self.dtype = dtype
         self.device = resolve_device(device)
         module = seeded(lambda: Unit2Mel(cfg, remat), seed)
         if state_dict is not None:
@@ -192,12 +215,18 @@ class Unit2MelSystem:
         return self.unet_impl == "pallas"
 
     def _prepare_sample_params(self):
-        """Once per `infer` call: the fused kernel's weight layout, or None."""
+        """Once per `infer` call: the fused kernel's weight layout, the
+        UNet's int8 weights, or None."""
         if self._pallas_unet_active():
             return pack_unet_params(self.module.unet, self.cfg.unet_config())
+        if self.weight_quant == "int8":
+            return _Int8Unet(quantize_tree_int8(dict(self.module.unet.named_parameters())))
         return None
 
     def _denoise(self, packed, x, t):
+        if isinstance(packed, _Int8Unet):
+            weights = dequantize_tree(packed.qparams, dtype=self.dtype)
+            return functional_call(self.module.unet, weights, (x, t))
         if packed is not None and x.shape[0] == 1:
             return unet_fwd(packed, x, t, self.cfg.unet_config())
         return self.module.denoise(x, t)

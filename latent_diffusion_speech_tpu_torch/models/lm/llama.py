@@ -38,8 +38,10 @@ from torch import nn
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerSystem
 from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig, ar_generate
 from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention
-from latent_diffusion_speech_tpu_torch.ops.layers import Dense, cast_compute_dtype, resolve_device, seeded
+from latent_diffusion_speech_tpu_torch.ops.layers import (Dense, cast_compute_dtype, keep_split, local_heads,
+                                                          resolve_device, seeded)
 from latent_diffusion_speech_tpu_torch.ops.moe import MoEMLP
+from latent_diffusion_speech_tpu_torch.parallel.sharding import shard_module
 from latent_diffusion_speech_tpu_torch.text.symbols import symbols
 
 __all__ = ["LlamaConfig", "Llama", "LlamaSystem", "RMSNorm", "rotary_half"]
@@ -149,6 +151,15 @@ class LlamaBlock(nn.Module):
             self.gate_proj = Dense(C, F_, bias=False)
             self.up_proj = Dense(C, F_, bias=False)
             self.down_proj = Dense(F_, C, bias=False)
+        self.heads = cfg.num_attention_heads  # the heads this rank runs
+
+    def plan_tensor_parallel(self) -> None:
+        """Under tensor parallelism: the rank's heads alone when q, k, v are
+        column-parallel and o_proj row-parallel (`local_heads`), and the
+        SwiGLU hidden split between gate/up and down_proj (`keep_split`)."""
+        self.heads = local_heads(self.cfg.num_attention_heads, (self.q_proj, self.k_proj, self.v_proj), self.o_proj)
+        if self.cfg.moe_experts <= 0:
+            keep_split((self.gate_proj, self.up_proj), self.down_proj)
 
     def forward(self, x: torch.Tensor, rotary: Rotary, mask: Optional[torch.Tensor] = None,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -159,18 +170,18 @@ class LlamaBlock(nn.Module):
         attention runs over the prefix [0, cache_index + T).  Returns (x,
         the MoE auxiliary loss or None)."""
         B, T, C = x.shape
-        H = self.cfg.num_attention_heads
+        H, D = self.heads, C // self.cfg.num_attention_heads
         h = self.input_ln(x)
-        q = apply_rotary_half(self.q_proj(h).reshape(B, T, H, C // H), rotary)
-        k = apply_rotary_half(self.k_proj(h).reshape(B, T, H, C // H), rotary)
-        v = self.v_proj(h).reshape(B, T, H, C // H)
+        q = apply_rotary_half(self.q_proj(h).reshape(B, T, H, D), rotary)
+        k = apply_rotary_half(self.k_proj(h).reshape(B, T, H, D), rotary)
+        v = self.v_proj(h).reshape(B, T, H, D)
         if cache is not None:
             cache["k"][:, cache_index : cache_index + T] = k
             cache["v"][:, cache_index : cache_index + T] = v
             k = cache["k"][:, : cache_index + T]
             v = cache["v"][:, : cache_index + T]
         attn = dot_product_attention(q, k, v, mask=mask, is_causal=T > 1)
-        x = x + self.o_proj(attn.reshape(B, T, C))
+        x = x + self.o_proj(attn.reshape(B, T, H * D))
         h = self.post_ln(x)
         if self.cfg.moe_experts > 0:
             y, aux = self.moe(h)
@@ -218,7 +229,7 @@ class Llama(nn.Module):
         cfg = self.cfg
         H = cfg.num_attention_heads
         device = device if device is not None else self.lm_head.weight.device
-        shape = (batch, max_len, H, cfg.hidden_size // H)
+        shape = (batch, max_len, self.blocks[0].heads if self.blocks else H, cfg.hidden_size // H)
         return [{"k": torch.zeros(shape, dtype=self.dtype, device=device),
                  "v": torch.zeros(shape, dtype=self.dtype, device=device)} for _ in range(cfg.num_hidden_layers)]
 
@@ -258,13 +269,17 @@ class LlamaSystem:
         seed: int = 0,
         codebook=None,
         training: bool = False,
+        mesh=None,
     ):
         """device: None means `cuda` (raises without a card).  codebook: a
         (K, C) k-means centroid array that warm-starts the embedding rows
         `len(symbols) - 1 ...` (the reference's offset, one row below the
         semantic ids) when C is the model width (seeded weights only).
         dtype: the products' dtype (norms, embeddings and the router stay
-        f32).  training: the module in `train()` mode (it has no dropout)."""
+        f32).  training: the module in `train()` mode (it has no dropout).
+        mesh: a `parallel.mesh.Mesh` whose `model` / `expert` axes split the
+        parameters (`parallel/sharding.py`; `shardings` holds the specs), as
+        the JAX system takes the mesh its MoE banks are sharded over."""
         self.cfg = cfg
         self.device = resolve_device(device)
         module = seeded(lambda: Llama(cfg), seed)
@@ -278,6 +293,7 @@ class LlamaSystem:
         for m in module.modules():
             if isinstance(m, MoEMLP):
                 m.cast_experts(dtype)
+        self.shardings = shard_module(module, mesh)
         self.module = module.to(self.device).train(training)
 
     def build_input_ids(self, phone: torch.Tensor, semantic: torch.Tensor) -> torch.Tensor:
@@ -316,7 +332,7 @@ class LlamaSystem:
 
     def loss_pp(self, *args, **kwargs):
         """The JAX package's pipeline-parallel loss (GPipe over a mesh
-        `pipe` axis): parallelism is not ported (ROADMAP.md Queue 1, item 10)."""
+        `pipe` axis): pipeline parallelism is not ported (ROADMAP.md Queue 1, item 10)."""
         raise NotImplementedError("Llama pipeline parallelism (loss_pp) is not ported (ROADMAP.md Queue 1, item 10)")
 
     @torch.no_grad()

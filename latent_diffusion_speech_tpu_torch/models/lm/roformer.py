@@ -31,7 +31,8 @@ from torch import nn
 from latent_diffusion_speech_tpu_torch.text.symbols import num_tones, symbols
 from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig
 from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention, dropout
-from latent_diffusion_speech_tpu_torch.ops.layers import Dense, LayerNorm, cast_compute_dtype, resolve_device, seeded
+from latent_diffusion_speech_tpu_torch.ops.layers import (Dense, LayerNorm, cast_compute_dtype, keep_split, local_heads,
+                                                          resolve_device, seeded)
 
 __all__ = ["StackConfig", "RoformerConfig", "Roformer", "RoformerSystem", "rotary_sin_cos"]
 
@@ -132,9 +133,17 @@ class Attention(nn.Module):
         self.value = Dense(C, C)
         self.out = Dense(C, C)
 
+    @property
+    def heads(self) -> int:
+        """The heads this rank runs (all of them without tensor parallelism)."""
+        return getattr(self, "_local_heads", self.n_heads)
+
+    def plan_tensor_parallel(self) -> None:
+        self._local_heads = local_heads(self.n_heads, (self.query, self.key, self.value), self.out)
+
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         B, T, C = x.shape
-        return x.reshape(B, T, self.n_heads, C // self.n_heads)
+        return x.reshape(B, T, self.heads, C // self.heads)
 
     def kv(self, source: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self._heads(self.key(source)), self._heads(self.value(source))
@@ -169,7 +178,7 @@ class Attention(nn.Module):
             if rotary is None:
                 if positions is None:
                     positions = torch.arange(T, device=x.device)
-                rotary = rotary_sin_cos(positions, C // self.n_heads)
+                rotary = rotary_sin_cos(positions, C // self.n_heads)  # C: the input's (whole) width
             sin, cos = rotary
             q = apply_rotary_pairs(q, sin, cos)
             k = apply_rotary_pairs(k, sin, cos)
@@ -178,9 +187,11 @@ class Attention(nn.Module):
             cache["v"][:, cache_index : cache_index + T] = v
             k = cache["k"][:, : cache_index + T]
             v = cache["v"][:, : cache_index + T]
+        split = self.query.split if self.heads != self.n_heads else None
         out = dot_product_attention(q, k, v, mask=mask, is_causal=is_causal and cache is None,
-                                    dropout_rate=self.dropout_rate, generator=generator)
-        return self.out(out.reshape(B, T, C))
+                                    dropout_rate=self.dropout_rate, generator=generator,
+                                    dropout_split=None if split is None else (1, split.index, split.size))
+        return self.out(out.reshape(B, T, -1))
 
 
 class Layer(nn.Module):
@@ -201,6 +212,11 @@ class Layer(nn.Module):
         self.ff_in = Dense(C, cfg.intermediate_size)
         self.ff_out = Dense(cfg.intermediate_size, C)
         self.ff_ln = LayerNorm(C, eps)
+
+    def plan_tensor_parallel(self) -> None:
+        """The FF hidden stays split between ff_in and ff_out when they are
+        column- and row-parallel (the GELU acts element by element)."""
+        keep_split((self.ff_in,), self.ff_out)
 
     def forward(
         self,
@@ -315,10 +331,16 @@ class Roformer(nn.Module):
         loop-invariant during generation, so computed once."""
         return [layer.cross_attn.kv(enc_states) for layer in self.decoder_layers]
 
+    @property
+    def tensor_parallel(self) -> bool:
+        """True when some parameter is split over a mesh axis (its layers run
+        partitioned products with collectives)."""
+        return any(getattr(m, "split", None) for m in self.modules())
+
     def init_cache(self, batch: int, max_len: int, device=None):
         dcfg = self.cfg.decoder
-        H = dcfg.num_attention_heads
-        D = dcfg.hidden_size // H
+        H = self.decoder_layers[0].self_attn.heads if self.decoder_layers else dcfg.num_attention_heads
+        D = dcfg.hidden_size // dcfg.num_attention_heads
         device = device if device is not None else self.head_bias.device
         return [
             {
@@ -463,6 +485,8 @@ class RoformerSystem:
             bos_token_id=self.cfg.semantic_bos,
         )
         decode = roformer_decode
-        if do_sample and top_k <= 0 and top_p < 1.0:
+        if (do_sample and top_k <= 0 and top_p < 1.0) or self.module.tensor_parallel:
+            # K1 holds a whole model: a model split over ranks decodes through
+            # the plain loop, whose layers run the partitioned products
             decode = roformer_decode_plain
         return decode(self.module, sampling, cross_kvs, cross_len, generator=generator)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from latent_diffusion_speech_tpu_torch.models.vaegan.config import VAEGANConfig
 from latent_diffusion_speech_tpu_torch.models.vaegan.models import Generator, VAEEncoder
-from latent_diffusion_speech_tpu_torch.ops.layers import cast_compute_dtype, init_weights, resolve_device
+from latent_diffusion_speech_tpu_torch.ops.layers import built_for_init, cast_compute_dtype, init_weights, resolve_device
 from latent_diffusion_speech_tpu_torch.ops.stft import MelSpectrogram
 
 __all__ = ["HifiVAEGAN"]
@@ -50,7 +50,7 @@ class HifiVAEGAN:
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
-        with torch.random.fork_rng(devices=[]):
+        with built_for_init():
             generator, encoder = Generator(cfg), VAEEncoder(cfg)
         draws = torch.Generator().manual_seed(seed)
         for module, state in ((generator, generator_state), (encoder, encoder_state)):

@@ -23,7 +23,7 @@ raises.  Ring attention (sequence parallelism) is not ported (ROADMAP.md).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,6 +47,7 @@ def dot_product_attention(
     impl: str = "xla",
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    dropout_split: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """q (B, Tq, H, D), k/v (B, Tkv, H, D) -> (B, Tq, H, D).
 
@@ -54,7 +55,10 @@ def dot_product_attention(
     bias: additive float bias with the same broadcast rules;
     impl: 'xla' | 'pallas' (K5) | 'fused' (K4 where eligible);
     dropout_rate, generator: dropout on the probabilities, drawn from
-    `generator` (on q's device); off when either is unset."""
+    `generator` (on q's device); off when either is unset;
+    dropout_split: (dim, index, size) when the probabilities (B, H, Tq, Tk)
+    are chunk `index` of `size` along `dim` (a rank's heads under tensor
+    parallelism): the mask is drawn whole and cut (`dropout`)."""
     dropping = dropout_rate > 0.0 and generator is not None
     if impl == "pallas":
         if dropping:
@@ -80,18 +84,29 @@ def dot_product_attention(
     if mask is not None:
         logits = logits.masked_fill(~mask, neg)
     weights = torch.softmax(logits, dim=-1).to(orig_dtype)
-    weights = dropout(weights, dropout_rate, generator)
+    weights = dropout(weights, dropout_rate, generator, dropout_split)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """flax nn.Dropout: keep ~ Bernoulli(1 - rate), kept values divided by
     (1 - rate); the identity without a generator or at rate 0.  A
     `parallel.mesh.RowGenerator` draws the mask for the global batch (x's
-    leading dimension is the batch) and keeps this rank's rows."""
+    leading dimension is the batch) and keeps this rank's rows.  split:
+    (dim, index, size) when x is chunk `index` of `size` along `dim`: the
+    mask is drawn for the whole tensor and cut the same way, so the ranks
+    together draw what one process draws."""
     if generator is None or rate <= 0.0:
         return x
-    keep = rows.rand(x.shape, generator, device=x.device) < 1.0 - rate
+    if split is None:
+        u = rows.rand(x.shape, generator, device=x.device)
+    else:
+        dim, index, size = split
+        whole = list(x.shape)
+        whole[dim] *= size
+        u = rows.rand(whole, generator, device=x.device).narrow(dim, index * x.shape[dim], x.shape[dim])
+    keep = u < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

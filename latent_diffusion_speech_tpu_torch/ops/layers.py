@@ -17,19 +17,26 @@ through the casts.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import TorchFunctionMode
 
-__all__ = ["ComputeDtype", "Dense", "LayerNorm", "GroupNorm", "cast_compute_dtype", "set_compute_dtype",
-           "init_weights", "seeded", "no_tf32", "resolve_device"]
+__all__ = ["ComputeDtype", "Dense", "dense_product", "keep_split", "local_heads", "LayerNorm", "GroupNorm", "cast_compute_dtype", "set_compute_dtype",
+           "init_weights", "seeded", "built_for_init", "no_tf32", "resolve_device"]
 
 
 class ComputeDtype:
     """Mixin for a product layer with `weight` and `bias`: the dtype it
-    computes in is its weight's, unless `set_compute_dtype` set another."""
+    computes in is its weight's, unless `set_compute_dtype` set another.
+    `split`, set by `parallel/sharding.py::apply_param_shardings` when the
+    weight is split over a mesh axis, is how the product is partitioned
+    (`parallel/tensor.py::Split`); None: the weight is whole."""
 
     _compute_dtype = None
+    split = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -49,7 +56,42 @@ class Dense(ComputeDtype, nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self.cast_weights()
-        return F.linear(x.to(weight.dtype), weight, bias)
+        if self.split is not None:
+            return self.split.linear(x, weight, bias, dense_product)
+        return dense_product(x, weight, bias)
+
+
+def dense_product(x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
+    """x in the weight's dtype times the weight, plus the bias (the product
+    of `Dense` and the UNet's GEGLU projection)."""
+    return F.linear(x.to(weight.dtype), weight, bias)
+
+
+def keep_split(columns, row, heads: int = 1) -> bool:
+    """Under tensor parallelism: when every layer of `columns` is
+    column-parallel (its bias absent or split with it), `row` is
+    row-parallel over the same ranks and each chunk holds whole heads (of
+    `heads` over the features), let the columns' outputs stay split (their
+    `Split.local`) and return True: the row layer then takes this rank's
+    features and sums the partial products.  False leaves every layer as it
+    is (each output gathered whole)."""
+    splits = [c.split for c in columns]
+    if row.split is None or row.split.mode != "row" or any(s is None or s.mode != "column" for s in splits):
+        return False
+    size = row.split.size
+    if any(s.size != size or s.index != row.split.index for s in splits) or heads % size:
+        return False
+    if any(c.bias is not None and not c.split.bias_split for c in columns):
+        return False
+    for s in splits:
+        s.local = True
+    return True
+
+
+def local_heads(n_heads: int, columns, row) -> int:
+    """The heads this rank runs: its share of `n_heads` when `keep_split`
+    lets q, k and v stay split, else all of them."""
+    return n_heads // row.split.size if keep_split(columns, row, n_heads) else n_heads
 
 
 class LayerNorm(nn.LayerNorm):
@@ -122,11 +164,37 @@ def init_weights(module: nn.Module, generator: torch.Generator, conv_std: float 
     return module
 
 
+class _NoDefaultInit(TorchFunctionMode):
+    """Skips torch's own draws in the constructors of the layers that
+    `init_weights` draws anew: `nn.Linear`, the convolutions and
+    `nn.Embedding` call only these three initialisers in
+    `reset_parameters`, and nothing else in the package calls them."""
+
+    SKIPPED = (nn.init.kaiming_uniform_, nn.init.uniform_, nn.init.normal_)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self.SKIPPED:
+            return args[0] if args else kwargs["tensor"]
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def built_for_init():
+    """Build modules whose weights `init_weights` draws next: torch's
+    default draws of their products and embeddings are skipped (their
+    tensors hold whatever was allocated until `init_weights` fills them),
+    and the caller's global RNG state is left as it was.  Only for modules
+    that `init_weights` then covers whole: the same weights, less start-up."""
+    with torch.random.fork_rng(devices=[]), _NoDefaultInit():
+        yield
+
+
 def seeded(factory, seed: int) -> nn.Module:
     """Build modules with `factory` and draw their weights with
     `init_weights` from a CPU generator seeded with `seed` (the caller's
     global RNG state is left as it was)."""
-    with torch.random.fork_rng(devices=[]):
+    with built_for_init():
         module = factory()
     return init_weights(module, torch.Generator().manual_seed(seed))
 

@@ -1,8 +1,7 @@
 """Mixture-of-Experts feed-forward (GShard / Switch routing) in PyTorch.
 
-Counterpart of `latent_diffusion_speech_tpu/ops/moe.py::MoEMLP`: every
-expert lives on each device, so there is no expert sharding (the trainer
-raises for `parallel.expert > 1`).  Routing is the JAX module's:
+Counterpart of `latent_diffusion_speech_tpu/ops/moe.py::MoEMLP`.  Routing
+is the JAX module's:
 
 * a softmax router in f32 whatever the compute dtype;
 * top-k experts a token, ties broken toward the lower expert index (as
@@ -38,6 +37,18 @@ counts and p_e over the global batch: each rank returns E sum_e f_e times
 its share of p_e scaled by the world, whose mean over the ranks (the
 gradient all-reduce's average) is the global loss and its gradient.  A
 per-rank capacity would drop other tokens: another model.
+
+Expert parallelism (the banks split by `parallel/sharding.py`'s rules,
+JAX's `P("expert", None, "model")` and `P("expert", "model", None)`): the
+batch is split over `data` only, so the ranks of an expert (and model)
+group hold the same tokens and route them alike: the routing, the
+capacity, the slots, the dropped share and the Switch loss are those of the
+data axis's batch whatever `expert` is.  Each rank runs its E / expert
+experts over its F / model hidden width on the slots those experts fill;
+the bank's outputs are summed over the group (each expert's rows from the
+rank that holds it, the hidden chunks' partial sums), one all-reduce a
+layer, and every rank combines them whole.  The bank's input carries
+Megatron's "f" (its gradient summed over the group).
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from latent_diffusion_speech_tpu_torch.ops.layers import ComputeDtype
+from latent_diffusion_speech_tpu_torch.parallel.tensor import copy_to, reduce_from
 
 __all__ = ["MoEMLP", "top_k_lowest_index", "data_parallel"]
 
@@ -92,6 +104,19 @@ class MoEMLP(ComputeDtype, nn.Module):
         self.w_down = nn.Parameter(torch.empty(E, F_, C))
         self.drop_fraction = None
         self.mesh = None  # a data-parallel `parallel.mesh.Mesh` with a group, set by `data_parallel`
+        self.split = {}  # bank name -> its spec, when split over `expert` / `model` (parallel/sharding.py)
+        self._ep = None  # (process group over the banks' axes, this rank's first expert)
+
+    def plan_expert_parallel(self, mesh) -> None:
+        """Set up the partitioned bank for the specs in `split`: the three
+        banks split alike (experts over `expert`, the hidden width over
+        `model`), this rank's first expert and the group over those axes."""
+        gate = self.split.get("w_gate")
+        if gate is None or self.split.get("w_up") != gate or self.split.get("w_down") != (gate[0], gate[2], None):
+            raise NotImplementedError(f"MoEMLP: the expert banks are split unlike one another: {self.split}")
+        axes = tuple(a for a in gate if a is not None)
+        e0 = mesh.coordinate(gate[0]) * self.w_gate.shape[0] if gate[0] is not None else 0
+        self._ep = (mesh.axis_group(axes), e0)
 
     @torch.no_grad()
     def init_flax(self, generator: torch.Generator) -> None:
@@ -153,10 +178,22 @@ class MoEMLP(ComputeDtype, nn.Module):
         filler = filler.index_put((row[keep],), token[keep])
 
         dtype = self.compute_dtype
-        x_pad = torch.cat([xf.to(dtype), xf.new_zeros((1, C), dtype=dtype)])
-        expert_in = x_pad[filler].view(E, cap + 1, C)
+        xs, E_l = xf, self.w_gate.shape[0]
+        if self._ep is not None:  # this rank's experts (and hidden chunk) only
+            group, e0 = self._ep
+            xs = copy_to(xf, group)
+            filler = filler.view(E, cap + 1)[e0:e0 + E_l].reshape(-1)
+        x_pad = torch.cat([xs.to(dtype), xf.new_zeros((1, C), dtype=dtype)])
+        expert_in = x_pad[filler].view(E_l, cap + 1, C)
         h = F.silu(torch.bmm(expert_in, self.w_gate.to(dtype))) * torch.bmm(expert_in, self.w_up.to(dtype))
-        out = torch.bmm(h, self.w_down.to(dtype)).reshape(E * (cap + 1), C)
+        out = torch.bmm(h, self.w_down.to(dtype)).reshape(E_l * (cap + 1), C)
+        if self._ep is not None:
+            # every expert's outputs on every rank: the local ones in place,
+            # zeros elsewhere, summed over the group (the hidden chunks' partial
+            # sums too), so the combine and the router's gradient are whole
+            rows_before, rows_after = e0 * (cap + 1), (E - e0 - E_l) * (cap + 1)
+            out = reduce_from(torch.cat([out.new_zeros((rows_before, C)), out, out.new_zeros((rows_after, C))]),
+                              group)
 
         weight = (gate_vals.t().reshape(k * S) * keep).to(dtype)
         y = (out[row] * weight[:, None]).view(k, S, C).sum(dim=0)

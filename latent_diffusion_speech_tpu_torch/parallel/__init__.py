@@ -1,5 +1,5 @@
-"""Data parallelism on `torch.distributed`: the process group, the mesh over
-it, and the batch's rows.
+"""Data, tensor and expert parallelism on `torch.distributed`: the process
+group, the mesh over it, the batch's rows and the parameters' chunks.
 
 Counterpart of `latent_diffusion_speech_tpu/parallel/`.  The reference's
 only parallelism is DDP through HF accelerate; the JAX package lays it out
@@ -11,8 +11,12 @@ all-reduce a step (`train/optim.py`), the random draws made for the global
 batch with each rank keeping its rows (`mesh.RowGenerator`), and the
 losses and statistics that JAX takes over the global batch reduced across
 ranks (the LM's token count, the MoE's routing counts, the learned VQ's
-EMA statistics).  Tensor, sequence, pipeline and expert parallelism are not
-ported (ROADMAP.md Queue 1, item 10).
+EMA statistics).  Tensor and expert parallelism split the parameters by
+the JAX package's rules over the mesh's `model` and `expert` axes
+(`sharding.py`), each rank running its chunks' partitioned products
+(`tensor.py`); such a state is saved one file a rank
+(`train/sharded_checkpoint.py`).  Sequence and pipeline parallelism are
+not ported (ROADMAP.md Queue 1, item 10).
 """
 
 from latent_diffusion_speech_tpu_torch.parallel.dist import (  # noqa: F401

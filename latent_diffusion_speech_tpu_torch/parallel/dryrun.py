@@ -1,17 +1,23 @@
-"""A data-parallel dry run over CPU processes: one step of each trainer.
+"""A dry run over CPU processes: one step of each trainer in each layout.
 
 The port's counterpart of `__graft_entry__.dryrun_multichip`, which runs one
 real train step of the diffusion trainer and of the LM trainer in each of
 its mesh layouts on virtual CPU devices.  Here `dryrun_multichip(n)` starts
-n CPU processes in a gloo group (`torch.multiprocessing`, spawned) and
-runs one data-parallel step on tiny shapes of the diffusion trainer, then
-of the RoFormer and the Llama, dense and with experts, each rank on its
-rows of one global batch; rank 0 prints each loss, and every loss must be
-finite and the same on every rank.  JAX's other layouts (sequence, tensor,
-pipeline and expert parallelism and their compositions) raise
-NotImplementedError naming ROADMAP.md Queue 1, item 10.
+n CPU processes in a gloo group (`torch.multiprocessing`, spawned) and, on
+tiny shapes, runs one step in each layout that fits n ranks:
+* `data-parallel`: the diffusion trainer, the RoFormer and the Llama, dense
+  and with experts, each rank on its rows of one global batch;
+* `dp-tp` (JAX's diffusion layout, data=n/2, model=2): the diffusion
+  trainer, the RoFormer and the dense Llama with their products split;
+* `expert-parallel` (JAX's Llama layout, data=n/4, expert=4): the Llama
+  with 4 experts, one a rank;
+* `tp-ep` (data=n/4, model=2, expert=2): the Llama with experts, its banks
+  over both axes.
+Rank 0 prints each loss, and every loss must be finite and the same on
+every rank.  JAX's sequence and pipeline layouts and their compositions
+raise NotImplementedError naming ROADMAP.md Queue 1, item 10.
 
-    python -m latent_diffusion_speech_tpu_torch.parallel.dryrun 2
+    python -m latent_diffusion_speech_tpu_torch.parallel.dryrun 4
 """
 
 from __future__ import annotations
@@ -21,14 +27,21 @@ import os
 import socket
 import sys
 import tempfile
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
 __all__ = ["dryrun_multichip", "LAYOUTS", "NOT_PORTED"]
 
-LAYOUTS = ("data-parallel",)
-NOT_PORTED = ("seq-parallel", "pipeline", "roformer-pipeline", "expert-parallel", "dp-tp-pp", "pp-ep")
+# layout: (its axes but data, the cases it runs)
+_LAYOUTS = {
+    "data-parallel": ({}, ("diffusion", "roformer", "llama", "llama-moe")),
+    "dp-tp": ({"model": 2}, ("diffusion", "roformer", "llama")),
+    "expert-parallel": ({"expert": 4}, ("llama-moe",)),
+    "tp-ep": ({"model": 2, "expert": 2}, ("llama-moe",)),
+}
+LAYOUTS = tuple(_LAYOUTS)
+NOT_PORTED = ("seq-parallel", "pipeline", "roformer-pipeline", "dp-tp-pp", "pp-ep")
 
 
 def _free_port() -> int:
@@ -37,7 +50,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _lm_step(name, lm_type, expdir, rng, moe_experts=0):
+def _lm_step(name, lm_type, expdir, rng, axes, moe_experts=0):
     import torch
 
     from latent_diffusion_speech_tpu_torch.config import Config
@@ -54,6 +67,8 @@ def _lm_step(name, lm_type, expdir, rng, moe_experts=0):
     if moe_experts:
         m.moe_experts, m.moe_capacity_factor = moe_experts, 4.0
     cfg.text2semantic.train.expdir = expdir
+    for k, v in axes.items():
+        setattr(cfg.parallel, k, v)
     trainer = LMTrainer(cfg, device="cpu")
     B, L = max(4 * trainer.mesh.size, 8), 16
     if lm_type == "llama":
@@ -73,7 +88,7 @@ def _lm_step(name, lm_type, expdir, rng, moe_experts=0):
     return name, loss, dict(trainer.mesh.shape)
 
 
-def _rank(index: int, n: int, port: int, expdir: str) -> None:
+def _rank(index: int, n: int, port: int, expdir: str, layouts: Sequence[str]) -> None:
     os.environ.update(RANK=str(index), LOCAL_RANK=str(index), WORLD_SIZE=str(n), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
     import torch
@@ -87,21 +102,31 @@ def _rank(index: int, n: int, port: int, expdir: str) -> None:
 
     torch.set_num_threads(1)
     initialize_distributed("cpu")
-    cfg = Config()
-    cfg.diffusion.train.expdir = f"{expdir}/diffusion"
-    tiny = Unit2MelConfig(input_channel=16, n_spk=4, out_dims=8, n_hidden=16, block_out_channels=(16, 16),
-                          n_heads=2, timesteps=20, k_step=20)
-    trainer = DiffusionTrainer(cfg, model_cfg=tiny, device="cpu")
     rng = np.random.default_rng(0)
-    B, T = n * 2, 32
-    batch = {"units": rng.standard_normal((B, T, 16)).astype(np.float32),
-             "mel": rng.standard_normal((B, T, 8)).astype(np.float32),
-             "spk_id": np.ones((B, 1), np.int32), "aug_shift": np.zeros((B, 1), np.float32)}
-    loss = trainer.train_step(trainer.device_put_batch(shard_batch(trainer.mesh, batch)),
-                              step_generator(0, 0, "cpu"))["loss"]
-    results = [("diffusion", loss, dict(trainer.mesh.shape))]
-    for name, lm_type, experts in (("roformer", "roformer", 0), ("llama", "llama", 0), ("llama-moe", "llama", 4)):
-        results.append(_lm_step(name, lm_type, f"{expdir}/{name}", rng, experts))
+    results = []
+    for layout in layouts:
+        axes, cases = _LAYOUTS[layout]
+        label = "" if layout == "data-parallel" else f"{layout}/"
+        for name in cases:
+            if name == "diffusion":
+                cfg = Config()
+                cfg.diffusion.train.expdir = f"{expdir}/{layout}/diffusion"
+                for k, v in axes.items():
+                    setattr(cfg.parallel, k, v)
+                tiny = Unit2MelConfig(input_channel=16, n_spk=4, out_dims=8, n_hidden=16, block_out_channels=(16, 16),
+                                      n_heads=2, timesteps=20, k_step=20)
+                trainer = DiffusionTrainer(cfg, model_cfg=tiny, device="cpu")
+                B, T = trainer.mesh.size * 2, 32
+                batch = {"units": rng.standard_normal((B, T, 16)).astype(np.float32),
+                         "mel": rng.standard_normal((B, T, 8)).astype(np.float32),
+                         "spk_id": np.ones((B, 1), np.int32), "aug_shift": np.zeros((B, 1), np.float32)}
+                loss = trainer.train_step(trainer.device_put_batch(shard_batch(trainer.mesh, batch)),
+                                          step_generator(0, 0, "cpu"))["loss"]
+                results.append((label + name, loss, dict(trainer.mesh.shape)))
+            else:
+                lm_type = "roformer" if name == "roformer" else "llama"
+                experts = 4 if name == "llama-moe" else 0
+                results.append(_lm_step(label + name, lm_type, f"{expdir}/{layout}/{name}", rng, axes, experts))
     losses = torch.stack([r[1] for r in results])
     everyone = [torch.empty_like(losses) for _ in range(n)]
     torch.distributed.all_gather(everyone, losses)
@@ -116,18 +141,29 @@ def _rank(index: int, n: int, port: int, expdir: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def dryrun_multichip(n_devices: int, layouts: Sequence[str] = LAYOUTS) -> None:
-    """One data-parallel step of each trainer on `n_devices` CPU ranks over
-    gloo; raises for a layout that is not ported."""
-    for layout in layouts:
+def fits(layout: str, n_devices: int) -> bool:
+    """Whether `layout`'s axes divide a world of `n_devices`."""
+    return n_devices % math.prod(_LAYOUTS[layout][0].values()) == 0
+
+
+def dryrun_multichip(n_devices: int, layouts: Optional[Sequence[str]] = None) -> None:
+    """One step of each trainer in each of `layouts` (default: every
+    ported layout that fits `n_devices`) on `n_devices` CPU ranks over
+    gloo; raises NotImplementedError for a layout that is not ported and
+    ValueError for one that does not fit."""
+    for layout in layouts or ():
         if layout not in LAYOUTS:
-            raise NotImplementedError(f"dryrun layout {layout!r}: only data parallelism is ported; sequence, "
-                                      "tensor, pipeline and expert parallelism are not (ROADMAP.md Queue 1, item 10)")
+            raise NotImplementedError(f"dryrun layout {layout!r}: data, tensor and expert parallelism are ported; "
+                                      "sequence and pipeline parallelism are not (ROADMAP.md Queue 1, item 10)")
+        if not fits(layout, n_devices):
+            raise ValueError(f"dryrun layout {layout!r} does not fit {n_devices} devices")
+    layouts = tuple(layouts) if layouts else tuple(lay for lay in LAYOUTS if fits(lay, n_devices))
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as expdir:
-        mp.start_processes(_rank, args=(n_devices, _free_port(), expdir), nprocs=n_devices, start_method="spawn")
+        mp.start_processes(_rank, args=(n_devices, _free_port(), expdir, layouts), nprocs=n_devices,
+                           start_method="spawn")
 
 
 if __name__ == "__main__":
-    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 2)
+    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 4)

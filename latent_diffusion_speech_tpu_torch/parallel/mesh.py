@@ -1,31 +1,41 @@
-"""The mesh over the processes, and a batch's rows on each.
+"""The mesh over the processes, its axes' process groups, and a batch's
+rows on each.
 
 Counterpart of `latent_diffusion_speech_tpu/parallel/mesh.py`.  The JAX
 mesh has axes ("data", "seq", "model", "pipe", "expert") over devices, and
 a train step over it is one global program.  Here a process drives one
-device, and only the `data` axis is served: `build_mesh` resolves
-`cfg.parallel` over the world of processes with JAX's checks and messages
-(`_resolve_spec`; `data=-1` means every process) and returns a `Mesh`:
-this process's coordinate on the data axis and the process groups its
-collectives run on (none for a single process without a group; a world of
-one with a group still runs every collective).
+device: `build_mesh` resolves `cfg.parallel` over the world of processes
+with JAX's checks and messages (`_resolve_spec`; `data=-1` means every
+process left), places rank r at JAX's device coordinate (the world's ranks
+reshaped row-major into (data, seq, model, pipe, expert), as JAX reshapes
+its device list) and returns a `Mesh`: this process's coordinates, a
+process group for the data axis (`group`, with its gloo twin `host`) and
+one for each set of the `model` and `expert` axes above 1 (`axis_group`):
+the ranks that differ only along those axes.  `index` and `size` are the
+data coordinate and the data axis's size: the ranks of one model or expert
+group hold the same rows.  Without a process group the mesh is a world of
+one with no collectives; a world of one with a group still runs every
+collective.
 
 A step over the mesh gives what the global program gives when:
-* each rank holds its rows of the global batch, rank r's rows before rank
-  r + 1's (`shard_batch` cuts them from a global batch;
+* each rank holds its rows of the global batch, data coordinate d's rows
+  before d + 1's (`shard_batch` cuts them from a global batch;
   `multihost.global_shard_batch` takes a rank's own rows as they are);
 * every random draw is made for the global batch and each rank keeps its
   rows (`RowGenerator` with `randn`, `rand` and `randint`), so a world of N
-  draws what a world of one draws for the same global batch;
-* the gradients are averaged over the ranks (`all_reduce_mean_`, one
+  draws what a world of one draws for the same global batch, and the ranks
+  of one model group draw the same numbers;
+* the gradients are averaged over the data axis (`all_reduce_mean_`, one
   coalesced collective), and whatever the loss takes over the batch beyond
-  a mean of equal parts is reduced before it is used.
+  a mean of equal parts is reduced before it is used;
+* the parameters split over `model` and `expert` (`parallel/sharding.py`)
+  run their partitioned products with the collectives of
+  `parallel/tensor.py` over `axis_group`.
 
 Not ported, as they have no meaning without a sharded array type:
 `batch_sharding`, `replicated` and `with_sharding` (a rank's tensors are
-its rows, parameters are replicated by construction), and the `dcn_data`
-hybrid layout, which raises with the other axes (ROADMAP.md Queue 1,
-item 10).
+its rows and its chunks).  The `seq` and `pipe` axes and the `dcn_data`
+hybrid layout raise NotImplementedError (ROADMAP.md Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -88,15 +98,20 @@ def _resolve_spec(cfg: ParallelConfig, n_devices: int) -> MeshSpec:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A data-parallel mesh: `spec` (only `data` above 1), this process's
-    coordinate `index` on the data axis, `group` (the default process group,
-    whose backend matches the devices) and `host` (a gloo group for host
-    integers); both None for a single process without a group."""
+    """A mesh over the processes: `spec`, this process's coordinate `index`
+    on the data axis, `group` (the data axis's process group, whose backend
+    matches the devices) and `host` (a gloo group over the same ranks, for
+    host integers); both None for a single process without a group.
+    `coords` is this rank's coordinate on every axis (`AXES` order) and
+    `groups` maps a tuple of the `model` / `expert` axes above 1 to the
+    process group of the ranks that differ only along them."""
 
     spec: MeshSpec
     index: int = 0
     group: Any = None
     host: Any = None
+    coords: tuple = (0, 0, 0, 0, 0)
+    groups: dict = dataclasses.field(default_factory=dict, compare=False)
 
     @property
     def shape(self) -> dict:
@@ -106,6 +121,25 @@ class Mesh:
     def size(self) -> int:
         """The data axis's size: the ranks that hold rows of the batch."""
         return self.spec.data
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def coordinate(self, axis: str) -> int:
+        """This rank's coordinate on `axis`."""
+        return self.coords[AXES.index(axis)]
+
+    @property
+    def model_parallel(self) -> bool:
+        """True when parameters can be split: a `model` or `expert` axis above 1."""
+        return self.spec.model > 1 or self.spec.expert > 1
+
+    def axis_group(self, axes) -> Any:
+        """The process group over `axes` (a subset of ("model", "expert"),
+        order free), the ranks that differ only along them; None without a
+        process group or when those axes are all of size 1."""
+        key = tuple(a for a in (AXIS_MODEL, AXIS_EXPERT) if a in axes and self.shape[a] > 1)
+        return self.groups.get(key) if key else None
 
     def rows(self, n_local: int) -> slice:
         """This rank's rows of a global batch of `n_local` rows a rank."""
@@ -153,21 +187,58 @@ class Mesh:
         return torch.stack(out).numpy()
 
 
+def rank_coords(rank: int, spec: MeshSpec) -> tuple:
+    """Rank `rank`'s coordinate on every axis: the world's ranks reshaped
+    row-major into (data, seq, model, pipe, expert), JAX's device order."""
+    shape = (spec.data, spec.seq, spec.model, spec.pipe, spec.expert)
+    return tuple(int(c) for c in np.unravel_index(rank, shape))
+
+
+def _axis_groups(spec: MeshSpec, me: int, axes: tuple, backend: Optional[str] = None):
+    """The process group of this rank over `axes`: one `new_group` a
+    distinct group, made on every rank in the same order (as
+    `torch.distributed` requires)."""
+    idx = [AXES.index(a) for a in axes]
+    by_rest: dict = {}
+    for r in range(spec.total):
+        c = rank_coords(r, spec)
+        by_rest.setdefault(tuple(v for i, v in enumerate(c) if i not in idx), []).append(r)
+    mine = None
+    for ranks in by_rest.values():
+        g = dist.new_group(ranks, backend=backend)
+        if me in ranks:
+            mine = g
+    return mine
+
+
 def build_mesh(cfg: Optional[ParallelConfig] = None) -> Mesh:
     """The mesh of `cfg` (default: every process on the data axis) over the
     world of processes; a single process without a group is a world of one
-    with no collectives.  Raises NotImplementedError for an axis other than
-    `data` above 1, and JAX's ValueError when the axes do not fit the world."""
+    with no collectives.  Serves the `data`, `model` and `expert` axes;
+    raises NotImplementedError for `seq`, `pipe` or `dcn_data` above 1, and
+    JAX's ValueError when the axes do not fit the world.  Under a group
+    every rank must call it, at the same point."""
     cfg = cfg or ParallelConfig()
-    other = {k: getattr(cfg, k) for k in ("model", "seq", "pipe", "expert", "dcn_data") if getattr(cfg, k) > 1}
+    other = {k: getattr(cfg, k) for k in ("seq", "pipe", "dcn_data") if getattr(cfg, k) > 1}
     if other:
-        raise NotImplementedError(f"parallel {other}: only data parallelism is ported; tensor, sequence, "
-                                  "pipeline, expert and multi-slice parallelism are not (ROADMAP.md Queue 1, "
+        raise NotImplementedError(f"parallel {other}: data, tensor (model) and expert parallelism are ported; "
+                                  "sequence, pipeline and multi-slice parallelism are not (ROADMAP.md Queue 1, "
                                   "item 10)")
     spec = _resolve_spec(cfg, pdist.process_count())
     if not dist.is_initialized():
         return Mesh(spec)
-    return Mesh(spec, index=dist.get_rank(), group=dist.group.WORLD, host=pdist.host_group())
+    me = dist.get_rank()
+    coords = rank_coords(me, spec)
+    if spec.data == spec.total:  # data parallelism alone: the world is the data group
+        group, host = dist.group.WORLD, pdist.host_group()
+    else:
+        group = _axis_groups(spec, me, (AXIS_DATA,))
+        host = group if dist.get_backend() == "gloo" else _axis_groups(spec, me, (AXIS_DATA,), "gloo")
+    groups = {}
+    split = tuple(a for a in (AXIS_MODEL, AXIS_EXPERT) if getattr(spec, a) > 1)
+    for axes in [(a,) for a in split] + ([split] if len(split) > 1 else []):
+        groups[axes] = _axis_groups(spec, me, axes)
+    return Mesh(spec, index=coords[0], group=group, host=host, coords=coords, groups=groups)
 
 
 def shard_batch(mesh: Mesh, batch: Any) -> Any:
@@ -192,18 +263,30 @@ class RowGenerator:
     dimension times the data axis's size) and this rank keeps its rows, so
     the ranks together draw what one process draws for the whole batch.  A
     rank draws the whole batch's numbers for each draw: memory and time a
-    world's worth of that draw."""
+    world's worth of that draw.  Through these functions a CPU generator
+    also serves a step on the card: it draws on the host, so a card's step
+    draws what a CPU process's draws."""
 
     def __init__(self, generator: torch.Generator, mesh: Mesh):
         self.generator, self.mesh = generator, mesh
 
 
+def _on_host(fn, shape, generator, **kwargs) -> torch.Tensor:
+    """fn's draw; a CPU generator asked for another device draws on the
+    host and the numbers move there (the same numbers as on the CPU)."""
+    device = kwargs.get("device")
+    if generator is not None and generator.device.type == "cpu" and device is not None \
+            and torch.device(device).type != "cpu":
+        return fn(shape, generator=generator, **{**kwargs, "device": "cpu"}).to(device)
+    return fn(shape, generator=generator, **kwargs)
+
+
 def _draw(fn, shape, generator, **kwargs) -> torch.Tensor:
     if not isinstance(generator, RowGenerator):
-        return fn(tuple(shape), generator=generator, **kwargs)
+        return _on_host(fn, tuple(shape), generator, **kwargs)
     mesh = generator.mesh
     shape = tuple(shape)
-    whole = fn((shape[0] * mesh.size,) + shape[1:], generator=generator.generator, **kwargs)
+    whole = _on_host(fn, (shape[0] * mesh.size,) + shape[1:], generator.generator, **kwargs)
     return whole[mesh.rows(shape[0])]
 
 

@@ -8,13 +8,17 @@ the experiment dir and resume picks the highest step; `keep` (the config's
 `model_<step>.<name>.ckpt` sidecars carry extra state (the EMA weights).
 Contents are `torch.save` of state dicts, loaded with `weights_only=True`;
 the port does not read the JAX package's flax msgpack checkpoints
-(`convert.py` moves weights from a flax tree).
+(`convert.py` moves weights from a flax tree).  A checkpoint of parameters
+split across ranks is a `model_<step>.sharded` directory
+(`train/sharded_checkpoint.py`): the step scan and the retention see both
+formats, as JAX's do.
 """
 
 from __future__ import annotations
 
 import json
 import re
+import shutil
 from pathlib import Path
 from typing import Any, Optional, Tuple
 
@@ -26,9 +30,12 @@ __all__ = [
     "load_checkpoint_meta",
     "load_checkpoint_extra",
     "latest_checkpoint_step",
+    "apply_retention",
 ]
 
 _STEP_RE = re.compile(r"model_(\d+)\.ckpt$")
+# sharded checkpoints are directories (train/sharded_checkpoint.py)
+_STEP_ANY_RE = re.compile(r"model_(\d+)(\.ckpt|\.sharded)$")
 
 
 def save_checkpoint(
@@ -56,23 +63,40 @@ def save_checkpoint(
         torch.save(state, path.with_suffix(f".{name}.ckpt"))
 
     if keep and keep > 0:
-        ckpts = sorted(
-            (int(m.group(1)), p) for p in expdir.glob("model_*.ckpt") if (m := _STEP_RE.match(p.name))
-        )
-        for _, old in ckpts[:-keep]:
-            old.unlink(missing_ok=True)
-            old.with_suffix(".meta.json").unlink(missing_ok=True)
-            for sidecar in expdir.glob(f"{old.stem}.*.ckpt"):
-                sidecar.unlink(missing_ok=True)
+        apply_retention(expdir, keep)
     return path
 
 
+def _steps(expdir: Path) -> dict:
+    steps: dict = {}
+    for p in expdir.glob("model_*"):
+        if m := _STEP_ANY_RE.match(p.name):
+            steps.setdefault(int(m.group(1)), []).append(p)
+    return steps
+
+
+def apply_retention(expdir: str | Path, keep: int) -> None:
+    """Keep the newest `keep` steps across both formats (single files and
+    sharded directories), deleting older ones with their meta and sidecars."""
+    expdir = Path(expdir)
+    steps = _steps(expdir)
+    for step in sorted(steps)[:-keep]:
+        for p in steps[step]:
+            if p.is_dir():
+                shutil.rmtree(p, ignore_errors=True)
+            else:
+                p.unlink(missing_ok=True)
+        (expdir / f"model_{step}.meta.json").unlink(missing_ok=True)
+        for sidecar in expdir.glob(f"model_{step}.*.ckpt"):
+            sidecar.unlink(missing_ok=True)
+
+
 def latest_checkpoint_step(expdir: str | Path) -> Optional[int]:
-    """Highest checkpointed step in `expdir`, or None."""
+    """Highest checkpointed step in `expdir` (either format), or None."""
     expdir = Path(expdir)
     if not expdir.exists():
         return None
-    steps = [int(m.group(1)) for p in expdir.glob("model_*.ckpt") if (m := _STEP_RE.match(p.name))]
+    steps = _steps(expdir)
     return max(steps) if steps else None
 
 

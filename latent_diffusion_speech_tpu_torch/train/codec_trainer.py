@@ -47,7 +47,7 @@ from latent_diffusion_speech_tpu_torch.models.vaegan.losses import (
     rss_loss,
 )
 from latent_diffusion_speech_tpu_torch.models.vaegan.models import Generator, VAEEncoder
-from latent_diffusion_speech_tpu_torch.ops.layers import init_weights, no_tf32, resolve_device
+from latent_diffusion_speech_tpu_torch.ops.layers import built_for_init, init_weights, no_tf32, resolve_device
 from latent_diffusion_speech_tpu_torch.parallel import mesh as rows
 from latent_diffusion_speech_tpu_torch.parallel.dist import is_main_process, sync_global_devices
 from latent_diffusion_speech_tpu_torch.parallel.mesh import Mesh, RowGenerator, build_mesh
@@ -87,7 +87,7 @@ class CodecTrainer:
         self.expdir = expdir
         self.kl_weight, self.mel_weight, self.fm_weight = kl_weight, mel_weight, fm_weight
         draws = torch.Generator().manual_seed(seed)
-        with torch.random.fork_rng(devices=[]):
+        with built_for_init():
             encoder, generator = VAEEncoder(self.cfg), Generator(self.cfg)
             disc = DiscriminatorBank(periods=disc_periods, stft_scales=disc_scales)
         self.encoder = init_weights(encoder, draws, conv_std=CONV_STD).to(self.device).train()

@@ -56,9 +56,17 @@ loop validates on rank 0 only; `train/samples_per_sec` counts the whole
 world's rows, and `train/mfu` (a rank's products over its card's peak) is
 the world's products over the world's peak.
 
-Not ported (ROADMAP.md Queue 1, item 10): the sharded checkpoint, and any
-axis of `cfg.parallel` but `data` above 1, which raises when the trainer is
-built (`train/devices.py`).
+Tensor parallelism (`model` above 1): the UNet's parameters are split by
+the JAX package's rules (`parallel/sharding.py`), each rank keeping its
+chunk and running the partitioned products (`parallel/tensor.py`); the
+ranks of one model group share a data coordinate, so they read the same
+rows and draw the same numbers.  The gradients are averaged over the data
+axis only, the clipping norm is the global parameters' (`train/optim.py`)
+and AdamW and the EMA act on the chunks.  `save` then writes a sharded
+checkpoint, every rank its chunks (`train/sharded_checkpoint.py`), and
+`resume` reads either format onto this trainer's layout.  The `seq` and
+`pipe` axes raise when the trainer is built (`train/devices.py`; ROADMAP.md
+Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -78,6 +86,7 @@ from latent_diffusion_speech_tpu_torch.parallel import mesh as rows
 from latent_diffusion_speech_tpu_torch.parallel.dist import is_main_process, sync_global_devices
 from latent_diffusion_speech_tpu_torch.parallel.mesh import Mesh, RowGenerator, build_mesh
 from latent_diffusion_speech_tpu_torch.parallel.multihost import gather_to_host, global_shard_batch
+from latent_diffusion_speech_tpu_torch.parallel.sharding import local_state, shard_module, split_axes
 from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook, VectorQuantize
 from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_step,
@@ -87,6 +96,12 @@ from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from latent_diffusion_speech_tpu_torch.train.debug import check_step, install
+from latent_diffusion_speech_tpu_torch.train.sharded_checkpoint import (
+    load_checkpoint_sharded,
+    save_checkpoint_sharded,
+    sharded_checkpoint_dir,
+    tree_needs_sharded_save,
+)
 from latent_diffusion_speech_tpu_torch.train.devices import check_one_device
 from latent_diffusion_speech_tpu_torch.train.optim import AdamWUpdates, global_norm, step_generator
 from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
@@ -121,7 +136,8 @@ class DiffusionTrainer(AdamWUpdates):
         the UNet's blocks in the backward.  mesh: the data-parallel mesh
         (default: `build_mesh(cfg.parallel)` over the process group, a
         world of one without one)."""
-        check_one_device(cfg, "diffusion")
+        if mesh is None:
+            check_one_device(cfg, "diffusion")
         self.mesh = mesh if mesh is not None else build_mesh(cfg.parallel)
         self.cfg = cfg
         tcfg = cfg.diffusion.train
@@ -149,6 +165,8 @@ class DiffusionTrainer(AdamWUpdates):
         )
         self.system = Unit2MelSystem(self.model_cfg, device=device, seed=tcfg.seed, remat=remat)
         self.system.module.train()
+        # tensor parallelism: this rank's chunks of the split parameters
+        self.shardings = shard_module(self.system.module, self.mesh)
         self.device = self.system.device
         self.dtype = dtype
         set_compute_dtype(self.system.module, None if dtype == torch.float32 else dtype)
@@ -156,7 +174,9 @@ class DiffusionTrainer(AdamWUpdates):
         self._vq = quantizer if isinstance(quantizer, VectorQuantize) else None
         self.vq_state = (self._vq.init(torch.Generator().manual_seed(tcfg.seed + 1), self.device)
                          if self._vq is not None else None)
+        self._names = [n for n, _ in self.system.module.named_parameters()]
         self._params = list(self.system.module.parameters())
+        self._param_axes = [split_axes(self.shardings[n]) if n in self.shardings else () for n in self._names]
         self._init_optimizer()
         self.step = 0
         # data-stream position for deterministic resume (the meta sidecar)
@@ -328,8 +348,20 @@ class DiffusionTrainer(AdamWUpdates):
 
     def save(self) -> None:
         """The checkpoint, written by rank 0 (every rank holds the same
-        replicated state), then a barrier over the processes."""
+        replicated state), then a barrier over the processes; with
+        parameters split across ranks, a sharded checkpoint every rank
+        writes its chunks of (`train/sharded_checkpoint.py`)."""
         tcfg = self.cfg.diffusion.train
+        meta = {"epoch": self._epoch, "batch_in_epoch": self._batch_in_epoch}
+        if tree_needs_sharded_save(self.shardings, self.mesh):
+            save_checkpoint_sharded(
+                tcfg.expdir, self.step,
+                {"params": self.system.module.state_dict(),
+                 "opt_state": self._opt_leaves(self._names) if tcfg.save_opt else None, "ema": self.ema},
+                self._tree_specs(), self.mesh, keep=tcfg.last_save_model_num, meta=meta)
+            self._save_vq()
+            sync_global_devices("save")
+            return
         if is_main_process():
             save_checkpoint(
                 tcfg.expdir,
@@ -337,15 +369,22 @@ class DiffusionTrainer(AdamWUpdates):
                 gather_to_host(self.system.module.state_dict()),
                 self._opt_state() if tcfg.save_opt else None,
                 keep=tcfg.last_save_model_num,
-                meta={"epoch": self._epoch, "batch_in_epoch": self._batch_in_epoch},
+                meta=meta,
                 extra={"ema": gather_to_host(self.ema)} if self.ema is not None else None,
             )
-            if self.vq_state is not None:
-                # the learned codebook beside the model, as the reference keeps
-                # `model_<step>_semantic_codebook.pt`
-                torch.save(gather_to_host(self.vq_state._asdict()),
-                           f"{tcfg.expdir}/model_{self.step}_semantic_codebook.ckpt")
+        self._save_vq()
         sync_global_devices("save")
+
+    def _save_vq(self) -> None:
+        if self.vq_state is not None and is_main_process():
+            # the learned codebook beside the model, as the reference keeps
+            # `model_<step>_semantic_codebook.pt`
+            torch.save(gather_to_host(self.vq_state._asdict()),
+                       f"{self.cfg.diffusion.train.expdir}/model_{self.step}_semantic_codebook.ckpt")
+
+    def _tree_specs(self) -> dict:
+        return {"params": self.shardings, "ema": self.shardings,
+                "opt_state": self._opt_specs(self._names, self.shardings)}
 
     def resume(self) -> bool:
         """Load the latest checkpoint of `expdir`; False when there is none."""
@@ -353,21 +392,39 @@ class DiffusionTrainer(AdamWUpdates):
         step = latest_checkpoint_step(tcfg.expdir)
         if step is None:
             return False
-        _, params, opt_state = load_checkpoint(tcfg.expdir, step)
-        self.system.module.load_state_dict(params)
         self.step = step
+        if sharded_checkpoint_dir(tcfg.expdir, step).exists():
+            module = self.system.module
+            restored = load_checkpoint_sharded(
+                tcfg.expdir, step,
+                {"params": module.state_dict(), "opt_state": self._opt_leaves(self._names) if tcfg.save_opt else None,
+                 "ema": self.ema},
+                self._tree_specs(), self.mesh)
+            module.load_state_dict(restored["params"])
+            self._reset_optimizer()
+            if restored["opt_state"] is not None:
+                self._load_opt_leaves(restored["opt_state"], self._names)
+            if self.ema is not None:
+                self.ema = {n: t.to(self.device) for n, t in restored["ema"].items()}
+            self._load_meta(step)
+            return True
+        _, params, opt_state = load_checkpoint(tcfg.expdir, step)
+        self.system.module.load_state_dict(local_state(params, self.shardings, self.mesh))
         self._reset_optimizer()
         if tcfg.save_opt and opt_state is not None:
             self._load_opt_state(opt_state)
         if self.ema_decay > 0:
             # a checkpoint without the EMA sidecar restarts it from the weights
             ema = load_checkpoint_extra(tcfg.expdir, "ema", step)
-            self.ema = ({n: t.to(self.device) for n, t in ema.items()} if ema is not None
-                        else self._param_copy())
-        meta = load_checkpoint_meta(tcfg.expdir, step)
+            self.ema = ({n: t.to(self.device) for n, t in local_state(ema, self.shardings, self.mesh).items()}
+                        if ema is not None else self._param_copy())
+        self._load_meta(step)
+        return True
+
+    def _load_meta(self, step: int) -> None:
+        meta = load_checkpoint_meta(self.cfg.diffusion.train.expdir, step)
         self._epoch = int(meta.get("epoch", 0))
         self._batch_in_epoch = int(meta.get("batch_in_epoch", 0))
-        return True
 
     def _snap_flops(self, batch) -> float:
         """K6's products in a step (the counter cannot see the kernel)."""
@@ -426,7 +483,8 @@ class DiffusionTrainer(AdamWUpdates):
                         logger.log(self.step, log)
                     if self.step % tcfg.interval_val == 0:
                         self.save()
-                        if val_loader is not None and is_main_process():
+                        # rank 0 validates; under tensor parallelism its model group with it
+                        if val_loader is not None and (is_main_process() or self.mesh.model_parallel):
                             self.validate_full(val_loader, step_generator(tcfg.seed, self.step, self.device, 1),
                                                logger=logger)
                     if max_steps and self.step >= max_steps:

@@ -49,8 +49,20 @@ where they are called (the loop calls them on rank 0), with no collective;
 `save` writes on rank 0, then a barrier; `train/samples_per_sec` counts the
 world's rows.
 
-Raises for what is not ported (ROADMAP.md Queue 1, item 10): a mesh axis
-other than `data` (tensor, sequence, pipeline or expert parallelism).
+Tensor and expert parallelism (`model`, `expert` above 1): the LM's
+parameters are split by the JAX package's rules (`parallel/sharding.py`:
+the attention's and feed-forward's products over `model`, the MoE banks
+over `expert` and `model`), each rank keeping its chunks and running the
+partitioned products (`parallel/tensor.py`, `ops/moe.py`); the ranks of one
+model or expert group share a data coordinate, so they hold the same rows
+and draw the same dropout masks.  The gradients are averaged over the data
+axis only, the clipping norm is the global parameters' and AdamW acts on
+the chunks; `save` writes a sharded checkpoint (`train/sharded_checkpoint.py`)
+and `resume` reads either format onto this trainer's layout.  Under such a
+mesh `evaluate` is a collective that every rank of the loop runs (rank 0
+logs), and `validate_audio` gathers the whole weights on every rank before
+rank 0 synthesizes.  The `seq` and `pipe` axes raise (ROADMAP.md Queue 1,
+item 10).
 """
 
 from __future__ import annotations
@@ -72,6 +84,7 @@ from latent_diffusion_speech_tpu_torch.ops.moe import data_parallel
 from latent_diffusion_speech_tpu_torch.parallel.dist import is_main_process, sync_global_devices
 from latent_diffusion_speech_tpu_torch.parallel.mesh import Mesh, RowGenerator, build_mesh
 from latent_diffusion_speech_tpu_torch.parallel.multihost import gather_to_host, global_shard_batch
+from latent_diffusion_speech_tpu_torch.parallel.sharding import gather_full_state, local_state, shard_module, split_axes
 from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_step,
     load_checkpoint,
@@ -80,6 +93,12 @@ from latent_diffusion_speech_tpu_torch.train.checkpoint import (
 )
 from latent_diffusion_speech_tpu_torch.train.debug import check_step, install
 from latent_diffusion_speech_tpu_torch.train.devices import check_one_device
+from latent_diffusion_speech_tpu_torch.train.sharded_checkpoint import (
+    load_checkpoint_sharded,
+    save_checkpoint_sharded,
+    sharded_checkpoint_dir,
+    tree_needs_sharded_save,
+)
 from latent_diffusion_speech_tpu_torch.train.optim import AdamWUpdates, step_generator
 from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
 from latent_diffusion_speech_tpu_torch.utils.flops import FlopsByShape, step_mfu
@@ -129,7 +148,8 @@ class LMTrainer(AdamWUpdates):
         weights stay f32).  mesh: the data-parallel mesh (default:
         `build_mesh(cfg.parallel)` over the process group, a world of one
         without one)."""
-        check_one_device(cfg, "LM")
+        if mesh is None:
+            check_one_device(cfg, "LM")
         self.mesh = mesh if mesh is not None else build_mesh(cfg.parallel)
         self.cfg = cfg
         tcfg = cfg.text2semantic.train
@@ -141,11 +161,19 @@ class LMTrainer(AdamWUpdates):
         else:
             raise ValueError(f"unknown text2semantic model type: {self.lm_type!r}")
         no_tf32()  # f32 as the JAX entry point trains
-        self.system = system(self.lm_cfg, device=device, seed=tcfg.seed, codebook=codebook, training=True)
+        if self.lm_type == "llama":  # the Llama splits itself on the mesh, as JAX's takes it
+            self.system = LlamaSystem(self.lm_cfg, device=device, seed=tcfg.seed, codebook=codebook, training=True,
+                                      mesh=self.mesh)
+            self.shardings = self.system.shardings
+        else:
+            self.system = system(self.lm_cfg, device=device, seed=tcfg.seed, codebook=codebook, training=True)
+            self.shardings = shard_module(self.system.module, self.mesh)
         self.device = self.system.device
         self.dtype = dtype
         set_compute_dtype(self.system.module, None if dtype == torch.float32 else dtype)
+        self._names = [n for n, _ in self.system.module.named_parameters()]
         self._params = list(self.system.module.parameters())
+        self._param_axes = [split_axes(self.shardings[n]) if n in self.shardings else () for n in self._names]
         self._init_optimizer()
         self.step = 0
         # data-stream position for deterministic resume (the meta sidecar)
@@ -217,7 +245,11 @@ class LMTrainer(AdamWUpdates):
         A Llama batch is one stream `[BOS, phones, EOS, semantic...]`: the
         phone prompt is recovered up to the phone EOS and served with zero
         tones and speaker 1 (the Llama conditions on neither)."""
-        pipe.lm.module.load_state_dict(self.system.module.state_dict())
+        state = (gather_full_state(self.system.module, self.shardings, self.mesh) if self.shardings
+                 else self.system.module.state_dict())
+        if pipe is None:  # a rank of the model group other than the one that synthesizes
+            return
+        pipe.lm.module.load_state_dict(state)
         if self.lm_type == "llama":
             ids = batch["input_ids"].cpu().numpy()
             for i in range(min(n_items, ids.shape[0])):
@@ -247,18 +279,30 @@ class LMTrainer(AdamWUpdates):
 
     def save(self) -> None:
         """The checkpoint, written by rank 0 (every rank holds the same
-        replicated state), then a barrier over the processes."""
+        replicated state), then a barrier over the processes; with
+        parameters split across ranks, a sharded checkpoint every rank
+        writes its chunks of (`train/sharded_checkpoint.py`)."""
         tcfg = self.cfg.text2semantic.train
-        if is_main_process():
+        meta = {"epoch": self._epoch, "batch_in_epoch": self._batch_in_epoch}
+        if tree_needs_sharded_save(self.shardings, self.mesh):
+            save_checkpoint_sharded(
+                tcfg.expdir, self.step,
+                {"params": self.system.module.state_dict(),
+                 "opt_state": self._opt_leaves(self._names) if tcfg.save_opt else None},
+                self._tree_specs(), self.mesh, keep=tcfg.last_save_model_num, meta=meta)
+        elif is_main_process():
             save_checkpoint(
                 tcfg.expdir,
                 self.step,
                 gather_to_host(self.system.module.state_dict()),
                 self._opt_state() if tcfg.save_opt else None,
                 keep=tcfg.last_save_model_num,
-                meta={"epoch": self._epoch, "batch_in_epoch": self._batch_in_epoch},
+                meta=meta,
             )
         sync_global_devices("save")
+
+    def _tree_specs(self) -> dict:
+        return {"params": self.shardings, "opt_state": self._opt_specs(self._names, self.shardings)}
 
     def resume(self) -> bool:
         """Load the latest checkpoint of `expdir`; False when there is none."""
@@ -266,12 +310,23 @@ class LMTrainer(AdamWUpdates):
         step = latest_checkpoint_step(tcfg.expdir)
         if step is None:
             return False
-        _, params, opt_state = load_checkpoint(tcfg.expdir, step)
-        self.system.module.load_state_dict(params)
         self.step = step
-        self._reset_optimizer()
-        if tcfg.save_opt and opt_state is not None:
-            self._load_opt_state(opt_state)
+        if sharded_checkpoint_dir(tcfg.expdir, step).exists():
+            restored = load_checkpoint_sharded(
+                tcfg.expdir, step,
+                {"params": self.system.module.state_dict(),
+                 "opt_state": self._opt_leaves(self._names) if tcfg.save_opt else None},
+                self._tree_specs(), self.mesh)
+            self.system.module.load_state_dict(restored["params"])
+            self._reset_optimizer()
+            if restored["opt_state"] is not None:
+                self._load_opt_leaves(restored["opt_state"], self._names)
+        else:
+            _, params, opt_state = load_checkpoint(tcfg.expdir, step)
+            self.system.module.load_state_dict(local_state(params, self.shardings, self.mesh))
+            self._reset_optimizer()
+            if tcfg.save_opt and opt_state is not None:
+                self._load_opt_state(opt_state)
         meta = load_checkpoint_meta(tcfg.expdir, step)
         self._epoch = int(meta.get("epoch", 0))
         self._batch_in_epoch = int(meta.get("batch_in_epoch", 0))
@@ -325,11 +380,15 @@ class LMTrainer(AdamWUpdates):
                             log["train/mfu"] = mfu
                         logger.log(self.step, log)
                     if self.step % tcfg.interval_val == 0:
-                        if val_loader is not None and logger is not None:
+                        # rank 0 (the one with a logger) validates; under tensor
+                        # or expert parallelism its model group runs with it
+                        if val_loader is not None and (logger is not None or self.shardings):
                             for vb in val_loader:
                                 vb = self.device_put_batch(vb)
-                                logger.log(self.step, self.evaluate(vb))
-                                if tts_pipeline is not None:
+                                metrics = self.evaluate(vb)
+                                if logger is not None:
+                                    logger.log(self.step, metrics)
+                                if tts_pipeline is not None or self.shardings:
                                     self.validate_audio(tts_pipeline, vb, logger)
                                 break
                         self.save()

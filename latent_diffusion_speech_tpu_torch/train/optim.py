@@ -25,7 +25,11 @@ program: one coalesced all-reduce an update, the scalars the caller passes
 the update's accumulated mean is reduced (the mean over ranks of the
 micro-steps' means, which is MultiSteps' mean of global gradients), each
 micro-step reduces its scalars alone, and the norm returned for a
-micro-step is its local gradients'.
+micro-step is its local gradients'.  The average runs over the data axis's
+group only; with parameters split over `model` or `expert` (`_param_axes`,
+set by the trainer) the norm that clips is the global tensors'
+(`global_norm`), so every rank clips by the same factor, and AdamW, the
+weight decay and the EMA act on each rank's chunks.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from latent_diffusion_speech_tpu_torch.train.schedule import warmup_step_decay
 
@@ -47,10 +52,25 @@ def step_generator(seed: int, step: int, device, *stream: int) -> torch.Generato
     return torch.Generator(device=device).manual_seed(int(hi) << 32 | int(lo))
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, mesh=None, axes: Optional[Sequence[tuple]] = None) -> torch.Tensor:
     """sqrt of the sum of every element's square (optax.global_norm), from
-    per-tensor norms taken by one multi-tensor launch."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+    per-tensor norms taken by one multi-tensor launch.  Under a mesh whose
+    parameters are split (`axes`: the mesh axes each tensor is split over,
+    () for a whole one) it is the norm of the global tensors: the squares
+    of the tensors split over the same axes are summed over those axes'
+    group, and each whole tensor, the same on every rank, counts once."""
+    tensors = list(tensors)
+    norms = torch.stack(torch._foreach_norm(tensors))
+    if mesh is None or axes is None or not any(axes):
+        return torch.linalg.vector_norm(norms)
+    squares = norms.float() ** 2
+    total = squares.new_zeros(())
+    for key in sorted(set(axes)):
+        part = squares[torch.tensor([a == key for a in axes], device=squares.device)].sum()
+        if key:
+            dist.all_reduce(part, group=mesh.axis_group(key))
+        total = total + part
+    return total.sqrt()
 
 
 class AdamWUpdates:
@@ -60,6 +80,7 @@ class AdamWUpdates:
     chain up from explicit values instead (`AdamW`)."""
 
     mesh = None  # a `parallel.mesh.Mesh` whose ranks average their gradients (None: one process)
+    _param_axes = None  # the mesh axes each of `_params` is split over (None: every parameter whole)
 
     def _train_cfg(self):
         raise NotImplementedError
@@ -100,6 +121,49 @@ class AdamWUpdates:
         acc = state.get("acc")
         self._acc = None if acc is None else [a.to(p.device) for a, p in zip(acc, self._params)]
 
+    def _global_norm(self, grads) -> torch.Tensor:
+        return global_norm(grads, self.mesh, self._param_axes)
+
+    def _opt_leaves(self, names: Sequence[str]) -> dict:
+        """The optimizer state as named leaves for a sharded checkpoint:
+        each parameter's AdamW moments and step (zeros before its first
+        update), the update count and, with accumulation, the running mean
+        and its position."""
+        state = self.optimizer.state
+        out = {"count": int(self.opt_count)}
+        for n, p in zip(names, self._params):
+            st = state.get(p, {})
+            out[f"exp_avg/{n}"] = st.get("exp_avg", torch.zeros_like(p))
+            out[f"exp_avg_sq/{n}"] = st.get("exp_avg_sq", torch.zeros_like(p))
+            out[f"step/{n}"] = st.get("step", torch.zeros((), dtype=torch.float32))
+        if self.every > 1:
+            out["mini_step"] = int(self.mini_step)
+            out["has_acc"] = int(self._acc is not None)
+            for n, p, a in zip(names, self._params, self._acc or [None] * len(self._params)):
+                out[f"acc/{n}"] = a if a is not None else torch.zeros_like(p)
+        return out
+
+    @staticmethod
+    def _opt_specs(names: Sequence[str], shardings: dict) -> dict:
+        """The specs of `_opt_leaves`: each per-parameter leaf its parameter's."""
+        specs = {}
+        for n in names:
+            if n in shardings:
+                for kind in ("exp_avg", "exp_avg_sq", "acc"):
+                    specs[f"{kind}/{n}"] = shardings[n]
+        return specs
+
+    def _load_opt_leaves(self, leaves: dict, names: Sequence[str]) -> None:
+        """Inverse of `_opt_leaves` (after `_reset_optimizer`)."""
+        state = {i: {"step": leaves[f"step/{n}"], "exp_avg": leaves[f"exp_avg/{n}"],
+                     "exp_avg_sq": leaves[f"exp_avg_sq/{n}"]} for i, n in enumerate(names)}
+        self.optimizer.load_state_dict({"state": state, "param_groups": self.optimizer.state_dict()["param_groups"]})
+        self.opt_count = int(leaves["count"])
+        if self.every > 1:
+            self.mini_step = int(leaves.get("mini_step", 0))
+            self._acc = ([leaves[f"acc/{n}"].to(p.device) for n, p in zip(names, self._params)]
+                         if leaves.get("has_acc") else None)
+
     def _average(self, tensors) -> None:
         if self.mesh is not None:
             self.mesh.all_reduce_mean_(tensors)
@@ -121,7 +185,7 @@ class AdamWUpdates:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self._params]
         if self.every > 1:
-            gnorm = global_norm(grads)
+            gnorm = self._global_norm(grads)
             self._average(list(reduce))
             if guard is not None:
                 guard()
@@ -137,12 +201,12 @@ class AdamWUpdates:
                 p.grad = a
             grads, self._acc, self.mini_step = self._acc, None, 0
             self._average(grads)
-            norm = global_norm(grads)
+            norm = self._global_norm(grads)
         else:
             self._average(grads + list(reduce))
             if guard is not None:
                 guard()
-            gnorm = norm = global_norm(grads)
+            gnorm = norm = self._global_norm(grads)
         if self.clip is not None:
             # g * min(1, max / |g|), on the device: no host sync
             torch._foreach_mul_(grads, torch.clamp(self.clip / norm, max=1.0))

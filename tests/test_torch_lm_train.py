@@ -363,15 +363,20 @@ def test_interrupted_lm_run_matches_uninterrupted(tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    """Axes other than data raise NotImplementedError; a data axis of 2 on
-    a world of one process raises JAX's ValueError (the data axis is
-    served: tests/test_torch_parallel.py)."""
-    for field, value, match in (("seq", 2, "parallel"), ("pipe", 2, "parallel"), ("expert", 2, "expert")):
+    """The seq and pipe axes raise NotImplementedError; the data and expert
+    axes are served (tests/test_torch_parallel.py,
+    tests/test_torch_expert_parallel.py), so a data or expert axis of 2 on a
+    world of one process raises JAX's ValueError (the axes do not fit)."""
+    for field, value, match in (("seq", 2, "parallel"), ("pipe", 2, "parallel")):
         cfg = _lm_config(tmp_path)
         target = {"type": cfg.text2semantic.model}
         setattr(target.get(field, cfg.parallel), field, value)
         with pytest.raises(NotImplementedError, match=match):
             LMTrainer(cfg, device="cpu")
+    cfg = _lm_config(tmp_path)
+    cfg.parallel.expert = 2
+    with pytest.raises(ValueError, match=r"mesh: 1 devices not divisible by .*expert\(2\)"):
+        LMTrainer(cfg, device="cpu")
     cfg = _lm_config(tmp_path)
     cfg.parallel.data = 2
     with pytest.raises(ValueError, match=r"mesh: data\(2\).* != devices\(1\)"):

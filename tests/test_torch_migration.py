@@ -19,7 +19,7 @@ first to be the exact inverse of the JAX importer.
 * `load_reference_pipeline` over a whole artifact set in both packages: the
   same geometry, the same tokens (top_k=1) and, from one x_init, the same
   waveform (atol 5e-5, rtol 1e-4); the latest step of a directory, a
-  missing codebook, `weight_quant`;
+  missing codebook; `weight_quant: int8` loads;
 * `verify_import`: each forward kind against a golden the JAX CLI wrote
   (tol 1e-4), with the same report; `detect_kind` over the fingerprints;
   the kinds whose modules wait raise naming their ROADMAP item; `main`'s
@@ -447,12 +447,15 @@ def test_reference_pipeline_skips_embeddings_the_config_turns_off(artifacts, tmp
 
 
 def test_reference_pipeline_weight_quant_raises(artifacts, tmp_path):
+    """A reference config with `weight_quant: int8` loads (it raised until
+    int8 serving weights were ported): the diffusion model serves on int8
+    UNet weights, as JAX's loader builds it."""
     cfg = _config(artifacts)
     cfg["common"]["infer"]["weight_quant"] = "int8"
     (tmp_path / "config.yaml").write_text(yaml.safe_dump(cfg))
     (tmp_path / "model_77.pt").symlink_to(artifacts / "diffusion" / "model_77.pt")
-    with pytest.raises(NotImplementedError, match="int8"):
-        load_reference_pipeline(tmp_path, device="cpu")
+    pipe = load_reference_pipeline(tmp_path, device="cpu")
+    assert pipe.diffusion.weight_quant == "int8"
 
 
 def test_reference_pipeline_defaults_to_bf16(artifacts):

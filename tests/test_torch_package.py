@@ -235,6 +235,7 @@ DTYPE_DEFAULTS = {
     ("models.vaegan.codec", "HifiVAEGAN.random_init", "dtype"),
     ("models.vaegan.codec", "HifiVAEGAN.from_torch_checkpoint", "dtype"),
     ("ops.stft", "hann_window", "dtype"),
+    ("ops.weight_quant", "dequantize_tree", "dtype"),
     ("train.diffusion_trainer", "DiffusionTrainer.__init__", "dtype"),
     ("train.lm_trainer", "LMTrainer.__init__", "dtype"),
 }

@@ -299,11 +299,30 @@ def test_resolve_spec_matches_jax(kw, n):
 
 
 @pytest.mark.parametrize("axis", ["model", "seq", "pipe", "expert", "dcn_data"])
-def test_other_axes_still_raise_naming_item_10(axis):
+def test_other_axes_still_raise_naming_item_10(axis, monkeypatch, tmp_path):
+    """`seq`, `pipe` and `dcn_data` still raise naming item 10; `model`
+    and `expert` pass the check on a world of two, and the LM trainer
+    builds on that mesh (a rank's view: coordinate 0, no process group),
+    splitting the RoFormer over `model` and the Llama's banks over
+    `expert`."""
     cfg = Config()
     setattr(cfg.parallel, axis, 2)
-    with pytest.raises(NotImplementedError, match=f"'{axis}': 2.*item 10"):
-        check_one_device(cfg, "LM")
+    if axis not in ("model", "expert"):
+        with pytest.raises(NotImplementedError, match=f"'{axis}': 2.*item 10"):
+            check_one_device(cfg, "LM")
+        return
+    from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaConfig
+    from latent_diffusion_speech_tpu_torch.train import devices
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
+
+    monkeypatch.setattr(devices, "process_count", lambda: 2)
+    check_one_device(cfg, "LM")
+    mesh = Mesh(_resolve_spec(cfg.parallel, 2))
+    lm_type = "roformer" if axis == "model" else "llama"
+    lm_cfg = W.ROFORMER if axis == "model" else LlamaConfig(**W.LLAMA_MOE)
+    trainer = LMTrainer(W.lm_config(tmp_path, lm_type), lm_cfg=lm_cfg, device="cpu", mesh=mesh)
+    split = {n for n, s in trainer.shardings.items() if any(s)}
+    assert split and all((".moe.w_" in n) == (axis == "expert") for n in split)
 
 
 def test_data_axis_that_does_not_fit_the_world_raises_jax_error():
@@ -331,9 +350,12 @@ def test_shard_batch_and_row_draws_keep_the_ranks_rows():
 
 
 def test_dryrun_refuses_the_layouts_that_are_not_ported():
-    for layout in ("seq-parallel", "pipeline", "expert-parallel", "dp-tp-pp", "pp-ep"):
+    """The sequence and pipeline layouts still raise naming item 10; the
+    tensor and expert layouts are ported (`dryrun.LAYOUTS`)."""
+    for layout in ("seq-parallel", "pipeline", "roformer-pipeline", "dp-tp-pp", "pp-ep"):
         with pytest.raises(NotImplementedError, match="item 10"):
             dryrun.dryrun_multichip(2, layouts=(layout,))
+    assert {"dp-tp", "expert-parallel", "tp-ep"} <= set(dryrun.LAYOUTS)
 
 
 def test_dryrun_multichip_runs_a_step_of_each_trainer_on_two_ranks(capfd):

@@ -18,7 +18,8 @@
 * the CLI writes a WAV on the CPU, plain and with `--long`;
 * `cli/serve.py::main` serves /tts (behind its bearer token) and /healthz
   on the CPU, and returns when its HTTP server is shut down;
-* what is not ported raises NotImplementedError: `--weight-quant int8`,
+* `--weight-quant int8` serves through both CLIs (int8 UNet weights);
+* what is not ported raises NotImplementedError:
   `type: llama`, a reference-format LM checkpoint; a vocoder checkpoint
   directory without the reference's files raises FileNotFoundError.
 
@@ -374,12 +375,41 @@ def test_serve_main_answers_and_shuts_down(tmp_path, tiny_vocoder, monkeypatch):
 
 
 @pytest.mark.parametrize("cli", [infer_tts, serve])
-def test_weight_quant_int8_raises(cli):
-    args = ["-c", str(CONFIG), "--weight-quant", "int8", "--device", "cpu"]
+def test_weight_quant_int8_raises(cli, tmp_path, tiny_vocoder, monkeypatch):
+    """`--weight-quant int8` serves (it raised until int8 serving weights
+    were ported): the CLI builds the pipeline with int8 UNet weights; the
+    infer CLI writes its WAV through them (the UNet quantized once per
+    sampler call), the daemon's pipeline is taken as built and stopped
+    before it listens."""
+    from latent_diffusion_speech_tpu_torch.models.diffusion import unit2mel
+
+    cfg = _tiny(config.load_config(CONFIG), tmp_path)
+    cfg_path = tmp_path / "tiny.yaml"
+    config.save_config(cfg, cfg_path)
+    built, quantized = [], []
+    real_build, real_quant = infer_tts.build_pipeline, unit2mel.quantize_tree_int8
+
+    class Built(Exception):
+        pass
+
+    def build(*a, **kw):
+        built.append(real_build(*a, **kw))
+        if cli is serve:
+            raise Built
+        return built[-1]
+
+    monkeypatch.setattr(infer_tts, "build_pipeline", build)
+    monkeypatch.setattr(unit2mel, "quantize_tree_int8", lambda p: quantized.append(1) or real_quant(p))
+    args = ["-c", str(cfg_path), "--weight-quant", "int8", "--device", "cpu", "--speedup", "100"]
     if cli is infer_tts:
-        args += ["-i", TEXT]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli.main(args)
+        out = tmp_path / "int8.wav"
+        cli.main(args + ["-l", "EN", "-i", TEXT, "-o", str(out)])
+        wav, sr = audio_io.read_wav(out)
+        assert len(wav) > 0 and np.isfinite(wav).all() and quantized
+    else:
+        with pytest.raises(Built):
+            cli.main(args + ["--port", "0"])
+    assert built[0].diffusion.weight_quant == "int8"
 
 
 def test_llama_config_raises_in_build_pipeline(tmp_path, tiny_vocoder):
