@@ -225,15 +225,29 @@ with nvcc (sm_90a), then:
    0.99), JAX's ValueErrors and the CLI's `--weight-quant int8` as a process;
 19. tp_ep: tensor and expert parallelism on CPU gloo ranks with sharded
    checkpoints: `python -m latent_diffusion_speech_tpu_torch.parallel.dryrun
-   4` (data, dp-tp, expert-parallel, tp-ep), a process beside the ranks
-   below; the flagship diffusion trainer at model=2 and the Llama with 8
-   experts at expert=2, full width, two CPU ranks each: a step, a sharded
-   save, a second step; a world of one on the card resumes each checkpoint
-   bit for bit and holds its second step to the ranks' (`train_slice`'s
-   tolerance); the checkpoint's bytes a rank against the single file's.
+   8` (JAX's nine layouts: data, dp-tp, seq-parallel, pipeline,
+   roformer-pipeline, expert-parallel, tp-ep, dp-tp-pp, pp-ep), a process
+   beside the ranks below; the flagship diffusion trainer at model=2 and
+   the Llama with 8 experts at expert=2, full width, two CPU ranks each: a
+   step, a sharded save, a second step; a world of one on the card resumes
+   each checkpoint bit for bit and holds its second step to the ranks'
+   (`train_slice`'s tolerance); the checkpoint's bytes a rank against the
+   single file's;
+20. sp_pp: sequence and pipeline parallelism on CPU gloo ranks: the
+   shipped RoFormer at seq=2 (hidden dropout 0.1) and at pipe=2, and the
+   Llama with 8 experts at JAX's geometry at pipe=2, full width, two CPU
+   ranks each: a step, a save, a second step; a world of one on the card
+   resumes each checkpoint bit for bit and holds its second step to the
+   ranks' (`train_slice`'s tolerance); the ranks' step times, the P2P
+   bytes a step from the shapes and the bubble fraction; then at a world of
+   one on the card `pipeline_apply` over one stage against the stack, each
+   LM's `loss_pp` against its `loss` (value and gradients),
+   `encode_seq_parallel` against `encode` and the ring against plain
+   attention.
 
 How the time is bounded (the phases' order is not the list's): tp_ep's
-CPU ranks run while nvcc builds the kernels, at a lower priority; the
+and sp_pp's CPU ranks run while nvcc builds the kernels, at a lower
+priority; the
 kernel checks (steps 1 and 6, whose numbers make the kernels line) run
 alone;
 after them a second process of this script (`--phases`, CHILD_PHASES:
@@ -5637,7 +5651,8 @@ class TpRanks:
     """tp_ep's CPU part, started in the background before the kernels are
     built (it needs none of them, and the build leaves cores idle): the
     dry run as `python -m latent_diffusion_speech_tpu_torch.parallel.dryrun
-    4` and tp_ep's four gloo rank processes (`tp_rank`), each case's
+    8` (JAX's nine layouts) and tp_ep's four gloo rank processes
+    (`tp_rank`), each case's
     ranks writing to `tmp`.  `wait` joins both and checks the dry run."""
 
     def __init__(self):
@@ -5649,7 +5664,7 @@ class TpRanks:
         self.dir = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp"))
         self.tmp = self.dir.name
         self.t0 = time.perf_counter()
-        self.dry_cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.parallel.dryrun", "4"]
+        self.dry_cmd = [sys.executable, "-m", "latent_diffusion_speech_tpu_torch.parallel.dryrun", "8"]
         self.dry = start_process(self.dry_cmd, preexec_fn=lambda: os.nice(10))
         ports = {"diffusion": free_port()}
         while (port := free_port()) == ports["diffusion"]:
@@ -5675,7 +5690,7 @@ class TpRanks:
         except BaseException:
             self.close()
             raise
-        done = [line for line in out.splitlines() if line.startswith("dryrun_multichip(4): ")]
+        done = [line for line in out.splitlines() if line.startswith("dryrun_multichip(8): ")]
         ran = {line.split()[1].split("/")[0] if "/" in line.split()[1] else "data-parallel" for line in done}
         if self.dry.returncode != 0 or ran != set(LAYOUTS) or not all(line.split()[2] == "ok," for line in done):
             self.close()
@@ -5698,8 +5713,9 @@ class TpRanks:
 
 def tp_ep(dev, card: str, cpu: TpRanks) -> dict:
     """Tensor and expert parallelism (`cpu`: the CPU part, `TpRanks`, done):
-    (a) `parallel/dryrun.py`'s main with 4 CPU gloo ranks, every ported
-    layout (data, dp-tp, expert-parallel, tp-ep); (b) at full width, two CPU
+    (a) `parallel/dryrun.py`'s main with 8 CPU gloo ranks, JAX's nine
+    layouts (data, dp-tp, seq-parallel, pipeline, roformer-pipeline,
+    expert-parallel, tp-ep, dp-tp-pp, pp-ep); (b) at full width, two CPU
     gloo ranks with model=2 take one
     step of the flagship diffusion trainer (the shipped config, B=2 crops of
     1 s, clipping at 1.0 over the global gradients) and save a sharded
@@ -5779,10 +5795,372 @@ def tp_ep(dev, card: str, cpu: TpRanks) -> dict:
         torch.cuda.empty_cache()
         shutil.rmtree(os.path.join(tmp, case), ignore_errors=True)
     print(f"tp_ep phase: {time.perf_counter() - t_phase:.1f} s on the card; its CPU part before, during the "
-          f"kernels' build: the ranks {ranks_s:.1f} s, dryrun_multichip(4), a process beside them, {dry_s:.1f} s; "
+          f"kernels' build: the ranks {ranks_s:.1f} s, dryrun_multichip(8), a process beside them, {dry_s:.1f} s; "
           f"card launches "
           f"{launches} [{card}]")
     return launches
+
+
+# sp_pp: sequence and pipeline parallelism, the shipped RoFormer and the
+# 8-expert Llama over two CPU gloo ranks each, resumed on the card
+SP_CASES = {"roformer_seq": ("roformer", {"seq": 2}), "roformer_pipe": ("roformer", {"pipe": 2}),
+            "llama_pipe": ("llama", {"pipe": 2})}
+SP_ROF_B, SP_ROF_L, SP_ROF_S = 4, 64, 128  # the RoFormer's global batch: rows, phone and semantic tokens
+SP_LLAMA_B, SP_LLAMA_T = 4, 64  # the Llama's (pipe_microbatches 4: one row a microbatch)
+
+
+def sp_config(case: str, tmp: str, layout: bool):
+    """The shipped config for sp_pp's `case`: the RoFormer of
+    configs/config.yaml (C=256, 8 heads, FF 512, 4 + 1 layers) at seq=2 with
+    attention dropout 0 (the ring has none) and the shipped hidden dropout
+    0.1, or at pipe=2 with dropout 0 (the pipeline is deterministic); the
+    Llama with 8 experts at LLAMA_GEOM at pipe=2.  `pipe_microbatches` 4, as
+    shipped."""
+    from latent_diffusion_speech_tpu_torch.config import load_config
+
+    lm_type, axes = SP_CASES[case]
+    cfg = load_config(os.path.join(ROOT, "configs", "config.yaml"))
+    m = cfg.text2semantic.model
+    m.type = lm_type
+    if lm_type == "llama":
+        d = m.decoder
+        d.hidden_size, d.num_attention_heads, d.num_hidden_layers, d.intermediate_size = LLAMA_GEOM
+        m.moe_experts, m.moe_top_k, m.moe_capacity_factor = LLAMA_MOE
+    for stack in (m.encoder, m.decoder):
+        stack.attention_probs_dropout_prob = 0.0
+        if case == "roformer_pipe":
+            stack.hidden_dropout_prob = 0.0
+    cfg.text2semantic.train.expdir = os.path.join(tmp, case)
+    if layout:
+        cfg.parallel.data = 1
+        for k, v in axes.items():
+            setattr(cfg.parallel, k, v)
+    return cfg
+
+
+def sp_batches(case: str, vocab: int) -> list:
+    """sp_pp's two global batches (numpy, seeded), padded unevenly."""
+    g = np.random.default_rng(9)
+    out = []
+    for _ in range(2):
+        if case.startswith("roformer"):
+            B, L, S = SP_ROF_B, SP_ROF_L, SP_ROF_S
+            em = (np.arange(L)[None] < g.integers(L // 2, L + 1, B)[:, None]).astype(np.int64)
+            dm = (np.arange(S)[None] < g.integers(S // 2, S + 1, B)[:, None]).astype(np.int64)
+            semantic = g.integers(0, 4096, (B, S))
+            out.append({"phone": g.integers(1, 80, (B, L)) * em, "tone": g.integers(0, 6, (B, L)) * em,
+                        "semantic": semantic, "labels": np.where(dm > 0, semantic, -100),
+                        "spk_id": np.repeat(g.integers(1, 300, (B, 1)), L, axis=1),
+                        "encoder_attention_mask": em, "attention_mask": dm})
+        else:
+            ids = g.integers(0, vocab, (SP_LLAMA_B, SP_LLAMA_T))
+            out.append({"input_ids": ids, "labels": ids.copy(), "attention_mask": np.ones_like(ids)})
+    return out
+
+
+def sp_step(trainer, batch, microbatched: bool = False) -> tuple:
+    """One LM train_step whose dropout draws come from a CPU generator (on
+    the host, so a step on the card draws the CPU ranks' numbers);
+    `microbatched`: a world of one takes the loss through `loss_pp` (its
+    microbatches through every layer in turn, an expert's capacity a
+    microbatch's: what the pipe ranks compute); returns (loss, the
+    gradients AdamW saw, the MoE's expert choices, seconds)."""
+    from latent_diffusion_speech_tpu_torch.ops import moe
+    from latent_diffusion_speech_tpu_torch.train import lm_trainer, optim
+
+    seen, choices = {}, []
+    real_step, real_top_k = trainer.optimizer.step, moe.top_k_lowest_index
+
+    def opt_step(*a, **k):
+        seen.update({n: p.grad.detach().cpu().clone() for n, p in trainer.system.module.named_parameters()})
+        return real_step(*a, **k)
+
+    def top_k(probs, k):
+        vals, idx = real_top_k(probs, k)
+        choices.append(idx.cpu())
+        return vals, idx
+
+    trainer.optimizer.step = opt_step
+    try:
+        with mock.patch.object(moe, "top_k_lowest_index", top_k), \
+                mock.patch.object(lm_trainer, "step_generator", lambda seed, step, device: optim.step_generator(
+                    seed, step, "cpu")), \
+                mock.patch.object(trainer, "loss", (lambda b, generator: trainer._loss_pp(b, None)) if microbatched
+                                  else trainer.loss):
+            t0 = time.perf_counter()
+            out = trainer.train_step(trainer.device_put_batch(batch))
+            loss = float(out["loss"])
+            seconds = time.perf_counter() - t0
+    finally:
+        trainer.optimizer.step = real_step
+    return loss, seen, choices, seconds
+
+
+def sp_rank(process: int, tmp: str, ports: dict, t0: float) -> None:
+    """One CPU process of sp_pp: processes 2c and 2c + 1 are the two gloo
+    ranks of the c-th case of SP_CASES (each case its own group, on
+    `ports[case]`).  The rank takes its case at full width: one step, a
+    save, a second step; writes the parameters at the save, the second
+    step's loss, gradients and expert choices, both steps' seconds and its
+    end's seconds after `t0` (the parent's `time.time()` at the start) to
+    `<tmp>/<case>_rank<index>.pt`."""
+    case, index, n = list(SP_CASES)[process // 2], process % 2, 2
+    os.nice(10)  # below the kernels' build, which runs beside the ranks
+    os.environ.update(RANK=str(index), LOCAL_RANK=str(index), WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(ports[case]), CUDA_VISIBLE_DEVICES="")
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.parallel.dist import initialize_distributed
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
+
+    torch.set_num_threads(1)
+    initialize_distributed("cpu")
+    trainer = LMTrainer(sp_config(case, tmp, layout=True), device="cpu")
+    batches = sp_batches(case, getattr(trainer.lm_cfg, "vocab_size", 0))
+    first, _, _, first_s = sp_step(trainer, batches[0])
+    trainer.save()
+    saved = {k: p.detach().clone() for k, p in trainer.system.module.named_parameters()}
+    loss, grads, choices, second_s = sp_step(trainer, batches[1])
+    torch.save(dict(saved=saved, loss=loss, first=first, grads=grads, choices=choices, step_s=(first_s, second_s),
+                    coords=trainer.mesh.coords, spec=dict(trainer.mesh.shape), done_s=time.time() - t0),
+               os.path.join(tmp, f"{case}_rank{index}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+class SpRanks:
+    """sp_pp's CPU part, started in the background before the kernels are
+    built, beside `TpRanks`: six gloo rank processes (`sp_rank`), each
+    case's two writing to `tmp`.  `wait` joins them (they end long before
+    sp_pp runs)."""
+
+    def __init__(self):
+        import tempfile
+
+        import torch.multiprocessing as mp
+
+        os.makedirs(os.path.join(ROOT, "exp"), exist_ok=True)
+        self.dir = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "exp"))
+        self.tmp = self.dir.name
+        ports: dict = {}
+        for case in SP_CASES:
+            while (port := free_port()) in ports.values():
+                pass
+            ports[case] = port
+        self.ranks = None
+        try:
+            self.ranks = mp.start_processes(sp_rank, args=(self.tmp, ports, time.time()), nprocs=2 * len(SP_CASES),
+                                            start_method="spawn", join=False)
+        except BaseException:
+            self.close()
+            raise
+
+    def wait(self) -> None:
+        try:
+            while not self.ranks.join():
+                pass
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        """Stops what still runs and removes the ranks' files."""
+        for proc in self.ranks.processes if self.ranks is not None else ():
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        self.dir.cleanup()
+
+
+def sp_p2p_bytes(case: str, cfg, spec: dict) -> tuple:
+    """(the P2P bytes a rank sends in one step, worked out from the shapes,
+    and how): the ring's 2 (n - 1) B (T / n) H D f32 per attention call
+    forward, 2 (n - 1) + 2 n chunks' worth backward (k, v and their
+    gradients, which travel home), and the cross-attention's gathered
+    encoder states (keys and values, forward; their gradients summed
+    backward); the pipeline's activation per microbatch times 2 (S - 1)."""
+    m = cfg.text2semantic.model
+    if case == "roformer_seq":
+        n, B, C = spec["seq"], SP_ROF_B, m.encoder.hidden_size
+        fwd = lambda T: 2 * (n - 1) * B * (T // n) * C * 4  # noqa: E731
+        bwd = lambda T: (2 * (n - 1) + 2 * n) * B * (T // n) * C * 4  # noqa: E731
+        ring = (m.encoder.num_hidden_layers * (fwd(SP_ROF_L) + bwd(SP_ROF_L))
+                + m.decoder.num_hidden_layers * (fwd(SP_ROF_S) + bwd(SP_ROF_S)))
+        gather = m.decoder.num_hidden_layers * (2 * (n - 1) * B * (SP_ROF_L // n) * C * 4
+                                                + 2 * 2 * (n - 1) * B * SP_ROF_L * C * 4 // n)
+        return ring + gather, (f"ring {ring} B (forward {fwd(SP_ROF_L)} B a call at T={SP_ROF_L}, "
+                               f"{fwd(SP_ROF_S)} B at T={SP_ROF_S}), cross-attention gathers {gather} B")
+    S, M = spec["pipe"], cfg.parallel.pipe_microbatches
+    if case == "roformer_pipe":
+        mb, C = SP_ROF_B // M, m.encoder.hidden_size
+        act = mb * (SP_ROF_L + SP_ROF_S) * C * 4 + mb * (SP_ROF_L + SP_ROF_S)  # both streams f32, both masks bytes
+    else:
+        mb, C = SP_LLAMA_B // M, m.decoder.hidden_size
+        act = mb * SP_LLAMA_T * C * 4 + mb * SP_LLAMA_T + m.decoder.num_hidden_layers * 2 * m.moe_experts * 4
+    total = act * 2 * (S - 1) * M
+    return total, f"activation {act} B a microbatch x 2 (S - 1) = {2 * (S - 1)} x M = {M}"
+
+
+def sp_card_checks(dev, card: str) -> str:
+    """At a world of one on the card: `pipeline_apply` over one stage
+    against the sequential stack, each LM's `loss_pp` against its `loss`
+    (value rtol 2e-5; gradients rtol 5e-4, atol 1e-5), `encode_seq_parallel`
+    against `encode`, and the ring (one block) against plain attention."""
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaConfig, LlamaSystem
+    from latent_diffusion_speech_tpu_torch.models.lm.registry import roformer_config_from
+    from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerSystem
+    from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention
+    from latent_diffusion_speech_tpu_torch.ops.ring_attention import ring_attention
+    from latent_diffusion_speech_tpu_torch.parallel.pipeline import pipeline_apply
+
+    g = torch.Generator().manual_seed(3)
+    w = (torch.randn((4, 256, 256), generator=g) * 0.06).to(dev)
+    x = torch.randn((4, 2, 64, 256), generator=g).to(dev)
+    got = pipeline_apply(None, lambda p, h: torch.tanh(h @ p), w, x)
+    want = x.clone()
+    for s in range(4):
+        want = torch.tanh(want @ w[s])
+    pipe_err = (got - want).abs().max().item()
+    if pipe_err > 1e-6:
+        raise AssertionError(f"sp_pp: pipeline_apply over one stage differs from the stack by {pipe_err}")
+    lines = [f"pipeline_apply (S=1, 4 stages of 256 x 256) against the sequential stack: max err {pipe_err:.1e}"]
+    cfg = sp_config("roformer_pipe", "unused", layout=False)
+    rof = RoformerSystem(roformer_config_from(cfg), device=dev, training=True)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in sp_batches("roformer_pipe", 0)[0].items()}
+    llama = LlamaSystem(LlamaConfig(*LLAMA_GEOM, semantic_kmeans_num=4096), device=dev, training=True)
+    ids = torch.as_tensor(sp_batches("llama_pipe", llama.cfg.vocab_size)[0]["input_ids"], device=dev)
+    for name, lm, base_fn, pp_fn in (
+            ("RoFormer", rof, lambda: rof.loss(b),
+             lambda: rof.loss_pp(b["phone"], b["tone"], b["semantic"], b["labels"], None, spk_id=b["spk_id"],
+                                 encoder_attention_mask=b["encoder_attention_mask"],
+                                 attention_mask=b["attention_mask"])),
+            ("Llama (dense, LLAMA_GEOM)", llama, lambda: llama.loss({"input_ids": ids, "labels": ids}),
+             lambda: llama.loss_pp(ids, ids, None))):
+        params = list(lm.module.parameters())
+        vals, grads = [], []
+        for fn in (base_fn, pp_fn):
+            loss = fn()
+            vals.append(loss.item())
+            grads.append(torch.autograd.grad(loss, params, allow_unused=True))
+        worst = 0.0
+        for a, ref in zip(grads[1], grads[0]):
+            if ref is None:
+                continue
+            margin = ((a - ref).abs() - 1e-5 - 5e-4 * ref.abs()).max().item()
+            if margin > 0:
+                raise AssertionError(f"sp_pp: {name} loss_pp gradient beyond rtol 5e-4, atol 1e-5")
+            worst = max(worst, (a - ref).abs().max().item())
+        if abs(vals[1] - vals[0]) > 2e-5 * abs(vals[0]):
+            raise AssertionError(f"sp_pp: {name} loss_pp {vals[1]} against loss {vals[0]}")
+        lines.append(f"{name} loss_pp (4 microbatches) {vals[1]:.7f} against loss {vals[0]:.7f}, gradients within "
+                     f"rtol 5e-4 + atol 1e-5 (largest error {worst:.2e})")
+    with torch.no_grad():
+        enc = rof.encode_seq_parallel(b["phone"], b["tone"], b["spk_id"], mesh=None)
+        ref = rof.module.encode(b["phone"], b["tone"], b["spk_id"])
+        enc_err = (enc - ref).abs().max().item()
+        q, k, v = (torch.randn((2, 256, 8, 32), generator=g).to(dev) for _ in range(3))
+        mask = torch.arange(256, device=dev)[None] < torch.tensor([[256], [100]], device=dev)
+        ring_err = (ring_attention(q, k, v, None, is_causal=True, kv_mask=mask)
+                    - dot_product_attention(q, k, v, mask=mask[:, None, None, :], is_causal=True)).abs().max().item()
+    if enc_err > 0 or ring_err > 2e-5:
+        raise AssertionError(f"sp_pp: encode_seq_parallel differs from encode by {enc_err}, the ring from "
+                             f"plain attention by {ring_err}")
+    lines.append(f"encode_seq_parallel against encode: max err {enc_err:.1e}; the ring (one block, causal, a key "
+                 f"mask; B=2, T=256, H=8, D=32) against plain attention: max err {ring_err:.1e}")
+    return "\n".join(f"sp_pp card [{card}]: {line}" for line in lines)
+
+
+def sp_pp(dev, card: str, cpu: SpRanks) -> dict:
+    """Sequence and pipeline parallelism (`cpu`: the CPU part, `SpRanks`):
+    at full width, two CPU gloo ranks each take a step of the shipped
+    RoFormer at seq=2 (hidden dropout 0.1, attention dropout 0), of the same
+    RoFormer at pipe=2 (dropout 0) and of the Llama with 8 experts at JAX's
+    geometry at pipe=2, save a checkpoint, then a second step; a world of
+    one on the card resumes each checkpoint: its parameters equal the
+    ranks', bit for bit, and its second step (under `pipe` through
+    `loss_pp` over the same microbatches) holds `train_slice`'s
+    tolerance against the ranks' (as `tp_ep`: the loss within 1e-5
+    relative, every gradient tensor within 1e-3 of its norm and all within
+    1e-4 of the global norm; a gradient at rounding level, such as the
+    attention's key biases', which the softmax cancels, to the global bound
+    only; the same dropout draws, from
+    a CPU generator; the Llama's gradients held where no expert choice
+    differs).  Prints the
+    ranks' step times, the P2P bytes a step from the shapes and the
+    pipeline's bubble fraction, then `sp_card_checks`."""
+    import shutil
+
+    import torch
+
+    from latent_diffusion_speech_tpu_torch.parallel.pipeline import bubble_fraction
+    from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
+
+    t_phase = time.perf_counter()
+    cpu.wait()
+    tmp, done_s = cpu.tmp, 0.0
+    for case in SP_CASES:
+        ranks = [torch.load(os.path.join(tmp, f"{case}_rank{r}.pt"), weights_only=False) for r in range(2)]
+        if ranks[0]["loss"] != ranks[1]["loss"] or ranks[0]["first"] != ranks[1]["first"]:
+            raise AssertionError(f"sp_pp {case}: the ranks' losses differ")
+        done_s = max([done_s] + [r["done_s"] for r in ranks])
+        for k, p in ranks[0]["grads"].items():
+            if not torch.equal(p, ranks[1]["grads"][k]):
+                raise AssertionError(f"sp_pp {case}: the ranks' reduced gradients of {k} differ")
+        trainer = LMTrainer(sp_config(case, tmp, layout=False), device=dev)
+        if not trainer.resume() or trainer.step != 1:
+            raise AssertionError(f"sp_pp {case}: the world of one did not resume the ranks' checkpoint")
+        for k, p in trainer.system.module.named_parameters():
+            if not torch.equal(p.detach().cpu(), ranks[0]["saved"][k]):
+                raise AssertionError(f"sp_pp {case}: resumed {k} differs from the ranks'")
+        spec = ranks[0]["spec"]
+        S, M = spec["pipe"], trainer.cfg.parallel.pipe_microbatches
+        batch = sp_batches(case, getattr(trainer.lm_cfg, "vocab_size", 0))[1]
+        loss, grads, choices, card_s = sp_step(trainer, batch, microbatched=S > 1)
+        grads_p, loss_p = ranks[0]["grads"], ranks[0]["loss"]
+        theirs = ranks[0]["choices"]
+        if choices and S > 1:  # the card's (microbatch, layer) order from each stage's layers
+            per = trainer.lm_cfg.num_hidden_layers // S
+            theirs = [ranks[layer // per]["choices"][m * per + layer % per]
+                      for m in range(M) for layer in range(per * S)]
+        flips = sum(int((a != b).sum()) for a, b in zip(choices, theirs))
+        routed = sum(a.numel() for a in choices)
+        loss_rel = abs(loss - loss_p) / abs(loss_p)
+        # a gradient at rounding level (a key projection's bias shifts a
+        # query's every logit alike, so the softmax cancels it) is held to
+        # the global bound only: those whose norm in the ranks' step is below
+        # 1e-6 of the global norm
+        norm_p = sum((g ** 2).sum() for g in grads_p.values()).sqrt().item()
+        tiny = {k: g.norm().item() for k, g in grads_p.items() if g.norm().item() < 1e-6 * norm_p}
+        rel = {k: ((g - grads_p[k]).norm() / grads_p[k].norm().clamp_min(1e-30)).item() for k, g in grads.items()
+               if k not in tiny}
+        worst = max(rel, key=rel.get)
+        total = sum(((g - grads_p[k]) ** 2).sum() for k, g in grads.items()).sqrt().item() / norm_p
+        if loss_rel > (1e-5 if not flips else 1e-4) or (not flips and (rel[worst] > 1e-3 or total > 1e-4)):
+            raise AssertionError(f"sp_pp {case}: the card's second step against the ranks': loss {loss} vs {loss_p}, "
+                                 f"worst gradient {worst} {rel[worst]:.3e}, global {total:.3e}, {flips} of {routed} "
+                                 "expert choices differ")
+        p2p, how = sp_p2p_bytes(case, trainer.cfg, spec)
+        bubble = f"; bubble fraction (S - 1) / (M + S - 1) = {bubble_fraction(S, M):.3f}" if S > 1 else ""
+        routing = f"; expert choices: {flips} of {routed} differ" if routed else ""
+        exempt = (f"; {len(tiny)} gradient tensors at rounding level (largest norm {max(tiny.values()):.2e}, global "
+                  f"{norm_p:.3e}) held to the global bound only" if tiny else f"; global gradient norm {norm_p:.3e}")
+        print(f"sp_pp {case} [{card}]: two CPU gloo ranks ({spec}; the six processes of sp_pp at once, beside "
+              f"tp_ep's and the kernels' build); step time a rank: first {ranks[0]['step_s'][0]:.2f} / "
+              f"{ranks[1]['step_s'][0]:.2f} s, second {ranks[0]['step_s'][1]:.2f} / {ranks[1]['step_s'][1]:.2f} s "
+              f"(rank 0 / rank 1, CPU); P2P a rank a step {p2p / 1e6:.3f} MB from the shapes ({how}){bubble}; "
+              f"losses {ranks[0]['first']:.6f}, {loss_p:.6f}; the world of one on the card resumed the checkpoint "
+              f"bit for bit and its second step {card_s * 1e3:.1f} ms: loss {loss:.7f} (relative {loss_rel:.2e}), "
+              f"worst gradient {rel[worst]:.2e} ({worst}), global {total:.2e}{routing}{exempt}")
+        del trainer
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(tmp, case), ignore_errors=True)
+    print(sp_card_checks(dev, card))
+    torch.cuda.empty_cache()
+    print(f"sp_pp phase: {time.perf_counter() - t_phase:.1f} s on the card; its six CPU ranks, started before the "
+          f"kernels' build, the last done {done_s:.1f} s after their start [{card}]")
+    return {}
 
 
 # phases that a second process of this script runs (`--phases`), started
@@ -5855,15 +6233,19 @@ def main(argv=None) -> int:
             return run_child_phases(dev, card, args.phases.split(","))
         finally:
             stop_children()
-    tp_cpu = TpRanks()  # tp_ep's CPU ranks meanwhile: the build leaves cores idle
+    tp_cpu = TpRanks()  # tp_ep's and sp_pp's CPU ranks meanwhile: the build leaves cores idle
+    sp_cpu = None
     try:
-        return run_phases(dev, card, tp_cpu, mark)
+        sp_cpu = SpRanks()
+        return run_phases(dev, card, tp_cpu, sp_cpu, mark)
     finally:
         tp_cpu.close()
+        if sp_cpu is not None:
+            sp_cpu.close()
         stop_children()
 
 
-def run_phases(dev, card: str, tp_cpu: TpRanks, mark) -> int:
+def run_phases(dev, card: str, tp_cpu: TpRanks, sp_cpu: SpRanks, mark) -> int:
     """Every phase after the card's checks (see the module's docstring)."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5974,6 +6356,8 @@ def run_phases(dev, card: str, tp_cpu: TpRanks, mark) -> int:
     launches["attention_fwd"] += tp["attention_fwd"]
     print(f"launches with int8_serve's and tp_ep's: {launches}, attention_bwd {tp['attention_bwd']}")
     mark("tp_ep")
+    sp_pp(dev, card, sp_cpu)  # no kernel lies on its path (the LMs' plain attention, the ring's products)
+    mark("sp_pp")
     for check in DEFERRED:
         check()
     mark("the checks of the processes that the phases started")

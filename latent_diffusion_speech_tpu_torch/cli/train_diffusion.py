@@ -17,9 +17,11 @@ line of metrics every `interval_log` steps.  Under `torchrun` each process
 joins the process group first (`parallel.initialize_distributed`: NCCL on
 its card `cuda:LOCAL_RANK`, gloo with `--device cpu`), reads its share of
 the files of its data coordinate (the mesh's `index` of `size`: the ranks
-of one model group read the same rows) and trains one rank of the mesh
-(`cfg.parallel.data`, -1 for every process the other axes leave;
-`cfg.parallel.model` splits the UNet over ranks); rank 0 prints the metrics.
+that differ only in `seq`, `model`, `pipe` or `expert` read the same rows)
+and trains one rank of the mesh (`cfg.parallel.data`, -1 for every process
+the other axes leave; `cfg.parallel.model` splits the UNet over ranks,
+`seq` and `pipe` replicate it as JAX's trainer does); rank 0 prints the
+metrics.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Stage 21: LM training (RoFormer or Llama), on one CUDA device or
-data-parallel over several.
+over several (data, sequence, tensor, pipeline and expert parallelism).
 
 Counterpart of `latent_diffusion_speech_tpu/cli/train_lm.py`:
 
@@ -20,8 +20,10 @@ message when the pipeline's files cannot be read), then trains.  Under
 `torchrun` each process joins the process group first
 (`parallel.initialize_distributed`: NCCL on `cuda:LOCAL_RANK`, gloo with
 `--device cpu`), reads the utterances of its data coordinate (the mesh's
-`index` of `size`: the ranks of one model or expert group read the same
-rows) and trains one rank of the mesh; the logger and the validation
+`index` of `size`: the ranks that differ only in `seq`, `model`, `pipe`
+or `expert` read the same rows; the trainer cuts a `seq` rank's token
+chunk and a `pipe` rank's microbatches from them) and trains one rank of
+the mesh; the logger and the validation
 pipeline live on rank 0 only (under tensor or expert parallelism its model
 group evaluates with it).
 """

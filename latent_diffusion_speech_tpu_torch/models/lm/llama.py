@@ -14,6 +14,12 @@ other.  The forward returns the logits and the MoE layers' auxiliary losses
 of `ops/attention.py` (the JAX module's default `impl="xla"`): no Pallas
 kernel lies on the JAX Llama, so none lies here.
 
+Sequence parallelism (inside `ops/attention.py::sequence_parallel`): the
+tokens are this rank's chunk, the rotary tables are taken at its global
+positions and the causal self-attention runs the ring.  Pipeline
+parallelism: `LlamaSystem.loss_pp`, JAX's stage layout over
+`parallel/pipeline.py`.
+
 `generate` fills the cache with the dense model's prompt in one causal
 pass, where the JAX version feeds it one token at a time through the cache:
 the same function (each row attends to the rows before it), one launch
@@ -37,7 +43,7 @@ from torch import nn
 
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerSystem
 from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig, ar_generate
-from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention
+from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention, sequence_offset
 from latent_diffusion_speech_tpu_torch.ops.layers import (Dense, cast_compute_dtype, keep_split, local_heads,
                                                           resolve_device, seeded)
 from latent_diffusion_speech_tpu_torch.ops.moe import MoEMLP
@@ -216,7 +222,8 @@ class Llama(nn.Module):
         """(B, T) -> (logits (B, T, V), the MoE layers' auxiliary losses:
         one scalar a layer, none for the dense feed-forward), causal."""
         x = self.embed_tokens(input_ids)
-        rotary = self._rotary(0, input_ids.shape[1], input_ids.device)
+        T = input_ids.shape[1]
+        rotary = self._rotary(sequence_offset(T), T, input_ids.device)  # global positions under `seq`
         mask = attention_mask[:, None, None, :].bool() if attention_mask is not None else None
         aux = []
         for block in self.blocks:
@@ -313,10 +320,11 @@ class LlamaSystem:
     _ce = staticmethod(RoformerSystem._ce)
 
     def loss_of(self, logits: torch.Tensor, aux: List[torch.Tensor], labels: torch.Tensor,
-                denom: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The CE (over `denom`, `RoformerSystem._ce`) plus `moe_aux_weight`
-        times the mean of the layers' Switch auxiliary losses (with experts)."""
-        ce = self._ce(logits, labels, denom)
+                denom: Optional[torch.Tensor] = None, targets: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The CE (over `denom`, of the shifted `targets` when given,
+        `RoformerSystem._ce`) plus `moe_aux_weight` times the mean of the
+        layers' Switch auxiliary losses (with experts)."""
+        ce = self._ce(logits, labels, denom, targets)
         if self.cfg.moe_experts <= 0:
             return ce
         return ce + self.cfg.moe_aux_weight * (sum(aux) / max(len(aux), 1))
@@ -326,14 +334,66 @@ class LlamaSystem:
         """Causal CE with -100 ignored, plus the MoE auxiliary loss, of a
         collated device batch (`data/lm_dataset.py::collate_llama_batch`).  The
         Llama has no dropout: `generator` is taken for the trainer's sake
-        and unused.  denom: the CE's divisor (`loss_of`)."""
+        and unused.  denom: the CE's divisor, a batch's `targets` the
+        shifted targets (`loss_of`)."""
         logits, aux = self.module(batch["input_ids"], batch.get("attention_mask"))
-        return self.loss_of(logits, aux, batch["labels"], denom)
+        return self.loss_of(logits, aux, batch["labels"], denom, batch.get("targets"))
 
-    def loss_pp(self, *args, **kwargs):
-        """The JAX package's pipeline-parallel loss (GPipe over a mesh
-        `pipe` axis): pipeline parallelism is not ported (ROADMAP.md Queue 1, item 10)."""
-        raise NotImplementedError("Llama pipeline parallelism (loss_pp) is not ported (ROADMAP.md Queue 1, item 10)")
+    def loss_pp(self, input_ids: torch.Tensor, labels: torch.Tensor, mesh, attention_mask=None, *,
+                microbatches: int = 4, remat: bool = False,
+                denom: Optional[torch.Tensor] = None, targets: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The loss with the block stack GPipe-microbatched over the mesh's
+        `pipe` axis (JAX's `loss_pp`, `parallel/pipeline.py`): stage s runs
+        blocks [s L / S, (s + 1) L / S); the embedding, final norm and LM
+        head are replicated on every rank of the pipe group.  With experts
+        each block's routing statistics (f_e, p_e) ride the activation as
+        (M, L, 2, E), and the auxiliary loss is rebuilt from their means
+        over the microbatches (a mean of equal-sized microbatches' means is
+        the batch's); an expert's capacity is a microbatch's, as in JAX, so
+        the loss equals `loss` while no choice overflows.  The inputs are
+        this rank's rows of each of `microbatches` microbatches, laid out as
+        JAX splits them over `data` (`train/lm_trainer.py::
+        _microbatch_rows`); `denom` and `targets` as `loss`.  Returns
+        the loss on every rank of the pipe group, its gradient counted once
+        over the group (`count_once`).  Raises JAX's ValueErrors for layers
+        or a batch the stages or microbatches do not divide."""
+        from latent_diffusion_speech_tpu_torch.parallel.pipeline import count_once, pipeline_apply
+
+        cfg, module = self.cfg, self.module
+        moe = cfg.moe_experts > 0
+        S = mesh.axis_size("pipe") if mesh is not None else 1
+        L = cfg.num_hidden_layers
+        if L % S != 0:
+            raise ValueError(f"loss_pp: {L} layers not divisible by pipe={S}")
+        per = L // S
+        stages = [list(enumerate(module.blocks))[s * per:(s + 1) * per] for s in range(S)]
+        B, T = input_ids.shape
+        M = microbatches
+        if B % M != 0:
+            raise ValueError(f"loss_pp: batch {B} not divisible by microbatches {M}")
+        x = module.embed_tokens(input_ids)
+        mask = (attention_mask[:, None, None, :].bool() if attention_mask is not None
+                else torch.ones((B, 1, 1, T), dtype=torch.bool, device=input_ids.device))
+        rotary = module._rotary(sequence_offset(T), T, input_ids.device)
+        E = max(cfg.moe_experts, 1)
+
+        def stage_fn(stage, act):
+            h, m, stats = act
+            for index, block in stage:
+                h, _ = block(h, rotary, mask=m)
+                if moe:
+                    stats = stats.index_copy(0, torch.tensor([index], device=stats.device), block.moe.stats[None])
+            return h, m, stats
+
+        act = (x.reshape(M, B // M, T, -1), mask.reshape(M, B // M, 1, 1, T),
+               torch.zeros((M, L, 2, E), dtype=torch.float32, device=input_ids.device))
+        h, _, stats = pipeline_apply(mesh, stage_fn, stages, act, remat=remat)
+        logits = module.lm_head(module.final_ln(h.reshape(B, T, -1)))
+        loss = self._ce(logits, labels, denom, targets)
+        if moe:
+            f_e, p_e = stats[:, :, 0].mean(dim=0), stats[:, :, 1].mean(dim=0)  # (L, E)
+            loss = loss + cfg.moe_aux_weight * (E * (f_e * p_e).sum(dim=-1)).mean()
+        return count_once(loss, mesh)
 
     @torch.no_grad()
     def generate(

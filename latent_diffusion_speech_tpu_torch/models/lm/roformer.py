@@ -17,10 +17,21 @@ Training: `Roformer.forward` is `encode` + the teacher-forced causal
 projections, and on the embeddings) is drawn from a `torch.Generator` passed
 in; it runs only in `module.train()` with a generator, so a call without one
 is deterministic, as flax's `deterministic=True`.
+
+Sequence parallelism (inside `ops/attention.py::sequence_parallel`): every
+tensor is this rank's chunk of the tokens, the rotary tables are taken at
+the chunk's global positions, self-attention runs the ring and the
+decoder's cross-attention the ring too when the encoder and decoder chunks
+are of one length (JAX routes it so), else over the gathered encoder
+states; `encode_seq_parallel` is JAX's entry, and the loss takes targets
+already shifted over the chunks' boundaries (`_ce`'s `targets`).  Pipeline
+parallelism: `RoformerSystem.loss_pp`, JAX's slot layout over
+`parallel/pipeline.py`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -30,7 +41,8 @@ from torch import nn
 
 from latent_diffusion_speech_tpu_torch.text.symbols import num_tones, symbols
 from latent_diffusion_speech_tpu_torch.models.lm.sampling import SamplingConfig
-from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attention, dropout
+from latent_diffusion_speech_tpu_torch.ops.attention import (dot_product_attention, dropout, sequence_offset,
+                                                             sequence_parallel)
 from latent_diffusion_speech_tpu_torch.ops.layers import (Dense, LayerNorm, cast_compute_dtype, keep_split, local_heads,
                                                           resolve_device, seeded)
 
@@ -176,8 +188,8 @@ class Attention(nn.Module):
             k, v = self.kv(x if kv_source is None else kv_source)
         if self.use_rotary and kv_source is None and kv_override is None:
             if rotary is None:
-                if positions is None:
-                    positions = torch.arange(T, device=x.device)
+                if positions is None:  # the chunk's global positions under sequence parallelism
+                    positions = torch.arange(T, device=x.device) + sequence_offset(T)
                 rotary = rotary_sin_cos(positions, C // self.n_heads)  # C: the input's (whole) width
             sin, cos = rotary
             q = apply_rotary_pairs(q, sin, cos)
@@ -403,12 +415,17 @@ class RoformerSystem:
         self.module = cast_compute_dtype(module, dtype).to(self.device).train(training)
 
     @staticmethod
-    def _ce(logits: torch.Tensor, labels: torch.Tensor, denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _ce(logits: torch.Tensor, labels: torch.Tensor, denom: Optional[torch.Tensor] = None,
+            targets: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Shifted next-token CE (logits[:, :-1] against labels[:, 1:]) in
         f32 over the positions whose label is not -100: the sum of their
         nll over their count, or over `denom` when given (a data-parallel
-        rank's share of the global count, `train/lm_trainer.py`)."""
-        logits, targets = logits[:, :-1], labels[:, 1:]
+        rank's share of the global count, `train/lm_trainer.py`).
+        targets: each position's next-token target, already shifted (a
+        sequence-parallel chunk's, whose last target lies in the next
+        chunk); every logit is then scored and `labels` unused."""
+        if targets is None:
+            logits, targets = logits[:, :-1], labels[:, 1:]
         valid = targets != -100
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, torch.where(valid, targets, 0).long()[..., None])[..., 0]
@@ -426,8 +443,100 @@ class RoformerSystem:
              denom: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Causal CE with -100 ignored (HF convention).  generator: dropout
         when the module is in training mode; None is deterministic, as the
-        JAX loss with dropout_rng=None.  denom: the CE's divisor (`_ce`)."""
-        return self._ce(self.logits(batch, generator), batch["labels"], denom)
+        JAX loss with dropout_rng=None.  denom: the CE's divisor (`_ce`);
+        a batch's `targets`, when present, the shifted targets (`_ce`)."""
+        return self._ce(self.logits(batch, generator), batch["labels"], denom, batch.get("targets"))
+
+    def encode_seq_parallel(self, phone, tone, spk_id=None, mesh=None) -> torch.Tensor:
+        """The text encoder over the mesh's `seq` axis: `phone`, `tone` and
+        `spk_id` (B, L) are the whole inputs (every rank of the `seq` group
+        passes the same); returns this rank's chunk (B, L / n, C) of the
+        encoder states, rank r's tokens [r L / n, (r + 1) L / n), as JAX's
+        output is sharded.  Self-attention runs the ring.  L must divide by
+        the axis's size.  A collective over the `seq` group (the whole
+        encode on a world of one)."""
+        n = mesh.axis_size("seq") if mesh is not None and mesh.group is not None else 1
+        L = phone.shape[1]
+        if L % n != 0:
+            raise ValueError(f"encode_seq_parallel: L={L} not divisible by seq={n}")
+        c = mesh.coordinate("seq") if n > 1 else 0
+
+        def chunk(a):
+            a = torch.as_tensor(a, device=self.device).long()
+            return a[:, c * (L // n):(c + 1) * (L // n)]
+
+        spk = chunk(spk_id) if spk_id is not None else None
+        with sequence_parallel(mesh) if n > 1 else contextlib.nullcontext():
+            return self.module.encode(chunk(phone), chunk(tone), spk)
+
+    def loss_pp(self, phone, tone, semantic_in, labels, mesh, spk_id=None, encoder_attention_mask=None,
+                attention_mask=None, *, microbatches: int = 4, remat: bool = False, denom: Optional[torch.Tensor] = None,
+                targets: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The encoder-decoder loss over the mesh's `pipe` axis (JAX's
+        `loss_pp`): the activation carries both streams (encoder hidden,
+        decoder hidden, encoder mask, decoder mask) and each pipeline slot
+        holds one layer of [enc_0 .. enc_{E-1}, dec_0 .. dec_{D-1}] padded
+        with identity slots to S ceil((E + D) / S), stage s holding slots
+        [s per, (s + 1) per); the decoder slots come after every encoder
+        slot, so a microbatch's encoder stream is final when they read it.
+        The embeddings and the LM head are replicated on every rank of the
+        pipe group, without dropout (the pipeline path is deterministic).
+        The inputs are this rank's rows of each of `microbatches`
+        microbatches, laid out as JAX splits them over `data`
+        (`train/lm_trainer.py::_microbatch_rows`); `denom` and `targets` as
+        `loss`.  Returns the loss
+        on every rank of the pipe group, its gradient counted once over the
+        group (`parallel/pipeline.py::count_once`).  Raises JAX's
+        ValueErrors for stacks of two widths and a batch the microbatches
+        do not divide."""
+        from latent_diffusion_speech_tpu_torch.parallel.pipeline import count_once, pipeline_apply
+
+        cfg, module = self.cfg, self.module
+        ecfg, dcfg = cfg.encoder, cfg.decoder
+        if (ecfg.hidden_size, ecfg.intermediate_size) != (dcfg.hidden_size, dcfg.intermediate_size):
+            raise ValueError(
+                "loss_pp: encoder/decoder stacks must share hidden and "
+                "intermediate sizes (pipeline slots need one param layout); "
+                f"got enc ({ecfg.hidden_size}, {ecfg.intermediate_size}) vs "
+                f"dec ({dcfg.hidden_size}, {dcfg.intermediate_size})"
+            )
+        S = mesh.axis_size("pipe") if mesh is not None else 1
+        E, D = ecfg.num_hidden_layers, dcfg.num_hidden_layers
+        per = -(-(E + D) // S)
+        slots = ([(0, layer) for layer in module.encoder_layers] + [(1, layer) for layer in module.decoder_layers]
+                 + [(2, None)] * (S * per - (E + D)))
+        stages = [slots[s * per:(s + 1) * per] for s in range(S)]
+        B, Le = phone.shape
+        Sd = semantic_in.shape[1]
+        M = microbatches
+        if B % M != 0:
+            raise ValueError(f"loss_pp: batch {B} not divisible by microbatches {M}")
+        # the replicated embeddings (encode / decode_train without dropout)
+        enc_x = module.enc_emb_ln(module.phone_embed(phone) + module.tone_embed(tone)).to(module.dtype)
+        if module.has_spk and spk_id is not None:
+            enc_x = enc_x + module.spk_embed(spk_id)
+        dec_x = module.semantic_embed(semantic_in) + module.dec_type_embed(torch.zeros_like(semantic_in))
+        dec_x = module.dec_emb_ln(dec_x).to(module.dtype)
+        em = (encoder_attention_mask.bool() if encoder_attention_mask is not None
+              else torch.ones((B, Le), dtype=torch.bool, device=phone.device))
+        dm = (attention_mask.bool() if attention_mask is not None
+              else torch.ones((B, Sd), dtype=torch.bool, device=phone.device))
+
+        def stage_fn(stage, act):
+            eh, dh, em, dm = act
+            for kind, layer in stage:
+                if kind == 0:
+                    eh = layer(eh, self_mask=em[:, None, None, :])
+                elif kind == 1:
+                    dh = layer(dh, enc_states=eh, self_mask=dm[:, None, None, :], cross_mask=em[:, None, None, :],
+                               is_causal=True)
+            return eh, dh, em, dm
+
+        act = (enc_x.reshape(M, B // M, Le, -1), dec_x.reshape(M, B // M, Sd, -1),
+               em.reshape(M, B // M, Le), dm.reshape(M, B // M, Sd))
+        _, dec_h, _, _ = pipeline_apply(mesh, stage_fn, stages, act, remat=remat)
+        logits = module._lm_head(dec_h.reshape(B, Sd, -1))
+        return count_once(self._ce(logits, labels, denom, targets), mesh)
 
     @torch.no_grad()
     def generate(

@@ -18,22 +18,159 @@ the plain path only, when `dropout_rate > 0` and a `torch.Generator` is
 given: keep ~ Bernoulli(1 - p) over the probabilities (already in the input
 dtype), kept ones divided by (1 - p).  The K4 route refuses such a call (it
 takes the plain path) as the JAX function does; K5 has no dropout and
-raises.  Ring attention (sequence parallelism) is not ported (ROADMAP.md).
+raises.
+
+Sequence parallelism (`sequence_parallel(mesh)`, JAX's context): inside
+it each rank's tensors are its chunk of the sequence along the mesh's
+`seq` axis, token dimension 1, rank r holding tokens [r T / n, (r + 1) T /
+n).  A call qualifies for the ring (`ops/ring_attention.py`) by JAX's rule
+(`_ring_eligible`): no bias, no attention dropout, q and k chunks of one
+length (JAX's `Tq == Tk`; a global length is n times a chunk, so it divides
+by n), and at most a (B, 1, 1, Tk) key-padding mask; and it takes the ring
+only for `impl="xla"`, as JAX routes.  Every other call takes the path its
+`impl` names over the whole sequence, as JAX's global program does: the
+rank gathers every chunk of k and v (and of a key-padding mask or bias
+given over its keys) and runs its own rows of queries against them, a
+causal mask turned into an explicit one at its rows' global offsets (the
+JAX plain path's bottom-right alignment).  A bias or mask over every key
+is taken as this rank's rows of it.  Attention dropout inside the context
+raises: the ring has none, and the LM trainer refuses `parallel.seq > 1`
+with it as JAX's does.  `sequence_offset` gives a chunk's first global
+position (the models' rotary tables).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from latent_diffusion_speech_tpu_torch.ops import ring_attention as ring
 from latent_diffusion_speech_tpu_torch.ops.kernels.flash_attention import flash_attention
 from latent_diffusion_speech_tpu_torch.ops.kernels.fused_attention import fused_attention
 from latent_diffusion_speech_tpu_torch.parallel import mesh as rows
+from latent_diffusion_speech_tpu_torch.parallel.tensor import gather_summed
 
-__all__ = ["dot_product_attention", "dropout", "rotate_half", "apply_rotary", "MAX_FUSED_T"]
+__all__ = ["dot_product_attention", "dropout", "rotate_half", "apply_rotary", "MAX_FUSED_T",
+           "sequence_parallel", "sequence_offset", "current_sequence_parallel"]
 
 MAX_FUSED_T = 512  # the JAX package's cap on the single-block K4 route
+
+# the active sequence-parallel contexts, a stack of (mesh, axis)
+_seq_parallel: list = []
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh, axis: str = "seq"):
+    """Inside, tensors are this rank's chunks of a sequence split over
+    `axis` of `mesh` (a `parallel.mesh.Mesh`), and eligible self-attention
+    runs the ring (see the module's docstring)."""
+    _seq_parallel.append((mesh, axis))
+    try:
+        yield
+    finally:
+        _seq_parallel.pop()
+
+
+def current_sequence_parallel():
+    """A context manager factory that re-enters the sequence-parallel
+    contexts active now: a recompute in a backward (`remat`) runs after the
+    caller's contexts have closed, and must route as the forward did."""
+    saved = list(_seq_parallel)
+
+    @contextlib.contextmanager
+    def reenter():
+        outer = list(_seq_parallel)
+        _seq_parallel[:] = saved
+        try:
+            yield
+        finally:
+            _seq_parallel[:] = outer
+
+    return reenter
+
+
+@contextlib.contextmanager
+def _outside():
+    """The context suspended: a call on gathered tensors is a plain one."""
+    saved = list(_seq_parallel)
+    _seq_parallel.clear()
+    try:
+        yield
+    finally:
+        _seq_parallel.extend(saved)
+
+
+def _active():
+    """(mesh, axis, n) of the innermost context whose axis is above 1, or None."""
+    if not _seq_parallel:
+        return None
+    mesh, axis = _seq_parallel[-1]
+    n = mesh.axis_size(axis)
+    return (mesh, axis, n) if n > 1 else None
+
+
+def sequence_offset(t_local: int) -> int:
+    """The first global position of this rank's chunk of `t_local` tokens
+    (0 outside a sequence-parallel context)."""
+    active = _active()
+    return 0 if active is None else active[0].coordinate(active[1]) * t_local
+
+
+def _ring_eligible(q, k, bias, mask, dropout_rate, generator):
+    """(mesh, axis, kv_mask) when the call qualifies for the ring by JAX's
+    rule, else None."""
+    active = _active()
+    if active is None or bias is not None:
+        return None
+    if dropout_rate > 0.0 and generator is not None:
+        return None
+    if q.shape[1] != k.shape[1]:
+        return None
+    kv_mask = None
+    if mask is not None:
+        if mask.dim() != 4 or mask.shape[1] != 1 or mask.shape[2] != 1 or mask.shape[-1] != k.shape[1]:
+            return None
+        kv_mask = mask[:, 0, 0, :].bool()
+    return active[0], active[1], kv_mask
+
+
+def _over_keys(x: Optional[torch.Tensor], k_local: int, group) -> Optional[torch.Tensor]:
+    """A key-padding mask or bias (one row for every query) over this
+    rank's keys gathered over every chunk's; one over every key as it is."""
+    if x is None or x.shape[-1] != k_local:
+        return x
+    if x.dim() >= 2 and x.shape[-2] != 1:
+        raise ValueError("sequence parallelism: a mask or bias with rows of queries must cover every key "
+                         f"(got {x.shape[-1]} keys, this rank's chunk)")
+    if x.is_floating_point():
+        return gather_summed(x, group, -1)
+    sent = x.to(torch.uint8).contiguous()  # a bool mask travels as bytes
+    out = [torch.empty_like(sent) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, sent, group=group)
+    return torch.cat(out, dim=-1).to(x.dtype)
+
+
+def _whole_sequence(q, k, v, bias, mask, is_causal, scale, impl, dropping):
+    """A call that does not take the ring, inside the context: this rank's
+    rows of queries against every chunk's keys (see the module's docstring)."""
+    mesh, axis, n = _active()
+    if dropping:
+        raise ValueError("attention-probability dropout under sequence parallelism: ring attention has none "
+                         "(parallel.seq > 1 requires attention_probs_dropout_prob=0)")
+    group = mesh.axis_group((axis,))
+    k_local = k.shape[1]
+    k_all, v_all = gather_summed(k, group, 1), gather_summed(v, group, 1)
+    mask, bias = _over_keys(mask, k_local, group), _over_keys(bias, k_local, group)
+    if is_causal:
+        t_q, t_kv = q.shape[1] * n, k_all.shape[1]
+        rows_ = mesh.coordinate(axis) * q.shape[1] + torch.arange(q.shape[1], device=q.device)
+        causal = torch.arange(t_kv, device=q.device)[None, :] <= rows_[:, None] + (t_kv - t_q)
+        mask = causal if mask is None else mask.bool() & causal
+    with _outside():
+        return dot_product_attention(q, k_all, v_all, bias=bias, mask=mask, scale=scale, impl=impl)
 
 
 def dot_product_attention(
@@ -60,6 +197,12 @@ def dot_product_attention(
     are chunk `index` of `size` along `dim` (a rank's heads under tensor
     parallelism): the mask is drawn whole and cut (`dropout`)."""
     dropping = dropout_rate > 0.0 and generator is not None
+    if _active() is not None:
+        eligible = _ring_eligible(q, k, bias, mask, dropout_rate, generator)
+        if eligible is not None and impl == "xla":
+            mesh, axis, kv_mask = eligible
+            return ring.ring_attention(q, k, v, mesh, axis=axis, is_causal=is_causal, scale=scale, kv_mask=kv_mask)
+        return _whole_sequence(q, k, v, bias, mask, is_causal, scale, impl, dropping)
     if impl == "pallas":
         if dropping:
             raise ValueError("impl='pallas' (K5) has no attention dropout; use impl='xla'")

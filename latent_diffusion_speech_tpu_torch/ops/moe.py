@@ -27,16 +27,23 @@ index operation is a gather whose backward accumulates through PyTorch's
 
 Under data parallelism (`mesh`, set for a training forward by
 `data_parallel`) JAX's S is the global batch's tokens, so the capacity and
-each choice's slot are global: every rank gathers every rank's (choice,
-expert) counts (one all-gather a layer) and offsets its own slots by the
-choices that rank after rank, slot after slot, come before them; a choice
-is kept when its global slot is below the global capacity.  Kept choices
-are a prefix of the rank's own in slot-major order, so its bank holds them
-at their local positions.  The Switch loss takes f_e from the gathered
-counts and p_e over the global batch: each rank returns E sum_e f_e times
-its share of p_e scaled by the world, whose mean over the ranks (the
-gradient all-reduce's average) is the global loss and its gradient.  A
-per-rank capacity would drop other tokens: another model.
+each choice's slot are global.  Every rank gathers every rank's counts of
+choices by (slot, row, expert) over the ranks that hold tokens of the
+batch (the `data` axis, and `seq` under sequence parallelism: one
+all-gather a layer) and places each of its choices in JAX's global order,
+slot by slot, global row by global row, and within a row the `seq` chunks
+in order: a choice's global slot is the choices of the earlier slots, of
+the earlier rows in its slot, of the earlier chunks of its row, and its
+own row's earlier tokens; it is kept when that slot is below the global
+capacity.  Kept choices are a prefix of the rank's own in slot-major
+order, so its bank holds them at their local positions.  The Switch loss
+takes f_e from the gathered counts and p_e over the global batch: each
+rank returns E sum_e f_e times its share of p_e scaled by the data axis's
+size, whose mean over `data` (summed over `seq`, as the LM trainer reduces
+its shares) is the global loss and its gradient.  A per-rank capacity
+would drop other tokens: another model.  `stats` holds each call's
+(f_e, p_e share), (2, E): the pipelined Llama carries them out of its
+stages (JAX sows them for `loss_pp`).
 
 Expert parallelism (the banks split by `parallel/sharding.py`'s rules,
 JAX's `P("expert", None, "model")` and `P("expert", "model", None)`): the
@@ -64,7 +71,7 @@ from torch import nn
 from latent_diffusion_speech_tpu_torch.ops.layers import ComputeDtype
 from latent_diffusion_speech_tpu_torch.parallel.tensor import copy_to, reduce_from
 
-__all__ = ["MoEMLP", "top_k_lowest_index", "data_parallel"]
+__all__ = ["MoEMLP", "top_k_lowest_index", "data_parallel", "current_routing"]
 
 
 def top_k_lowest_index(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,6 +110,7 @@ class MoEMLP(ComputeDtype, nn.Module):
         self.w_up = nn.Parameter(torch.empty(E, C, F_))
         self.w_down = nn.Parameter(torch.empty(E, F_, C))
         self.drop_fraction = None
+        self.stats = None  # the last call's (f_e, p_e) rows, (2, E)
         self.mesh = None  # a data-parallel `parallel.mesh.Mesh` with a group, set by `data_parallel`
         self.split = {}  # bank name -> its spec, when split over `expert` / `model` (parallel/sharding.py)
         self._ep = None  # (process group over the banks' axes, this rank's first expert)
@@ -158,16 +166,21 @@ class MoEMLP(ComputeDtype, nn.Module):
             cap = self.capacity(S)
             keep = pos < cap
         else:
-            counts = onehot.view(k, S, E).sum(dim=1)  # (k, E): this rank's choices by slot and expert
-            everyone = self.mesh.all_gather(counts)  # (W, k, E)
-            total = everyone.sum(dim=0)
-            # choices before each of this rank's: the slots before its own on
-            # every rank, and its own slot on the ranks before it, less the
-            # rank's own earlier slots (which `pos` already counts)
-            base = (total.cumsum(0) - total) + everyone[:self.mesh.index].sum(0) - (counts.cumsum(0) - counts)
-            slot = torch.arange(k * S, device=x.device) // S
-            global_cap = self.capacity(S * self.mesh.size)
-            keep = pos + base[slot, expert] < global_cap
+            mesh = self.mesh
+            D, n, d, c = mesh.size, mesh.axis_size("seq"), mesh.index, mesh.coordinate("seq")
+            by_row = onehot.view(k, B, T, E)
+            counts = by_row.sum(dim=2)  # (k, B, E): this rank's choices by slot, row and expert
+            everyone = mesh.all_gather(counts, over=("data", "seq")).view(D, n, k, B, E)
+            total = everyone.sum(dim=(0, 1, 3))  # (k, E)
+            rows = everyone.sum(dim=1).permute(1, 0, 2, 3).reshape(k, D * B, E)  # by global row
+            # choices before each of this rank's (slot, row): the earlier
+            # slots, the earlier global rows of its slot, its row's earlier chunks
+            base = ((total.cumsum(0) - total)[:, None] + (rows.cumsum(1) - rows)[:, d * B:(d + 1) * B]
+                    + everyone[d, :c].sum(dim=0))
+            in_row = torch.gather(by_row.cumsum(dim=2).view(k * S, E), 1, expert[:, None])[:, 0] - 1
+            slot_row = torch.arange(k * S, device=x.device) // T  # slot * B + row
+            global_cap = self.capacity(S * D * n)
+            keep = base.view(k * B, E)[slot_row, expert] + in_row < global_cap
             cap = min(global_cap, k * S)
         # row of each choice in the (E, cap + 1) bank; a dropped choice points
         # at its expert's zero row (index cap)
@@ -203,10 +216,11 @@ class MoEMLP(ComputeDtype, nn.Module):
             p_e = probs.mean(dim=0)
             self.drop_fraction = 1.0 - keep.float().mean().detach()
         else:
-            S_all = S * self.mesh.size
+            S_all = S * D * n
             f_e = total[0].float() / S_all
-            p_e = probs.sum(dim=0) * (self.mesh.size / S_all)
+            p_e = probs.sum(dim=0) * (D / S_all)
             self.drop_fraction = 1.0 - total.sum(0).clamp_max(global_cap).sum().float() / (k * S_all)
+        self.stats = torch.stack([f_e, p_e])
         aux = E * torch.sum(f_e * p_e)
         return y.reshape(B, T, C), aux
 
@@ -214,8 +228,9 @@ class MoEMLP(ComputeDtype, nn.Module):
 @contextlib.contextmanager
 def data_parallel(module: nn.Module, mesh):
     """Route every `MoEMLP` of `module` over the global batch of `mesh` (a
-    `parallel.mesh.Mesh` with a group) for the block: a training forward
-    that every rank runs together.  Restored after."""
+    `parallel.mesh.Mesh` with a group; its `data` and `seq` axes hold the
+    batch's tokens) for the block: a training forward that every rank runs
+    together.  Restored after."""
     layers = [m for m in module.modules() if isinstance(m, MoEMLP)]
     for m in layers:
         m.mesh = mesh
@@ -224,3 +239,26 @@ def data_parallel(module: nn.Module, mesh):
     finally:
         for m in layers:
             m.mesh = None
+
+
+def current_routing(modules):
+    """A context manager factory that re-enters the meshes routing the
+    `MoEMLP`s of `modules` now (`data_parallel`), for a recompute in a
+    backward (`remat`) that runs after the caller's block has closed.
+    Inside, the layers route as the forward did; after, their meshes,
+    `stats` and `drop_fraction` are as the forward left them."""
+    layers = [m for module in modules for m in module.modules() if isinstance(m, MoEMLP)]
+    meshes = [m.mesh for m in layers]
+
+    @contextlib.contextmanager
+    def reenter():
+        kept = [(m.mesh, m.stats, m.drop_fraction) for m in layers]
+        for m, mesh in zip(layers, meshes):
+            m.mesh = mesh
+        try:
+            yield
+        finally:
+            for m, (mesh, stats, drop) in zip(layers, kept):
+                m.mesh, m.stats, m.drop_fraction = mesh, stats, drop
+
+    return reenter

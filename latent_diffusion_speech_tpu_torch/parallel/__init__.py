@@ -1,5 +1,6 @@
-"""Data, tensor and expert parallelism on `torch.distributed`: the process
-group, the mesh over it, the batch's rows and the parameters' chunks.
+"""Data, sequence, tensor, pipeline and expert parallelism on
+`torch.distributed`: the process group, the mesh over it, the batch's rows,
+the parameters' chunks and the pipeline's stages.
 
 Counterpart of `latent_diffusion_speech_tpu/parallel/`.  The reference's
 only parallelism is DDP through HF accelerate; the JAX package lays it out
@@ -15,8 +16,11 @@ EMA statistics).  Tensor and expert parallelism split the parameters by
 the JAX package's rules over the mesh's `model` and `expert` axes
 (`sharding.py`), each rank running its chunks' partitioned products
 (`tensor.py`); such a state is saved one file a rank
-(`train/sharded_checkpoint.py`).  Sequence and pipeline parallelism are
-not ported (ROADMAP.md Queue 1, item 10).
+(`train/sharded_checkpoint.py`).  Sequence parallelism splits the tokens
+over `seq`, self-attention running the ring (`ops/ring_attention.py`);
+pipeline parallelism runs the layer stack as GPipe stages over `pipe`
+(`pipeline.py`); `dcn_data` stacks slices of processes on `data`.  Each
+runs on P2P and collectives between the processes of the axes' groups.
 """
 
 from latent_diffusion_speech_tpu_torch.parallel.dist import (  # noqa: F401
@@ -34,4 +38,8 @@ from latent_diffusion_speech_tpu_torch.parallel.mesh import (  # noqa: F401
     RowGenerator,
     build_mesh,
     shard_batch,
+)
+from latent_diffusion_speech_tpu_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_apply,
+    stack_stage_params,
 )

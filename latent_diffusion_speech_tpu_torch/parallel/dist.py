@@ -13,7 +13,8 @@ coordinator.
 
 `host_group()` is a gloo group over the same processes for host-side
 metadata (batch shapes, token counts): it exchanges Python integers without
-waiting for the device.
+waiting for the device.  `exchange` is one step of point-to-point traffic
+(the ring's and the pipeline's): a send and a receive posted together.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ __all__ = [
     "rank_device",
     "host_group",
     "shutdown_distributed",
+    "exchange",
 ]
 
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -111,3 +113,20 @@ def shutdown_distributed() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _host_group = None
+
+
+def exchange(send, to: Optional[int], recv, frm: Optional[int], group) -> list:
+    """Send the tensors of `send` to global rank `to` and receive tensors
+    shaped as `recv`'s (shape, dtype, device) from `frm`, every operation
+    posted together (`batch_isend_irecv`), and wait; either side may be
+    empty.  A bool tensor travels as bytes.  Returns the received ones."""
+    recv = list(recv or ())
+    got = [torch.empty(shape, dtype=torch.uint8 if dtype == torch.bool else dtype, device=device)
+           for shape, dtype, device in recv]
+    ops = [dist.P2POp(dist.isend, t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous(), to, group)
+           for t in send or ()]
+    ops += [dist.P2POp(dist.irecv, g, frm, group) for g in got]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [g.bool() if dtype == torch.bool else g for g, (_, dtype, _) in zip(got, recv)]

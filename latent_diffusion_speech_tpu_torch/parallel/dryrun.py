@@ -4,20 +4,28 @@ The port's counterpart of `__graft_entry__.dryrun_multichip`, which runs one
 real train step of the diffusion trainer and of the LM trainer in each of
 its mesh layouts on virtual CPU devices.  Here `dryrun_multichip(n)` starts
 n CPU processes in a gloo group (`torch.multiprocessing`, spawned) and, on
-tiny shapes, runs one step in each layout that fits n ranks:
+tiny shapes, runs one step in each of JAX's nine layouts that fits n ranks:
 * `data-parallel`: the diffusion trainer, the RoFormer and the Llama, dense
   and with experts, each rank on its rows of one global batch;
 * `dp-tp` (JAX's diffusion layout, data=n/2, model=2): the diffusion
   trainer, the RoFormer and the dense Llama with their products split;
+* `seq-parallel` (data=n/2, seq=2): the RoFormer, its self-attention
+  through the ring;
+* `pipeline` (data=n/4, pipe=4): the Llama, four blocks over four stages;
+* `roformer-pipeline` (data=n/4, pipe=4): the RoFormer's two encoder and
+  two decoder layers, a slot a stage;
 * `expert-parallel` (JAX's Llama layout, data=n/4, expert=4): the Llama
   with 4 experts, one a rank;
 * `tp-ep` (data=n/4, model=2, expert=2): the Llama with experts, its banks
-  over both axes.
+  over both axes;
+* `dp-tp-pp` (data=n/4, model=2, pipe=2): the Llama, four blocks, split
+  inside each stage;
+* `pp-ep` (data=n/4, pipe=2, expert=2): the Llama with 2 experts inside
+  the stages, the routing statistics riding the activation.
 Rank 0 prints each loss, and every loss must be finite and the same on
-every rank.  JAX's sequence and pipeline layouts and their compositions
-raise NotImplementedError naming ROADMAP.md Queue 1, item 10.
+every rank.
 
-    python -m latent_diffusion_speech_tpu_torch.parallel.dryrun 4
+    python -m latent_diffusion_speech_tpu_torch.parallel.dryrun 8
 """
 
 from __future__ import annotations
@@ -31,17 +39,22 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["dryrun_multichip", "LAYOUTS", "NOT_PORTED"]
+__all__ = ["dryrun_multichip", "LAYOUTS"]
 
-# layout: (its axes but data, the cases it runs)
+# layout: (its axes but data, its cases: (name, model type, layers, experts))
 _LAYOUTS = {
-    "data-parallel": ({}, ("diffusion", "roformer", "llama", "llama-moe")),
-    "dp-tp": ({"model": 2}, ("diffusion", "roformer", "llama")),
-    "expert-parallel": ({"expert": 4}, ("llama-moe",)),
-    "tp-ep": ({"model": 2, "expert": 2}, ("llama-moe",)),
+    "data-parallel": ({}, (("diffusion", "", 0, 0), ("roformer", "roformer", 2, 0), ("llama", "llama", 2, 0),
+                           ("llama-moe", "llama", 2, 4))),
+    "dp-tp": ({"model": 2}, (("diffusion", "", 0, 0), ("roformer", "roformer", 2, 0), ("llama", "llama", 2, 0))),
+    "seq-parallel": ({"seq": 2}, (("roformer", "roformer", 2, 0),)),
+    "pipeline": ({"pipe": 4}, (("llama", "llama", 4, 0),)),
+    "roformer-pipeline": ({"pipe": 4}, (("roformer", "roformer", 2, 0),)),
+    "expert-parallel": ({"expert": 4}, (("llama-moe", "llama", 2, 4),)),
+    "tp-ep": ({"model": 2, "expert": 2}, (("llama-moe", "llama", 2, 4),)),
+    "dp-tp-pp": ({"model": 2, "pipe": 2}, (("llama", "llama", 4, 0),)),
+    "pp-ep": ({"pipe": 2, "expert": 2}, (("llama-moe", "llama", 2, 2),)),
 }
 LAYOUTS = tuple(_LAYOUTS)
-NOT_PORTED = ("seq-parallel", "pipeline", "roformer-pipeline", "dp-tp-pp", "pp-ep")
 
 
 def _free_port() -> int:
@@ -50,9 +63,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _lm_step(name, lm_type, expdir, rng, axes, moe_experts=0):
-    import torch
-
+def _lm_step(name, lm_type, expdir, rng, axes, layers, moe_experts=0):
     from latent_diffusion_speech_tpu_torch.config import Config
     from latent_diffusion_speech_tpu_torch.parallel.mesh import shard_batch
     from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
@@ -62,7 +73,7 @@ def _lm_step(name, lm_type, expdir, rng, axes, moe_experts=0):
     m.type, m.semantic_kmeans_num = lm_type, 16
     for stack in (m.encoder, m.decoder):
         stack.hidden_size, stack.num_attention_heads, stack.intermediate_size = 32, 2, 48
-        stack.num_hidden_layers = 2
+        stack.num_hidden_layers = layers
         stack.hidden_dropout_prob = stack.attention_probs_dropout_prob = 0.0
     if moe_experts:
         m.moe_experts, m.moe_capacity_factor = moe_experts, 4.0
@@ -70,7 +81,7 @@ def _lm_step(name, lm_type, expdir, rng, axes, moe_experts=0):
     for k, v in axes.items():
         setattr(cfg.parallel, k, v)
     trainer = LMTrainer(cfg, device="cpu")
-    B, L = max(4 * trainer.mesh.size, 8), 16
+    B, L = max(cfg.parallel.pipe_microbatches * trainer.mesh.size, 8), 16
     if lm_type == "llama":
         ids = rng.integers(0, trainer.lm_cfg.vocab_size, (B, L)).astype(np.int32)
         batch = {"input_ids": ids, "labels": ids.copy(), "attention_mask": np.ones_like(ids)}
@@ -107,7 +118,7 @@ def _rank(index: int, n: int, port: int, expdir: str, layouts: Sequence[str]) ->
     for layout in layouts:
         axes, cases = _LAYOUTS[layout]
         label = "" if layout == "data-parallel" else f"{layout}/"
-        for name in cases:
+        for name, lm_type, layers, experts in cases:
             if name == "diffusion":
                 cfg = Config()
                 cfg.diffusion.train.expdir = f"{expdir}/{layout}/diffusion"
@@ -124,9 +135,8 @@ def _rank(index: int, n: int, port: int, expdir: str, layouts: Sequence[str]) ->
                                           step_generator(0, 0, "cpu"))["loss"]
                 results.append((label + name, loss, dict(trainer.mesh.shape)))
             else:
-                lm_type = "roformer" if name == "roformer" else "llama"
-                experts = 4 if name == "llama-moe" else 0
-                results.append(_lm_step(label + name, lm_type, f"{expdir}/{layout}/{name}", rng, axes, experts))
+                results.append(_lm_step(label + name, lm_type, f"{expdir}/{layout}/{name}", rng, axes, layers,
+                                        experts))
     losses = torch.stack([r[1] for r in results])
     everyone = [torch.empty_like(losses) for _ in range(n)]
     torch.distributed.all_gather(everyone, losses)
@@ -148,13 +158,11 @@ def fits(layout: str, n_devices: int) -> bool:
 
 def dryrun_multichip(n_devices: int, layouts: Optional[Sequence[str]] = None) -> None:
     """One step of each trainer in each of `layouts` (default: every
-    ported layout that fits `n_devices`) on `n_devices` CPU ranks over
-    gloo; raises NotImplementedError for a layout that is not ported and
-    ValueError for one that does not fit."""
+    layout that fits `n_devices`) on `n_devices` CPU ranks over gloo;
+    raises ValueError for a layout that is unknown or does not fit."""
     for layout in layouts or ():
         if layout not in LAYOUTS:
-            raise NotImplementedError(f"dryrun layout {layout!r}: data, tensor and expert parallelism are ported; "
-                                      "sequence and pipeline parallelism are not (ROADMAP.md Queue 1, item 10)")
+            raise ValueError(f"unknown dryrun layout {layout!r}; the layouts are {LAYOUTS}")
         if not fits(layout, n_devices):
             raise ValueError(f"dryrun layout {layout!r} does not fit {n_devices} devices")
     layouts = tuple(layouts) if layouts else tuple(lay for lay in LAYOUTS if fits(lay, n_devices))
@@ -166,4 +174,4 @@ def dryrun_multichip(n_devices: int, layouts: Optional[Sequence[str]] = None) ->
 
 
 if __name__ == "__main__":
-    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 4)
+    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 8)

@@ -8,8 +8,13 @@ striding), and the global batch is the ranks' local batches stitched in
 rank order.  JAX stitches them into one global array
 (`jax.make_array_from_process_local_data`), which requires every process's
 local batch to have the same shape; here the rank keeps its rows as they
-are, and `global_shard_batch` makes the same check with the same error.
-Parameters are replicated, so `gather_to_host` is a local copy.
+are, and `global_shard_batch` makes the same check with the same error
+over the data axis's ranks.  The ranks that differ only along `seq`,
+`model`, `pipe` or `expert` read their data coordinate's rows (JAX's second
+layout, where those axes span processes and each loads the same batch):
+the LM trainer cuts a token chunk (`seq`) or a microbatch's rows (`pipe`)
+from them itself.  Parameters are replicated, so `gather_to_host` is a
+local copy.
 """
 
 from __future__ import annotations

@@ -14,7 +14,11 @@ collectives below, every one of them differentiable:
   (row-parallel);
 * `gather_from`: the concatenation of the ranks' chunks along a dimension,
   whose backward keeps this rank's chunk of the gradient;
-* `scatter_to`: this rank's chunk along a dimension, whose backward gathers.
+* `scatter_to`: this rank's chunk along a dimension, whose backward gathers;
+* `gather_summed`: the concatenation of the ranks' chunks, whose backward
+  sums the gradient over the group and keeps this rank's chunk: for a
+  whole that each rank uses differently (its own rows of queries against
+  every key, under sequence parallelism).
 
 `Split` is what a product layer (`ops/layers.py::Dense`, the UNet's
 `Conv1dSame` and `GegluFF`) knows of its split weight, and `Split.linear`
@@ -46,7 +50,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["Split", "copy_to", "reduce_from", "gather_from", "scatter_to", "chunk_of"]
+__all__ = ["Split", "copy_to", "reduce_from", "gather_from", "gather_summed", "scatter_to", "chunk_of"]
 
 
 def _all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -98,6 +102,20 @@ class _GatherFrom(torch.autograd.Function):
             None, None
 
 
+class _GatherSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return chunk_of(grad, ctx.dim, dist.get_rank(ctx.group), dist.get_world_size(ctx.group)).contiguous(), \
+            None, None
+
+
 class _ScatterTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -119,6 +137,10 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_from(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     return _GatherFrom.apply(x, group, dim % x.dim())
+
+
+def gather_summed(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    return _GatherSummed.apply(x, group, dim % x.dim())
 
 
 def scatter_to(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:

@@ -65,8 +65,10 @@ axis only, the clipping norm is the global parameters' (`train/optim.py`)
 and AdamW and the EMA act on the chunks.  `save` then writes a sharded
 checkpoint, every rank its chunks (`train/sharded_checkpoint.py`), and
 `resume` reads either format onto this trainer's layout.  The `seq` and
-`pipe` axes raise when the trainer is built (`train/devices.py`; ROADMAP.md
-Queue 1, item 10).
+`pipe` axes replicate the UNet, as JAX's trainer does (its batch is split
+over `data` only, `diffusion_trainer.py:52,191`): the ranks that differ only
+in `seq` or `pipe` read the same rows, draw the same numbers and take the
+same step, as a model group's do, and `dcn_data` is more of the data axis.
 """
 
 from __future__ import annotations
@@ -102,7 +104,7 @@ from latent_diffusion_speech_tpu_torch.train.sharded_checkpoint import (
     sharded_checkpoint_dir,
     tree_needs_sharded_save,
 )
-from latent_diffusion_speech_tpu_torch.train.devices import check_one_device
+from latent_diffusion_speech_tpu_torch.train.devices import check_parallel_fits
 from latent_diffusion_speech_tpu_torch.train.optim import AdamWUpdates, global_norm, step_generator
 from latent_diffusion_speech_tpu_torch.train.signals import GracefulShutdown
 from latent_diffusion_speech_tpu_torch.utils.flops import FlopsByShape, step_mfu
@@ -137,7 +139,7 @@ class DiffusionTrainer(AdamWUpdates):
         (default: `build_mesh(cfg.parallel)` over the process group, a
         world of one without one)."""
         if mesh is None:
-            check_one_device(cfg, "diffusion")
+            check_parallel_fits(cfg)
         self.mesh = mesh if mesh is not None else build_mesh(cfg.parallel)
         self.cfg = cfg
         tcfg = cfg.diffusion.train

@@ -61,8 +61,31 @@ the chunks; `save` writes a sharded checkpoint (`train/sharded_checkpoint.py`)
 and `resume` reads either format onto this trainer's layout.  Under such a
 mesh `evaluate` is a collective that every rank of the loop runs (rank 0
 logs), and `validate_audio` gathers the whole weights on every rank before
-rank 0 synthesizes.  The `seq` and `pipe` axes raise (ROADMAP.md Queue 1,
-item 10).
+rank 0 synthesizes.
+
+Sequence parallelism (`seq` above 1, JAX's `_with_seq_parallel`): the
+token dimension of every batch tensor the axis divides is cut to this
+rank's chunk (JAX lays it out over `seq`), the next-token targets shifted
+over the whole sequence first, so a chunk's last position scores the next
+chunk's first label; the loss runs inside `ops/attention.py::
+sequence_parallel` (self-attention through the ring, rotary at global
+positions), the hidden dropout is drawn for the whole sequence and cut
+(`RowGenerator(tokens=True)`), the MoE routes over the global token order,
+and the valid-target count is summed over `data` and `seq`.  JAX's checks:
+attention-probability dropout raises (the ring has none), and so does a
+token length the axis does not divide.
+
+Pipeline parallelism (`pipe` above 1): the systems' `loss_pp` with
+`pipe_microbatches` microbatches; JAX reshapes the global batch into
+microbatches and splits each microbatch's rows over `data`, so under
+`data` too each rank gathers the data axis's rows and keeps its rows of
+each microbatch (which tokens an overflowing expert drops depends on it).
+The RoFormer's pipeline is deterministic: dropout raises, as in JAX.
+Every rank of a pipe group holds the whole model (JAX's parameter rules
+name no `pipe` axis, so checkpoints are unchanged) and backpropagates its
+stage; the gradients (and the losses, each counted once) are summed over
+`seq` and `pipe` and averaged over `data` (`train/optim.py`), after which
+every rank takes the same update.
 """
 
 from __future__ import annotations
@@ -79,6 +102,7 @@ from latent_diffusion_speech_tpu_torch.config import Config
 from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaSystem
 from latent_diffusion_speech_tpu_torch.models.lm.registry import llama_config_from, roformer_config_from
 from latent_diffusion_speech_tpu_torch.models.lm.roformer import RoformerSystem
+from latent_diffusion_speech_tpu_torch.ops.attention import sequence_parallel
 from latent_diffusion_speech_tpu_torch.ops.layers import no_tf32, set_compute_dtype
 from latent_diffusion_speech_tpu_torch.ops.moe import data_parallel
 from latent_diffusion_speech_tpu_torch.parallel.dist import is_main_process, sync_global_devices
@@ -92,7 +116,7 @@ from latent_diffusion_speech_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from latent_diffusion_speech_tpu_torch.train.debug import check_step, install
-from latent_diffusion_speech_tpu_torch.train.devices import check_one_device
+from latent_diffusion_speech_tpu_torch.train.devices import check_parallel_fits
 from latent_diffusion_speech_tpu_torch.train.sharded_checkpoint import (
     load_checkpoint_sharded,
     save_checkpoint_sharded,
@@ -149,7 +173,7 @@ class LMTrainer(AdamWUpdates):
         `build_mesh(cfg.parallel)` over the process group, a world of one
         without one)."""
         if mesh is None:
-            check_one_device(cfg, "LM")
+            check_parallel_fits(cfg)
         self.mesh = mesh if mesh is not None else build_mesh(cfg.parallel)
         self.cfg = cfg
         tcfg = cfg.text2semantic.train
@@ -160,6 +184,7 @@ class LMTrainer(AdamWUpdates):
             self.lm_cfg, system = lm_cfg or roformer_config_from(cfg), RoformerSystem
         else:
             raise ValueError(f"unknown text2semantic model type: {self.lm_type!r}")
+        self._check_parallel()
         no_tf32()  # f32 as the JAX entry point trains
         if self.lm_type == "llama":  # the Llama splits itself on the mesh, as JAX's takes it
             self.system = LlamaSystem(self.lm_cfg, device=device, seed=tcfg.seed, codebook=codebook, training=True,
@@ -183,6 +208,29 @@ class LMTrainer(AdamWUpdates):
     def _train_cfg(self):
         return self.cfg.text2semantic.train
 
+    def _check_parallel(self) -> None:
+        """JAX's refusals of `seq` and `pipe`, and the gradient reduction
+        they need (`train/optim.py`'s `_share_axes`)."""
+        spec = self.mesh.spec
+        if spec.seq > 1 and self.lm_type == "roformer" and max(
+                self.lm_cfg.encoder.attention_probs_dropout_prob,
+                self.lm_cfg.decoder.attention_probs_dropout_prob) > 0:
+            raise ValueError(
+                "parallel.seq > 1 requires attention_probs_dropout_prob=0 "
+                "(ring attention does not implement attention-prob "
+                "dropout; hidden dropout still applies)"
+            )
+        if spec.pipe > 1 and self.lm_type == "roformer" and max(
+                self.lm_cfg.encoder.hidden_dropout_prob, self.lm_cfg.encoder.attention_probs_dropout_prob,
+                self.lm_cfg.decoder.hidden_dropout_prob, self.lm_cfg.decoder.attention_probs_dropout_prob) > 0:
+            raise ValueError(
+                "parallel.pipe > 1 with the roformer requires dropout off "
+                "(hidden_dropout_prob=attention_probs_dropout_prob=0): "
+                "the pipeline path is deterministic"
+            )
+        if spec.seq > 1 or spec.pipe > 1:
+            self._share_axes = ("data", "seq", "pipe")
+
     # -- one step --------------------------------------------------------------
 
     def device_put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -205,6 +253,8 @@ class LMTrainer(AdamWUpdates):
             if not torch.isfinite(loss).item():
                 raise RuntimeError(f"NaN/Inf LM loss at step {self.step}")
 
+        if self.mesh.spec.pipe > 1:
+            loss /= self.mesh.spec.pipe  # every stage holds the loss: summed over `pipe`, counted once
         gnorm = self.apply_update(reduce=[loss], guard=guard if self.step % self.nan_check_interval == 0 else None)
         self.step += 1
         return {"loss": loss, "grad_norm": gnorm}
@@ -213,14 +263,87 @@ class LMTrainer(AdamWUpdates):
         """The training loss of one device batch (differentiable); under a
         mesh this rank's share of the global batch's loss: the ranks' mean
         is the global loss, and the mean of their gradients its gradient."""
-        if self.mesh.group is None:
+        mesh = self.mesh
+        spec = mesh.spec
+        if spec.seq > 1:
+            self._check_tokens(batch)
+        if mesh.group is None:
             return self.system.loss(batch, generator)
-        global_shard_batch(self.mesh, batch)
-        count = (batch["labels"][:, 1:] != -100).sum().float()
-        self.mesh.all_reduce_sum_([count])
-        with data_parallel(self.system.module, self.mesh):
-            return self.system.loss(batch, RowGenerator(generator, self.mesh),
-                                    denom=count.clamp_min(1.0) / self.mesh.size)
+        global_shard_batch(mesh, batch)
+        if spec.pipe > 1 and spec.data > 1:
+            batch = self._microbatch_rows(batch)
+        if spec.seq > 1:
+            batch = self._token_chunk(batch)
+            count = (batch["targets"] != -100).sum().float()
+        else:
+            count = (batch["labels"][:, 1:] != -100).sum().float()
+        mesh.all_reduce_sum_([count], over=("data", "seq"))
+        denom = count.clamp_min(1.0) / mesh.size
+        with data_parallel(self.system.module, mesh), \
+                (sequence_parallel(mesh) if spec.seq > 1 else contextlib.nullcontext()):
+            if spec.pipe > 1:
+                return self._loss_pp(batch, denom)
+            return self.system.loss(batch, RowGenerator(generator, mesh, tokens=True), denom=denom)
+
+    def _loss_pp(self, batch: Dict[str, torch.Tensor], denom: torch.Tensor) -> torch.Tensor:
+        mesh, M = self.mesh, self.cfg.parallel.pipe_microbatches
+        kw = dict(microbatches=M, denom=denom, targets=batch.get("targets"))
+        if self.lm_type == "llama":
+            return self.system.loss_pp(batch["input_ids"], batch["labels"], mesh,
+                                       attention_mask=batch.get("attention_mask"), **kw)
+        return self.system.loss_pp(batch["phone"], batch["tone"], batch["semantic"], batch["labels"], mesh,
+                                   spk_id=batch.get("spk_id"), encoder_attention_mask=batch.get("encoder_attention_mask"),
+                                   attention_mask=batch.get("attention_mask"), **kw)
+
+    def _check_tokens(self, batch: Dict[str, torch.Tensor]) -> None:
+        """JAX's check: the token dimensions the ring splits divide by `seq`."""
+        n = self.mesh.spec.seq
+        for key in ("phone", "semantic", "input_ids"):
+            if key in batch and batch[key].shape[1] % n != 0:
+                raise ValueError(
+                    f"seq-parallel: batch dim {key}={batch[key].shape[1]} "
+                    f"not divisible by seq={n}; set the collate "
+                    f"pad_multiple to a multiple of parallel.seq"
+                )
+
+    def _token_chunk(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's chunk of every tensor's token dimension (dimension 1,
+        where the `seq` axis divides it, as JAX lays the batch out), and
+        `targets`: the labels shifted over the whole sequence, then cut."""
+        n, c = self.mesh.spec.seq, self.mesh.coordinate("seq")
+        labels = batch["labels"]
+        targets = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -100)], dim=1)
+
+        def cut(x):
+            if x.dim() >= 2 and x.shape[1] % n == 0:
+                t = x.shape[1] // n
+                return x[:, c * t:(c + 1) * t]
+            return x
+
+        out = {k: cut(v) for k, v in batch.items()}
+        out["targets"] = cut(targets)
+        return out
+
+    def _microbatch_rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's rows of each of the global batch's microbatches (JAX
+        splits microbatch m, global rows [m B / M, (m + 1) B / M), over
+        `data`): the data axis's rows gathered, then rows
+        [m B / M + d B / (M D), ...) of each m for data coordinate d."""
+        mesh, M = self.mesh, self.cfg.parallel.pipe_microbatches
+        D = mesh.size
+        out = {}
+        for k, v in batch.items():
+            if v.dim() == 0:
+                out[k] = v
+                continue
+            whole = mesh.all_gather(v).reshape(-1, *v.shape[1:])
+            B = whole.shape[0]
+            if B % M != 0:
+                raise ValueError(f"loss_pp: batch {B} not divisible by microbatches {M}")
+            if (B // M) % D != 0:
+                raise ValueError(f"loss_pp: microbatches of {B // M} rows not divisible by data={D}")
+            out[k] = whole.view(M, D, B // (M * D), *v.shape[1:])[:, mesh.index].reshape(-1, *v.shape[1:])
+        return out
 
     @torch.no_grad()
     def evaluate(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:

@@ -29,7 +29,14 @@ micro-step is its local gradients'.  The average runs over the data axis's
 group only; with parameters split over `model` or `expert` (`_param_axes`,
 set by the trainer) the norm that clips is the global tensors'
 (`global_norm`), so every rank clips by the same factor, and AdamW, the
-weight decay and the EMA act on each rank's chunks.
+weight decay and the EMA act on each rank's chunks.  Under sequence or
+pipeline parallelism (`_share_axes`, set by the LM trainer) each rank's
+gradients are its share of its data coordinate's (its token chunk's, its
+stage's), so they are summed over `seq` and `pipe` in the same all-reduce
+that averages them over `data`; every rank of the group then holds the
+whole gradient of every parameter it holds, and the norm, taken after that
+reduction, counts each leaf once.  A micro-step's returned norm (with
+accumulation) is then of the rank's share.
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ class AdamWUpdates:
 
     mesh = None  # a `parallel.mesh.Mesh` whose ranks average their gradients (None: one process)
     _param_axes = None  # the mesh axes each of `_params` is split over (None: every parameter whole)
+    _share_axes = ("data",)  # averaged over `data`, summed over the others (the ranks' shares of one loss)
 
     def _train_cfg(self):
         raise NotImplementedError
@@ -166,7 +174,7 @@ class AdamWUpdates:
 
     def _average(self, tensors) -> None:
         if self.mesh is not None:
-            self.mesh.all_reduce_mean_(tensors)
+            self.mesh.all_reduce_mean_(tensors, over=self._share_axes)
 
     def apply_update(self, reduce: Sequence[torch.Tensor] = (),
                      guard: Optional[Callable[[], None]] = None) -> torch.Tensor:

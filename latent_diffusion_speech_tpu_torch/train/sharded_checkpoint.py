@@ -8,7 +8,8 @@ package:
 
 * **save**: every rank writes ONE `shard_p<k>.pt` holding exactly the
   chunks it owns: for each distinct chunk of a leaf, the lowest rank that
-  holds it, so a chunk replicated over the data axis is written once.  Rank
+  holds it, so a chunk replicated over the data, seq or pipe axes (JAX's
+  rules name neither of the last two) is written once.  Rank
   0 writes `index.json`, mapping every leaf of every tree (`params`,
   `opt_state`, `ema`) to its chunks, each with its global index ranges,
   plus `meta`.  A rank holds its own chunks only.

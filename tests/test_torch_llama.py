@@ -198,8 +198,15 @@ def test_seeded_weights_draw_flax_initialisers():
 
 
 def test_loss_pp_raises_naming_parallelism():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        LlamaSystem(LlamaConfig(**GEOM), device="cpu").loss_pp()
+    """`loss_pp` runs: at a world of one (no pipe axis) its microbatches go
+    through every block in turn, the value of `loss` (the multi-rank cases:
+    tests/test_torch_pipeline_parallel.py)."""
+    lm = LlamaSystem(LlamaConfig(**GEOM), device="cpu")
+    ids = torch.as_tensor(np.random.default_rng(0).integers(0, lm.cfg.vocab_size, (4, 12)))
+    with torch.no_grad():
+        want = lm.loss({"input_ids": ids, "labels": ids})
+        got = lm.loss_pp(ids, ids, None, microbatches=2)
+    np.testing.assert_allclose(got.item(), want.item(), rtol=2e-5)
 
 
 # -- MoEMLP routing (tests/test_moe.py::TestRouting) ------------------------------------

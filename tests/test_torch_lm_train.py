@@ -363,15 +363,15 @@ def test_interrupted_lm_run_matches_uninterrupted(tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    """The seq and pipe axes raise NotImplementedError; the data and expert
-    axes are served (tests/test_torch_parallel.py,
-    tests/test_torch_expert_parallel.py), so a data or expert axis of 2 on a
-    world of one process raises JAX's ValueError (the axes do not fit)."""
-    for field, value, match in (("seq", 2, "parallel"), ("pipe", 2, "parallel")):
+    """Every axis is served (tests/test_torch_parallel.py,
+    tests/test_torch_expert_parallel.py, tests/test_torch_ring_attention.py,
+    tests/test_torch_pipeline_parallel.py), so a seq, pipe, expert or data
+    axis of 2 on a world of one process raises JAX's ValueError (the axes
+    do not fit)."""
+    for field in ("seq", "pipe"):
         cfg = _lm_config(tmp_path)
-        target = {"type": cfg.text2semantic.model}
-        setattr(target.get(field, cfg.parallel), field, value)
-        with pytest.raises(NotImplementedError, match=match):
+        setattr(cfg.parallel, field, 2)
+        with pytest.raises(ValueError, match=rf"mesh: 1 devices not divisible by .*{field}\(2\)"):
             LMTrainer(cfg, device="cpu")
     cfg = _lm_config(tmp_path)
     cfg.parallel.expert = 2

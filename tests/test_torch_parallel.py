@@ -53,7 +53,7 @@ from latent_diffusion_speech_tpu_torch.convert import llama_from_jax
 from latent_diffusion_speech_tpu_torch.parallel import dryrun
 from latent_diffusion_speech_tpu_torch.parallel.mesh import Mesh, MeshSpec, RowGenerator, _resolve_spec, randn
 from latent_diffusion_speech_tpu_torch.parallel.mesh import shard_batch
-from latent_diffusion_speech_tpu_torch.train.devices import check_one_device
+from latent_diffusion_speech_tpu_torch.train.devices import check_parallel_fits
 from latent_diffusion_speech_tpu_torch.train.optim import step_generator
 from tests import _torch_mp_worker as W
 
@@ -300,29 +300,34 @@ def test_resolve_spec_matches_jax(kw, n):
 
 @pytest.mark.parametrize("axis", ["model", "seq", "pipe", "expert", "dcn_data"])
 def test_other_axes_still_raise_naming_item_10(axis, monkeypatch, tmp_path):
-    """`seq`, `pipe` and `dcn_data` still raise naming item 10; `model`
-    and `expert` pass the check on a world of two, and the LM trainer
-    builds on that mesh (a rank's view: coordinate 0, no process group),
-    splitting the RoFormer over `model` and the Llama's banks over
-    `expert`."""
+    """Every axis passes the check on a world of two, and the LM trainer
+    builds on that mesh (a rank's view: coordinate 0, no process group):
+    the RoFormer split over `model`, the Llama's banks over `expert`, the
+    Llama at `seq`, `pipe` and `dcn_data` (two slices stacked on `data`);
+    the RoFormer with its shipped attention dropout raises JAX's ValueError
+    at `seq`, and with any dropout at `pipe`."""
     cfg = Config()
     setattr(cfg.parallel, axis, 2)
-    if axis not in ("model", "expert"):
-        with pytest.raises(NotImplementedError, match=f"'{axis}': 2.*item 10"):
-            check_one_device(cfg, "LM")
-        return
     from latent_diffusion_speech_tpu_torch.models.lm.llama import LlamaConfig
+    from latent_diffusion_speech_tpu_torch.parallel.mesh import resolve
     from latent_diffusion_speech_tpu_torch.train import devices
     from latent_diffusion_speech_tpu_torch.train.lm_trainer import LMTrainer
 
     monkeypatch.setattr(devices, "process_count", lambda: 2)
-    check_one_device(cfg, "LM")
-    mesh = Mesh(_resolve_spec(cfg.parallel, 2))
+    check_parallel_fits(cfg)
+    mesh = Mesh(resolve(cfg.parallel, 2))
+    assert mesh.shape["data" if axis == "dcn_data" else axis] == 2
+    if axis in ("seq", "pipe"):
+        match = "attention_probs_dropout" if axis == "seq" else "requires dropout off"
+        with pytest.raises(ValueError, match=match):
+            LMTrainer(W.lm_config(tmp_path, "roformer"), lm_cfg=W.ROFORMER, device="cpu", mesh=mesh)
     lm_type = "roformer" if axis == "model" else "llama"
     lm_cfg = W.ROFORMER if axis == "model" else LlamaConfig(**W.LLAMA_MOE)
     trainer = LMTrainer(W.lm_config(tmp_path, lm_type), lm_cfg=lm_cfg, device="cpu", mesh=mesh)
     split = {n for n, s in trainer.shardings.items() if any(s)}
-    assert split and all((".moe.w_" in n) == (axis == "expert") for n in split)
+    assert bool(split) == (axis in ("model", "expert"))
+    assert all((".moe.w_" in n) == (axis == "expert") for n in split)
+    assert trainer._share_axes == (("data", "seq", "pipe") if axis in ("seq", "pipe") else ("data",))
 
 
 def test_data_axis_that_does_not_fit_the_world_raises_jax_error():
@@ -330,9 +335,9 @@ def test_data_axis_that_does_not_fit_the_world_raises_jax_error():
     cfg.parallel.data = 2
     want = r"^mesh: data\(2\)\*seq\(1\)\*model\(1\)\*pipe\(1\)\*expert\(1\) != devices\(1\)$"
     with pytest.raises(ValueError, match=want):
-        check_one_device(cfg, "diffusion")
+        check_parallel_fits(cfg)
     cfg.parallel.data = 1
-    check_one_device(cfg, "diffusion")
+    check_parallel_fits(cfg)
 
 
 def test_shard_batch_and_row_draws_keep_the_ranks_rows():
@@ -350,16 +355,23 @@ def test_shard_batch_and_row_draws_keep_the_ranks_rows():
 
 
 def test_dryrun_refuses_the_layouts_that_are_not_ported():
-    """The sequence and pipeline layouts still raise naming item 10; the
-    tensor and expert layouts are ported (`dryrun.LAYOUTS`)."""
-    for layout in ("seq-parallel", "pipeline", "roformer-pipeline", "dp-tp-pp", "pp-ep"):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    """JAX's nine layouts are all served (`dryrun.LAYOUTS`, with JAX's
+    axes); a layout that does not fit the ranks, or that JAX has not,
+    raises ValueError."""
+    assert set(dryrun.LAYOUTS) == {"data-parallel", "dp-tp", "seq-parallel", "pipeline", "roformer-pipeline",
+                                   "expert-parallel", "tp-ep", "dp-tp-pp", "pp-ep"}
+    assert not hasattr(dryrun, "NOT_PORTED")
+    for layout in ("pipeline", "roformer-pipeline", "dp-tp-pp", "pp-ep"):
+        with pytest.raises(ValueError, match="does not fit 2 devices"):
             dryrun.dryrun_multichip(2, layouts=(layout,))
-    assert {"dp-tp", "expert-parallel", "tp-ep"} <= set(dryrun.LAYOUTS)
+    with pytest.raises(ValueError, match="unknown dryrun layout"):
+        dryrun.dryrun_multichip(2, layouts=("ring",))
+    assert {lay for lay in dryrun.LAYOUTS if dryrun.fits(lay, 2)} == {"data-parallel", "dp-tp", "seq-parallel"}
+    assert all(dryrun.fits(lay, 8) for lay in dryrun.LAYOUTS)
 
 
 def test_dryrun_multichip_runs_a_step_of_each_trainer_on_two_ranks(capfd):
     dryrun.dryrun_multichip(2)
     out = capfd.readouterr().out
-    for name in ("diffusion", "roformer", "llama", "llama-moe"):
+    for name in ("diffusion", "roformer", "llama", "llama-moe", "seq-parallel/roformer"):
         assert f"dryrun_multichip(2): {name} ok" in out

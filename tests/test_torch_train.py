@@ -380,33 +380,38 @@ def test_unported_options_raise(tmp_path):
 
 @pytest.mark.parametrize("axis", ["data", "model", "seq", "pipe", "expert", "dcn_data"])
 def test_parallel_axes_raise_naming_item_10(tmp_path, axis, monkeypatch):
-    """`seq`, `pipe` and `dcn_data` above 1 raise when the trainer is built
-    (the JAX trainer builds its mesh from them; the port serves the data,
-    model and expert axes, ROADMAP.md Queue 1, item 10), through the entry
-    point too; a data axis of 2 on a world of one process raises JAX's
-    ValueError; `model` and `expert` of 2 on a world of two build the
-    trainer and its entry point (a rank's view: coordinate 0, no process
-    group), the model axis splitting the UNet; the default config (data
-    -1, the rest 1) builds."""
+    """Every axis is served: an axis of 2 on a world of one process raises
+    JAX's ValueError when the trainer is built, through the entry point
+    too (`dcn_data`: two slices of one process); on a world of two each
+    builds the trainer and its entry point (a rank's view: coordinate 0,
+    no process group), the model axis splitting the UNet, `seq` and `pipe`
+    replicating it over their ranks (JAX's diffusion trainer splits the
+    batch over `data` only) and `dcn_data` stacking the slices on `data`;
+    the default config (data -1, the rest 1) builds."""
     cfg = _tiny_config(tmp_path)
     setattr(cfg.parallel, axis, 2)
-    if axis in ("model", "expert"):
+    if axis == "dcn_data":
+        match = r"^mesh: 1 devices not divisible by dcn_data\(2\)$"
+    elif axis == "data":
+        match = r"^mesh: data\(2\).* != devices\(1\)$"
+    else:
+        match = rf"^mesh: 1 devices not divisible by .*{axis}\(2\)"
+    with pytest.raises(ValueError, match=match):
+        DiffusionTrainer(cfg, model_cfg=TINY_MODEL, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        build(cfg, device="cpu")
+    if axis != "data":
         from latent_diffusion_speech_tpu_torch.parallel import dist as pdist
         from latent_diffusion_speech_tpu_torch.train import devices
 
         monkeypatch.setattr(devices, "process_count", lambda: 2)
         monkeypatch.setattr(pdist, "process_count", lambda: 2)
         trainer = DiffusionTrainer(cfg, model_cfg=TINY_MODEL, device="cpu")
-        assert trainer.mesh.shape[axis] == 2 and trainer.mesh.size == 1
+        want = "data" if axis == "dcn_data" else axis
+        assert trainer.mesh.shape[want] == 2 and trainer.mesh.size == (2 if axis == "dcn_data" else 1)
         assert any(any(s) for s in trainer.shardings.values()) == (axis == "model")
-        assert build(cfg, device="cpu")[0].mesh.shape[axis] == 2
-        return
-    error, match = ((ValueError, r"mesh: data\(2\).* != devices\(1\)") if axis == "data"
-                    else (NotImplementedError, f"'{axis}': 2.*item 10"))
-    with pytest.raises(error, match=match):
-        DiffusionTrainer(cfg, model_cfg=TINY_MODEL, device="cpu")
-    with pytest.raises(error, match=match):
-        build(cfg, device="cpu")
+        assert build(cfg, device="cpu")[0].mesh.shape[want] == 2
+        monkeypatch.undo()
     assert DiffusionTrainer(_tiny_config(tmp_path), model_cfg=TINY_MODEL, device="cpu").step == 0
 
 
