@@ -1,0 +1,5 @@
+"""`audio_s_per_s`'s reading, for the cells that report `audio_s_per_s.b32`."""
+
+from lds_bench import manifest
+
+read = manifest.metric_reader("audio_s_per_s").read

@@ -1,0 +1,5 @@
+"""`idle_share.solo`'s reading, for the cells that report `audio_s_per_s.b32`."""
+
+from lds_bench import manifest
+
+read = manifest.metric_reader("idle_share.solo").read
