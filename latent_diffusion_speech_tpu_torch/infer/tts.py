@@ -35,6 +35,7 @@ from latent_diffusion_speech_tpu_torch.ops.resample import resample
 from latent_diffusion_speech_tpu_torch.ops.slicer import split_voiced
 from latent_diffusion_speech_tpu_torch.ops.volume import extract_volume, get_volume_mask
 from latent_diffusion_speech_tpu_torch.quantize.codebook import EuclideanCodebook
+from latent_diffusion_speech_tpu_torch.utils import profiler
 
 __all__ = ["TTSPipeline"]
 
@@ -132,19 +133,21 @@ class TTSPipeline:
 
         spk_id: a scalar, or a (B,) array for per-item speakers.  x_init:
         optional (B, T_bucket, M) starting noise (parity checks)."""
-        units = torch.as_tensor(units, device=self.device)
-        B, T = units.shape[:2]
-        padded_T = _bucket(T) if pad_to_bucket else T
-        if padded_T != T:
-            units = torch.cat([units, units[:, -1:].expand(B, padded_T - T, -1)], dim=1)
-        spk = torch.as_tensor(np.asarray(spk_id, np.int64), device=self.device).reshape(-1, 1)
-        spk = spk.expand(B, 1)
-        mel = self.diffusion.infer(
-            units, generator, spk_id=spk, method=method, infer_speedup=infer_speedup,
-            x_init=x_init,
-        )
-        wav = self.vocoder.infer(mel)
-        return wav[:, : T * self.vocoder.vocoder_hop_size]
+        with profiler.span("tts.infer"):
+            units = torch.as_tensor(units, device=self.device)
+            B, T = units.shape[:2]
+            profiler.count("tts.frames_requested", B * T)
+            padded_T = _bucket(T) if pad_to_bucket else T
+            if padded_T != T:
+                units = torch.cat([units, units[:, -1:].expand(B, padded_T - T, -1)], dim=1)
+            spk = torch.as_tensor(np.asarray(spk_id, np.int64), device=self.device).reshape(-1, 1)
+            spk = spk.expand(B, 1)
+            mel = self.diffusion.infer(
+                units, generator, spk_id=spk, method=method, infer_speedup=infer_speedup,
+                x_init=x_init,
+            )
+            wav = self.vocoder.infer(mel)
+            return wav[:, : T * self.vocoder.vocoder_hop_size]
 
     @torch.no_grad()
     def mel2wav(self, mel: torch.Tensor) -> torch.Tensor:

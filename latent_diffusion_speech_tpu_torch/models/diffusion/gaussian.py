@@ -35,6 +35,7 @@ from latent_diffusion_speech_tpu_torch.models.diffusion.samplers import (
 )
 from latent_diffusion_speech_tpu_torch.models.diffusion.schedule import DiffusionSchedule, NoiseSchedule
 from latent_diffusion_speech_tpu_torch.parallel import mesh as rows
+from latent_diffusion_speech_tpu_torch.utils import profiler
 
 __all__ = ["GaussianDiffusion"]
 
@@ -138,45 +139,47 @@ class GaussianDiffusion:
         q_sample(norm_spec(gt_spec), k_step - 1) with noise drawn from
         `generator` (ref diffusion.py:205-212); x_init still overrides the
         start."""
-        B, T = cond.shape[:2]
-        shallow = gt_spec is not None and k_step is not None
-        t_max = k_step if shallow else self.k_step
-        if x_init is not None:
-            x = x_init.to(device=cond.device, dtype=cond.dtype)
-        elif shallow:
-            norm = self.norm_spec(gt_spec.to(cond.device))
-            t0 = torch.full((B,), t_max - 1, dtype=torch.long, device=cond.device)
-            x = self.q_sample(norm, t0, samplers._normal(norm, generator)).to(cond.dtype)
-        else:
-            x = torch.randn((B, T, self.out_dims), generator=generator, device=cond.device,
-                            dtype=torch.float32).to(cond.dtype)
-        x, cond_p, orig_T = self._pad(x, cond)
-        params = self.prepare_sample_params() if self.prepare_sample_params is not None else None
+        with profiler.span("diffusion.sample"):
+            B, T = cond.shape[:2]
+            shallow = gt_spec is not None and k_step is not None
+            t_max = k_step if shallow else self.k_step
+            if x_init is not None:
+                x = x_init.to(device=cond.device, dtype=cond.dtype)
+            elif shallow:
+                norm = self.norm_spec(gt_spec.to(cond.device))
+                t0 = torch.full((B,), t_max - 1, dtype=torch.long, device=cond.device)
+                x = self.q_sample(norm, t0, samplers._normal(norm, generator)).to(cond.dtype)
+            else:
+                x = torch.randn((B, T, self.out_dims), generator=generator, device=cond.device,
+                                dtype=torch.float32).to(cond.dtype)
+            x, cond_p, orig_T = self._pad(x, cond)
+            profiler.count("diffusion.frames_denoised", x.shape[0] * x.shape[1])
+            params = self.prepare_sample_params() if self.prepare_sample_params is not None else None
 
-        def eps_fn(x_t, t):
-            return self.denoise_fn(params, torch.cat([x_t, cond_p.to(x_t.dtype)], dim=-1), t)
+            def eps_fn(x_t, t):
+                return self.denoise_fn(params, torch.cat([x_t, cond_p.to(x_t.dtype)], dim=-1), t)
 
-        if method is None or infer_speedup <= 1 or method == "ddpm":
-            x = ddpm_sample(eps_fn, self.schedule, x, t_max, generator)
-        elif method == "ddim":
-            x = ddim_sample(eps_fn, self.schedule, x, t_max, infer_speedup)
-        elif method == "pndm":
-            x = plms_sample(eps_fn, self.schedule, x, t_max, infer_speedup)
-        elif method == "dpm-solver":
-            ns = NoiseSchedule(self.schedule.betas[:t_max])
-            x = dpmpp_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
-        elif method == "unipc":
-            ns = NoiseSchedule(self.schedule.betas[:t_max])
-            x = unipc_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
-        elif method == "dpm-solver-singlestep":
-            ns = NoiseSchedule(self.schedule.betas[:t_max])
-            x = dpmpp_singlestep_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
-        elif method == "dpm-solver-adaptive":
-            ns = NoiseSchedule(self.schedule.betas[:t_max])
-            x = dpmpp_adaptive_sample(eps_fn, ns, x, order=2)
-        elif method == "unipc-vary":
-            ns = NoiseSchedule(self.schedule.betas[:t_max])
-            x = unipc_vary_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
-        else:
-            raise NotImplementedError(method)
-        return self.denorm_spec(x[:, :orig_T])
+            if method is None or infer_speedup <= 1 or method == "ddpm":
+                x = ddpm_sample(eps_fn, self.schedule, x, t_max, generator)
+            elif method == "ddim":
+                x = ddim_sample(eps_fn, self.schedule, x, t_max, infer_speedup)
+            elif method == "pndm":
+                x = plms_sample(eps_fn, self.schedule, x, t_max, infer_speedup)
+            elif method == "dpm-solver":
+                ns = NoiseSchedule(self.schedule.betas[:t_max])
+                x = dpmpp_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
+            elif method == "unipc":
+                ns = NoiseSchedule(self.schedule.betas[:t_max])
+                x = unipc_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
+            elif method == "dpm-solver-singlestep":
+                ns = NoiseSchedule(self.schedule.betas[:t_max])
+                x = dpmpp_singlestep_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
+            elif method == "dpm-solver-adaptive":
+                ns = NoiseSchedule(self.schedule.betas[:t_max])
+                x = dpmpp_adaptive_sample(eps_fn, ns, x, order=2)
+            elif method == "unipc-vary":
+                ns = NoiseSchedule(self.schedule.betas[:t_max])
+                x = unipc_vary_sample(eps_fn, ns, x, steps=t_max // infer_speedup, order=2)
+            else:
+                raise NotImplementedError(method)
+            return self.denorm_spec(x[:, :orig_T])

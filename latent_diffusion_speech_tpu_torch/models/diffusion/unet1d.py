@@ -45,6 +45,7 @@ from latent_diffusion_speech_tpu_torch.ops.attention import dot_product_attentio
 from latent_diffusion_speech_tpu_torch.ops.kernels.fused_attention import fused_attention
 from latent_diffusion_speech_tpu_torch.ops.layers import (ComputeDtype, Dense, GroupNorm, LayerNorm, dense_product,
                                                           local_heads)
+from latent_diffusion_speech_tpu_torch.utils import profiler
 
 __all__ = ["UNet1DConfig", "UNet1D", "timestep_embedding"]
 
@@ -283,28 +284,31 @@ class UNet1D(nn.Module):
         h = self.conv_in(x)
         skips = [h]
         for i in range(n):
-            for j in range(cfg.layers_per_block):
-                h = self._block(f"down_{i}_res_{j}", h, temb)
-                if cfg.cross_attn[i]:
-                    h = self._block(f"down_{i}_attn_{j}", h)
-                skips.append(h)
-            if i < n - 1:
-                h = getattr(self, f"down_{i}_downsample")(h)
-                skips.append(h)
+            with profiler.span(f"unet.down.{i}"):
+                for j in range(cfg.layers_per_block):
+                    h = self._block(f"down_{i}_res_{j}", h, temb)
+                    if cfg.cross_attn[i]:
+                        h = self._block(f"down_{i}_attn_{j}", h)
+                    skips.append(h)
+                if i < n - 1:
+                    h = getattr(self, f"down_{i}_downsample")(h)
+                    skips.append(h)
 
-        h = self._block("mid_res_0", h, temb)
-        h = self._block("mid_attn", h)
-        h = self._block("mid_res_1", h, temb)
+        with profiler.span("unet.mid"):
+            h = self._block("mid_res_0", h, temb)
+            h = self._block("mid_attn", h)
+            h = self._block("mid_res_1", h, temb)
 
         rev_attn = list(reversed(cfg.cross_attn))
         for i in range(n):
-            for j in range(cfg.layers_per_block + 1):
-                h = torch.cat([h, skips.pop()], dim=-1)
-                h = self._block(f"up_{i}_res_{j}", h, temb)
-                if rev_attn[i]:
-                    h = self._block(f"up_{i}_attn_{j}", h)
-            if i < n - 1:
-                h = getattr(self, f"up_{i}_upsample")(h)
+            with profiler.span(f"unet.up.{i}"):
+                for j in range(cfg.layers_per_block + 1):
+                    h = torch.cat([h, skips.pop()], dim=-1)
+                    h = self._block(f"up_{i}_res_{j}", h, temb)
+                    if rev_attn[i]:
+                        h = self._block(f"up_{i}_attn_{j}", h)
+                if i < n - 1:
+                    h = getattr(self, f"up_{i}_upsample")(h)
 
         h = F.silu(self.conv_norm_out(h).to(dtype))
         return self.conv_out(h)

@@ -44,6 +44,7 @@ from torch import nn
 from latent_diffusion_speech_tpu_torch.models.diffusion import blocks as bl
 from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import Conv1dSame
 from latent_diffusion_speech_tpu_torch.ops.layers import Dense, GroupNorm
+from latent_diffusion_speech_tpu_torch.utils import profiler
 
 __all__ = ["UNet1DConditionConfig", "UNet1DCondition", "TimestepEmbedding1D", "GaussianFourierProjection1D",
            "timesteps_embedding"]
@@ -381,30 +382,32 @@ class UNet1DCondition(nn.Module):
 
         res_samples = [sample]
         for i, base in enumerate(self._down):
-            block = getattr(self, f"down_blocks_{i}")
-            if base in _SKIP_TYPES:
-                sample, skips, skip_sample = block(sample, emb, skip_sample=skip_sample)
-            elif base == "CrossAttnDownBlock2D":
-                extra = adapter.pop(0) if (is_adapter and adapter) else None
-                sample, skips = block(sample, emb, ehs, bias_add, ctx_bias, additional_residuals=extra)
-            elif base == "KCrossAttnDownBlock2D":
-                sample, skips = block(sample, emb, ehs, bias_add, ctx_bias)
-            elif base == "SimpleCrossAttnDownBlock2D":
-                sample, skips = block(sample, emb, ehs, bias_add=ctx_bias if ehs is not None else bias_add)
-            else:
-                sample, skips = block(sample, emb)
-                if is_adapter and adapter:
-                    sample = sample + adapter.pop(0)
-            res_samples.extend(skips)
+            with profiler.span(f"unet.down.{i}"):
+                block = getattr(self, f"down_blocks_{i}")
+                if base in _SKIP_TYPES:
+                    sample, skips, skip_sample = block(sample, emb, skip_sample=skip_sample)
+                elif base == "CrossAttnDownBlock2D":
+                    extra = adapter.pop(0) if (is_adapter and adapter) else None
+                    sample, skips = block(sample, emb, ehs, bias_add, ctx_bias, additional_residuals=extra)
+                elif base == "KCrossAttnDownBlock2D":
+                    sample, skips = block(sample, emb, ehs, bias_add, ctx_bias)
+                elif base == "SimpleCrossAttnDownBlock2D":
+                    sample, skips = block(sample, emb, ehs, bias_add=ctx_bias if ehs is not None else bias_add)
+                else:
+                    sample, skips = block(sample, emb)
+                    if is_adapter and adapter:
+                        sample = sample + adapter.pop(0)
+                res_samples.extend(skips)
         if is_controlnet:
             res_samples = [r + c for r, c in zip(res_samples, down_block_additional_residuals)]
 
-        if self._mid == "UNetMidBlock2DCrossAttn":
-            sample = self.mid_block(sample, emb, ehs, bias_add, ctx_bias)
-        elif self._mid == "UNetMidBlock2DSimpleCrossAttn":
-            sample = self.mid_block(sample, emb, ehs, bias_add=ctx_bias if ehs is not None else bias_add)
-        elif self._mid is not None:
-            sample = self.mid_block(sample, emb)
+        with profiler.span("unet.mid"):
+            if self._mid == "UNetMidBlock2DCrossAttn":
+                sample = self.mid_block(sample, emb, ehs, bias_add, ctx_bias)
+            elif self._mid == "UNetMidBlock2DSimpleCrossAttn":
+                sample = self.mid_block(sample, emb, ehs, bias_add=ctx_bias if ehs is not None else bias_add)
+            elif self._mid is not None:
+                sample = self.mid_block(sample, emb)
         if is_controlnet:
             sample = sample + mid_block_additional_residual
 
@@ -412,20 +415,21 @@ class UNet1DCondition(nn.Module):
         # its level's contribution, FIR-upsampled level to level
         skip_sample = None
         for i, base in enumerate(self._up):
-            block = getattr(self, f"up_blocks_{i}")
-            n_skips = self._n_skips[i]
-            skips = tuple(res_samples[len(res_samples) - n_skips:]) if n_skips else ()
-            del res_samples[len(res_samples) - len(skips):]
-            if base in _SKIP_TYPES:
-                sample, skip_sample = block(sample, skips, emb, skip_sample=skip_sample)
-            elif base in ("CrossAttnUpBlock2D", "KCrossAttnUpBlock2D"):
-                sample = block(sample, skips, emb, ehs, bias_add, ctx_bias)
-            elif base == "SimpleCrossAttnUpBlock2D":
-                sample = block(sample, skips, emb, ehs, bias_add=ctx_bias if ehs is not None else bias_add)
-            elif base in _NO_SKIP_UP:
-                sample = block(sample, emb)
-            else:
-                sample = block(sample, skips, emb)
+            with profiler.span(f"unet.up.{i}"):
+                block = getattr(self, f"up_blocks_{i}")
+                n_skips = self._n_skips[i]
+                skips = tuple(res_samples[len(res_samples) - n_skips:]) if n_skips else ()
+                del res_samples[len(res_samples) - len(skips):]
+                if base in _SKIP_TYPES:
+                    sample, skip_sample = block(sample, skips, emb, skip_sample=skip_sample)
+                elif base in ("CrossAttnUpBlock2D", "KCrossAttnUpBlock2D"):
+                    sample = block(sample, skips, emb, ehs, bias_add, ctx_bias)
+                elif base == "SimpleCrossAttnUpBlock2D":
+                    sample = block(sample, skips, emb, ehs, bias_add=ctx_bias if ehs is not None else bias_add)
+                elif base in _NO_SKIP_UP:
+                    sample = block(sample, emb)
+                else:
+                    sample = block(sample, skips, emb)
 
         if hasattr(self, "conv_norm_out"):
             sample = bl.get_activation(cfg.act_fn)(self.conv_norm_out(sample).to(self.conv_out.compute_dtype))

@@ -40,6 +40,7 @@ from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d_condition import 
 from latent_diffusion_speech_tpu_torch.ops.kernels.unet_fused import pack_unet_params, unet_fwd
 from latent_diffusion_speech_tpu_torch.ops.layers import Dense, cast_compute_dtype, resolve_device, seeded
 from latent_diffusion_speech_tpu_torch.ops.weight_quant import dequantize_tree, quantize_tree_int8
+from latent_diffusion_speech_tpu_torch.utils import profiler
 
 __all__ = ["Unit2MelConfig", "Unit2Mel", "Unit2MelSystem"]
 
@@ -217,23 +218,26 @@ class Unit2MelSystem:
     def _prepare_sample_params(self):
         """Once per `infer` call: the fused kernel's weight layout, the
         UNet's int8 weights, or None."""
-        if self._pallas_unet_active():
-            return pack_unet_params(self.module.unet, self.cfg.unet_config())
-        if self.weight_quant == "int8":
-            return _Int8Unet(quantize_tree_int8(dict(self.module.unet.named_parameters())))
-        return None
+        with profiler.span("diffusion.prepare"):
+            if self._pallas_unet_active():
+                return pack_unet_params(self.module.unet, self.cfg.unet_config())
+            if self.weight_quant == "int8":
+                return _Int8Unet(quantize_tree_int8(dict(self.module.unet.named_parameters())))
+            return None
 
     def _denoise(self, packed, x, t):
-        if isinstance(packed, _Int8Unet):
-            weights = dequantize_tree(packed.qparams, dtype=self.dtype)
-            return functional_call(self.module.unet, weights, (x, t))
-        if packed is not None and x.shape[0] == 1:
-            return unet_fwd(packed, x, t, self.cfg.unet_config())
-        return self.module.denoise(x, t)
+        with profiler.span("denoiser.eval"):
+            if isinstance(packed, _Int8Unet):
+                weights = dequantize_tree(packed.qparams, dtype=self.dtype)
+                return functional_call(self.module.unet, weights, (x, t))
+            if packed is not None and x.shape[0] == 1:
+                return unet_fwd(packed, x, t, self.cfg.unet_config())
+            return self.module.denoise(x, t)
 
     @torch.no_grad()
     def condition(self, units, volume=None, spk_id=None, aug_shift=None) -> torch.Tensor:
-        return self.module.condition(units, volume, spk_id, aug_shift)
+        with profiler.span("diffusion.condition"):
+            return self.module.condition(units, volume, spk_id, aug_shift)
 
     def loss(self, units, gt_spec, generator=None, volume=None, spk_id=None, aug_shift=None,
              k_step=None) -> torch.Tensor:

@@ -18,6 +18,7 @@ import torch
 from latent_diffusion_speech_tpu_torch.models.vaegan.codec import HifiVAEGAN
 from latent_diffusion_speech_tpu_torch.models.vaegan.config import VAEGANConfig
 from latent_diffusion_speech_tpu_torch.ops.resample import resample
+from latent_diffusion_speech_tpu_torch.utils import profiler
 
 __all__ = ["Vocoder"]
 
@@ -74,6 +75,7 @@ class Vocoder:
     @torch.no_grad()
     def infer(self, latents: torch.Tensor) -> torch.Tensor:
         """(B, T, C) sampled latents -> (B, T*hop) waveform."""
-        return self.generator(latents)
+        with profiler.span("vocoder.infer"):
+            return self.generator(latents)
 
     decode = infer

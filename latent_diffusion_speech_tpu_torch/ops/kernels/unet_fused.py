@@ -44,6 +44,7 @@ from latent_diffusion_speech_tpu_torch.ops.kernels.fused_attention import (
     SUPPORTED_HEAD_DIMS,
     fused_attention_plain,
 )
+from latent_diffusion_speech_tpu_torch.utils import profiler
 
 __all__ = [
     "build_unet_plan",
@@ -609,7 +610,9 @@ def _build_table(packed: PackedUNet, T: int) -> _Table:
 
 def _table(packed: PackedUNet, T: int) -> _Table:
     if T not in packed._tables:
-        packed._tables[T] = _build_table(packed, T)
+        profiler.count("unet_fused.table_builds")
+        with profiler.span("unet_fused.table_build"):
+            packed._tables[T] = _build_table(packed, T)
     return packed._tables[T]
 
 
