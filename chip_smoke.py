@@ -1318,6 +1318,14 @@ def compare_flagship_k4_k5(dev, card: str, k4_system, k5_system) -> None:
           f"{[round(t, 4) for t in times['K4']]} s, K5 {[round(t, 4) for t in times['K5']]} s [{card}]")
 
 
+def eager_denoiser(system):
+    """A context in which `system`'s sampler (a `Unit2MelSystem`'s) calls the
+    eager module at every evaluation: on the card `_denoise` replays a CUDA
+    graph captured earlier, which a function patched into the UNet since
+    (a plain attention for a reference run) would not reach."""
+    return mock.patch.object(system.diffusion, "denoise_fn", lambda params, x, t: system.module.denoise(x, t))
+
+
 def check_general_against_plain(dev):
     """The general denoiser's 20-step diffusion + vocoder with K5 against
     the same run with K5's plain version, f32, same units and x_init
@@ -1343,7 +1351,8 @@ def check_general_against_plain(dev):
     attention.flash_attention = lambda q, k, v, bias=None, mask=None, is_causal=False, scale=None: (
         k5.flash_attention_plain(q, k, v, is_causal, scale))
     try:
-        ref = pipe.infer(units, spk_id=2, x_init=x_init)
+        with eager_denoiser(pipe.diffusion):
+            ref = pipe.infer(units, spk_id=2, x_init=x_init)
     finally:
         attention.flash_attention = k5.flash_attention
     err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
@@ -1443,7 +1452,8 @@ def zoo(dev, card: str) -> dict:
         attention.flash_attention = lambda q, k, v, bias=None, mask=None, is_causal=False, scale=None: (
             k5.flash_attention_plain(q, k, v, is_causal, scale))
         try:
-            ref = pipe.infer(units, spk_id=2, x_init=x_init)
+            with eager_denoiser(pipe.diffusion):
+                ref = pipe.infer(units, spk_id=2, x_init=x_init)
         finally:
             attention.flash_attention = k5.flash_attention
         err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
@@ -1513,7 +1523,8 @@ def check_slice_against_plain(dev):
     got = pipe.infer(units, spk_id=2, x_init=x_init)
     unet1d.fused_attention = lambda q, k, v: k4.fused_attention_plain(q, k, v)[0]
     try:
-        ref = pipe.infer(units, spk_id=2, x_init=x_init)
+        with eager_denoiser(pipe.diffusion):
+            ref = pipe.infer(units, spk_id=2, x_init=x_init)
     finally:
         unet1d.fused_attention = k4.fused_attention
     err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
@@ -1991,9 +2002,10 @@ def svc(dev, card: str) -> dict:
         raise AssertionError(f"load_audio: {sr} Hz, {len(audio)} samples")
 
     # each step's synchronised wall time per call; the units of each
-    # segment; denoiser evaluations; K4's shapes
+    # segment; denoiser evaluations; K4's shapes (a denoiser graph's replays
+    # launch K4 without calling Python: shapes only, no calls)
     steps: dict = {}
-    units_seen, count, k4_shapes = [], {"evals": 0}, {}
+    units_seen, count, k4_shapes = [], {"evals": 0}, set()
 
     def each(name, fn):
         def wrapper(*a, **kw):
@@ -2017,7 +2029,7 @@ def svc(dev, card: str) -> dict:
         return real_denoise(*a)
 
     def attention(q, *a, **kw):
-        k4_shapes[tuple(q.shape)] = k4_shapes.get(tuple(q.shape), 0) + 1
+        k4_shapes.add(tuple(q.shape))
         return real_attention(q, *a, **kw)
 
     patches = [mock.patch.object(tts, name, each(label, getattr(tts, name))) for name, label in (
@@ -2109,7 +2121,7 @@ def svc(dev, card: str) -> dict:
 
     # K4 at every shape the svc call launched it at
     gen = torch.Generator(device=dev).manual_seed(5)
-    print(f"svc K4 shapes (B, T, H, D): calls {dict(sorted(k4_shapes.items()))}")
+    print(f"svc K4 shapes (B, T, H, D): {sorted(k4_shapes)}")
     for B, T, H, D in k4_rows:
         k4_bf16_row(k4, gen, dev, B, T, D)
     del pipe, encoder, whisper
@@ -4284,8 +4296,8 @@ def migrate(dev, card: str) -> dict:
         if geometry != (128, (256, 384, 512, 512), 256, 4099, (4096, 1280), 44100):
             raise AssertionError(f"load_reference_pipeline geometry {geometry}")
         evaluations = []
-        denoise = pipe.diffusion.module.denoise
-        pipe.diffusion.module.denoise = lambda x, t_: evaluations.append(1) or denoise(x, t_)
+        denoise = pipe.diffusion.diffusion.denoise_fn
+        pipe.diffusion.diffusion.denoise_fn = lambda *a: evaluations.append(1) or denoise(*a)
         t = time.perf_counter()
         wav, sr = pipe.tts(TEXT, language="EN", method=cfg.common.infer.method, infer_speedup=SERVE_SPEEDUP)
         torch.cuda.synchronize()

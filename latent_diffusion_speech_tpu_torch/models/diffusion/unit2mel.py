@@ -17,7 +17,9 @@ are K4 in the flagship, and the plain path ('xla') or K4 ('fused', T <=
 block zoo's attention blocks train with 'xla').
 `Unit2MelSystem(unet_impl=...)` picks how the sampler runs the flagship
 denoiser: 'xla' (and 'auto') the eager module, 'pallas' the fused
-whole-UNet kernel (`ops/kernels/unet_fused.py`) for B=1.  `Unit2MelSystem.loss`
+whole-UNet kernel (`ops/kernels/unet_fused.py`) for B=1.  Serving on the card
+replays the eager module from a CUDA graph per input shape (`graphs.py`;
+`Unit2MelSystem.graph_engages` says when).  `Unit2MelSystem.loss`
 is the training loss; the diffusion trainer (`train/diffusion_trainer.py`)
 trains `Unit2MelSystem.module` in place.
 """
@@ -32,6 +34,7 @@ from torch import nn
 from torch.func import functional_call
 
 from latent_diffusion_speech_tpu_torch.models.diffusion.gaussian import GaussianDiffusion
+from latent_diffusion_speech_tpu_torch.models.diffusion.graphs import DenoiserGraphs
 from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import UNet1D, UNet1DConfig
 from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d_condition import (
     UNet1DCondition,
@@ -201,6 +204,7 @@ class Unit2MelSystem:
         if state_dict is not None:
             module.load_state_dict(state_dict)
         self.module = cast_compute_dtype(module, dtype).to(self.device).eval()
+        self.graphs = DenoiserGraphs()
         self.diffusion = GaussianDiffusion(
             denoise_fn=self._denoise,
             out_dims=cfg.out_dims,
@@ -219,20 +223,32 @@ class Unit2MelSystem:
         """Once per `infer` call: the fused kernel's weight layout, the
         UNet's int8 weights, or None."""
         with profiler.span("diffusion.prepare"):
+            self.graphs.check(self.module.unet)
             if self._pallas_unet_active():
                 return pack_unet_params(self.module.unet, self.cfg.unet_config())
             if self.weight_quant == "int8":
                 return _Int8Unet(quantize_tree_int8(dict(self.module.unet.named_parameters())))
             return None
 
+    def graph_engages(self, x) -> bool:
+        """Whether an evaluation of the eager branch replays from a CUDA
+        graph: on a CUDA device, under `torch.no_grad`, with the module in
+        eval mode."""
+        return x.is_cuda and not torch.is_grad_enabled() and not self.module.training
+
     def _denoise(self, packed, x, t):
         with profiler.span("denoiser.eval"):
             if isinstance(packed, _Int8Unet):
                 weights = dequantize_tree(packed.qparams, dtype=self.dtype)
-                return functional_call(self.module.unet, weights, (x, t))
-            if packed is not None and x.shape[0] == 1:
-                return unet_fwd(packed, x, t, self.cfg.unet_config())
-            return self.module.denoise(x, t)
+                out = functional_call(self.module.unet, weights, (x, t))
+            elif packed is not None and x.shape[0] == 1:
+                out = unet_fwd(packed, x, t, self.cfg.unet_config())
+            elif self.graph_engages(x):
+                return self.graphs(self.module.unet, x, t)
+            else:
+                out = self.module.denoise(x, t)
+            profiler.count("denoiser.graph_bypasses")
+            return out
 
     @torch.no_grad()
     def condition(self, units, volume=None, spk_id=None, aug_shift=None) -> torch.Tensor:

@@ -46,6 +46,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p]  # (const ArDecodeArgs*, stream o
 
 # kernel launches since the last reset (chip_smoke.py resets and reads it)
 launches = 0
+build.counts_launches(__name__, "launches")
 _packed: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  # model -> its packed weights (`_pack`)
 
 _POINTERS = (

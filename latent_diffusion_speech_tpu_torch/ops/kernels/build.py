@@ -18,6 +18,12 @@ attention wrappers pass each launch's arguments as one packed struct
 Python ints one by one costs several µs a call.  `attention_strides` and
 `attention_plan` hold the checks and the launch plan that the K4 and K5
 wrappers share.
+
+Each wrapper counts its launches in module-level ints (`launches`, ...)
+and registers them with `counts_launches`.  A CUDA graph launches kernels
+without calling their wrappers: whoever replays one adds, with
+`add_launches`, what `launch_counts` read its capture count, so every
+registered counter counts the kernels that ran.
 """
 
 from __future__ import annotations
@@ -28,16 +34,18 @@ import math
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["load_library", "build_info", "entry", "check_aligned", "attention_strides", "attention_plan",
-           "launch_packed", "PACKED_ARGTYPES", "HEAD_DIMS", "BWD_HEAD_DIMS", "CSRC_DIR"]
+           "launch_packed", "counts_launches", "launch_counts", "add_launches", "PACKED_ARGTYPES", "HEAD_DIMS",
+           "BWD_HEAD_DIMS", "CSRC_DIR"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -54,6 +62,24 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _info: dict = {}
 _entries: dict = {}  # name -> (library, its function with argtypes set)
+_counters: Dict[Tuple[str, str], None] = {}  # (module name, attribute) of each wrapper's launch counters
+
+
+def counts_launches(module: str, *names: str) -> None:
+    """Registers the module-level ints `names` of the wrapper `module` as
+    launch counters."""
+    _counters.update(((module, name), None) for name in names)
+
+
+def launch_counts() -> Dict[Tuple[str, str], int]:
+    """Every registered launch counter's value."""
+    return {(m, name): getattr(sys.modules[m], name) for m, name in _counters}
+
+
+def add_launches(counts: Dict[Tuple[str, str], int]) -> None:
+    """Adds `counts` (as `launch_counts` keys them) to the counters."""
+    for (m, name), n in counts.items():
+        setattr(sys.modules[m], name, getattr(sys.modules[m], name) + n)
 
 
 def _nvcc() -> str:

@@ -56,6 +56,7 @@ ARGS = struct.Struct("<5q9q6if4x")
 # mask, since the last reset (chip_smoke.py resets and reads them)
 launches = 0
 plain_routes = 0
+build.counts_launches(__name__, "launches", "plain_routes")
 
 
 def flash_attention_plain(

@@ -83,6 +83,7 @@ _counters: dict = {}  # device index -> int32 zeros the backward's dq merge coun
 # kernel launches since the last reset (chip_smoke.py resets and reads them)
 launches = 0
 bwd_launches = 0
+build.counts_launches(__name__, "launches", "bwd_launches")
 
 
 def fused_attention_plain(

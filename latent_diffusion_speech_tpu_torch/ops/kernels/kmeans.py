@@ -16,6 +16,8 @@ import ctypes
 
 import torch
 
+from latent_diffusion_speech_tpu_torch.ops.kernels import build
+
 __all__ = ["kmeans_argmin", "kmeans_argmin_plain", "split_codes"]
 
 BLOCK_ROWS = 128   # rows of x per block (BM in the kernel)
@@ -25,6 +27,7 @@ ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 # kernel launches since the last reset (chip_smoke.py resets and reads it)
 launches = 0
+build.counts_launches(__name__, "launches")
 
 
 def kmeans_argmin_plain(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -61,8 +64,6 @@ def kmeans_argmin(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if codebook.device != x.device:
         raise ValueError("x and codebook on different devices")
     x, codebook = x.contiguous(), codebook.contiguous()
-    from latent_diffusion_speech_tpu_torch.ops.kernels.build import entry
-
     N, D = x.shape
     K = codebook.shape[0]
     ids = torch.empty((N,), dtype=torch.int32, device=x.device)
@@ -75,7 +76,7 @@ def kmeans_argmin(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     part_d = torch.empty((splits, N), dtype=torch.float32, device=x.device)
     part_i = torch.empty((splits, N), dtype=torch.int32, device=x.device)
     vec = int(D % 4 == 0 and x.data_ptr() % 16 == 0 and codebook.data_ptr() % 16 == 0)
-    fn = entry("kmeans_argmin_f32", ARGTYPES)
+    fn = build.entry("kmeans_argmin_f32", ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), codebook.data_ptr(), cb_sq.data_ptr(), part_d.data_ptr(),

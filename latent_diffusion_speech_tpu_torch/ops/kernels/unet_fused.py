@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from latent_diffusion_speech_tpu_torch.models.diffusion.unet1d import timestep_embedding
+from latent_diffusion_speech_tpu_torch.ops.kernels import build
 from latent_diffusion_speech_tpu_torch.ops.kernels.fused_attention import (
     SUPPORTED_HEAD_DIMS,
     fused_attention_plain,
@@ -62,6 +63,7 @@ ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
 
 # kernel launches since the last reset (chip_smoke.py resets and reads it)
 launches = 0
+build.counts_launches(__name__, "launches")
 
 
 # ---------------------------------------------------------------------------
@@ -663,8 +665,6 @@ def unet_fwd(packed: PackedUNet, x: torch.Tensor, t: torch.Tensor, cfg=None,
         raise RuntimeError(f"unet_fwd: no kernel for device {x.device}")
     _check_cfg(packed, cfg)
     _check(packed, x)
-    from latent_diffusion_speech_tpu_torch.ops.kernels.build import entry
-
     T = x.shape[1]
     table = _table(packed, T)
     dev = x.device
@@ -681,7 +681,7 @@ def unet_fwd(packed: PackedUNet, x: torch.Tensor, t: torch.Tensor, cfg=None,
     if phase_ns is not None and (phase_ns.dtype != torch.int64 or phase_ns.numel() < table.phases + 1
                                  or phase_ns.device != dev):
         raise ValueError(f"phase_ns must be an int64 tensor of {table.phases + 1} elements on {dev}")
-    fn = entry(_DTYPES[packed.dtype], ARGTYPES)
+    fn = build.entry(_DTYPES[packed.dtype], ARGTYPES)
     info = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

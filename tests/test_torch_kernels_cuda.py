@@ -822,6 +822,63 @@ def test_bf16_wrappers_replay_in_a_cuda_graph(dev):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("denoiser,B,unet_impl", [("general", 4, "auto"), ("flagship", 2, "auto"),
+                                                  ("flagship", 2, "pallas")])
+def test_denoiser_graphs_replay_the_eager_sampler(dev, denoiser, B, unet_impl):
+    """bf16 at the shipped widths: a 20-evaluation DPM-Solver++ sample
+    through `Unit2MelSystem` at two frame lengths equals, bit for bit, the
+    same sample through the eager module, with the same kernel launches
+    counted; each shape warms up once and captures once, the other 18
+    evaluations replay.  After an in-place optimizer step a replay equals a
+    fresh eager evaluation; a parameter moved to new storage drops the
+    graphs."""
+    from latent_diffusion_speech_tpu_torch.utils import profiler
+
+    cfg = Unit2MelConfig(denoiser=denoiser, attn_impl="pallas" if denoiser == "general" else "xla")
+    sys_ = Unit2MelSystem(cfg, dtype=torch.bfloat16, device=dev, seed=0, unet_impl=unet_impl)
+    eager = copy.copy(sys_.diffusion)
+    eager.denoise_fn = lambda params, x, t: sys_.module.denoise(x, t)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    profiler.disable()
+    profiler.drain()
+    for T in (96, 200):
+        cond = torch.randn((B, T, cfg.n_hidden), generator=gen, device=dev).bfloat16()
+        x0 = torch.randn((B, T, cfg.out_dims), generator=gen, device=dev)
+        runs = []
+        for diffusion, record in ((eager, False), (sys_.diffusion, True)):
+            before = (k5.launches, k4.launches, k5.plain_routes)
+            if record:
+                profiler.enable()
+            out = diffusion.sample(cond, method="dpm-solver", infer_speedup=50, x_init=x0)
+            profiler.disable()
+            runs.append((out, (k5.launches - before[0], k4.launches - before[1], k5.plain_routes - before[2])))
+        (want, want_n), (got, got_n) = runs
+        assert torch.equal(got, want)
+        assert got_n == want_n and got_n[2] == 0 and got_n[0 if denoiser == "general" else 1] == 20 * 32
+    counters = profiler.drain()[1]
+    assert {k: counters.get(k, 0) for k in ("denoiser.graph_warmups", "denoiser.graph_captures",
+                                            "denoiser.graph_replays", "denoiser.graph_bypasses")} == {
+        "denoiser.graph_warmups": 2, "denoiser.graph_captures": 2, "denoiser.graph_replays": 2 * 20 - 2 * 2,
+        "denoiser.graph_bypasses": 0}
+    assert len(sys_.graphs) == 2
+
+    unet = sys_.module.unet
+    x = torch.randn((B, 200, cfg.out_dims + cfg.n_hidden), generator=gen, device=dev).bfloat16()
+    t = torch.full((B,), 321.5, device=dev)
+    opt = torch.optim.SGD(unet.parameters(), lr=1e-2)
+    for p in unet.parameters():
+        p.grad = torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+    opt.step()
+    with torch.no_grad():
+        sys_.graphs.check(unet)
+        assert len(sys_.graphs) == 2
+        assert torch.equal(sys_._denoise(None, x, t), sys_.module.denoise(x, t))
+        w = next(unet.parameters())
+        w.data = w.data.clone()
+        sys_.graphs.check(unet)
+        assert len(sys_.graphs) == 0
+
+
 @pytest.mark.parametrize("what", ["pointer", "stride"])
 def test_bf16_misaligned_views_raise(dev, what):
     """The tensor-core kernels copy 16 bytes at a time: a q whose data
